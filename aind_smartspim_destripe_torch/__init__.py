@@ -1,0 +1,19 @@
+"""
+aind_smartspim_destripe_torch — the PyTorch / CUDA port of the SmartSPIM
+destriping framework, for one NVIDIA H100.
+
+It mirrors ``aind_smartspim_destripe_tpu`` (the JAX reference, which it
+never imports beyond its JAX-free ``io`` and ``utils.provenance`` modules):
+
+- ``ops``     — the numpy plan builders, the destripe step in torch, and its
+                CUDA kernels (``csrc/``: the banded DWT passes K1-K4, the
+                Otsu histogram, the masked row median and the notch tail)
+                with their plain twins;
+- ``runtime`` — the streaming host<->device pipeline and tracing;
+- ``io``      — the reference's store IO and the blosc-zstd codec build;
+- ``utils``   — logging, resource profiling, system information.
+
+``zarr_destriper`` and ``run_capsule`` carry the production Zarr path.
+"""
+
+__version__ = "0.1.0"

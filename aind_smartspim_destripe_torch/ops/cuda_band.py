@@ -1,0 +1,353 @@
+"""
+The banded DWT passes of the destripe step: K1-K4 wrappers, their plain
+PyTorch twins, and the host builder of the band form the kernels read.
+
+Counterpart of ``aind_smartspim_destripe_tpu/ops/pallas_band.py``. Each
+wrapper dispatches on the device of its input: a CPU tensor takes the plain
+twin (the dense-operator ``torch.matmul`` form with the same prologue and
+epilogue, also callable directly as ``<wrapper>_plain`` on any device), a
+CUDA tensor launches the Hopper kernel of ``csrc/band.cu`` (built and
+launched by :mod:`.cuda_build`) or raises. There is no fallback between the
+two. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+
+- :func:`an_x_lowpass_log1p` (K1): ``log(1 + x) @ A_x_lo^T`` along rows,
+  raw uint16 or f32 in, with the classifier's partial sums;
+- :func:`an_y_pass` (K2): the lowpass and highpass y analysis, with the
+  per-plane range of ``|cH|``;
+- :func:`syn_y_pass` (K3): ``S_y[:, :L] @ corr + S_y[:, L:] @ delta``;
+- :func:`syn_x_exp` (K4): ``stacked @ S_x_lo^T``, optionally fused with
+  ``exp(log(1 + x) + corr) + 1`` and the flat-field or wrap epilogue.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .cuda_build import check, launch, on_cuda
+from .flatfield import flatfield_correction, wrap_cast
+
+__all__ = [
+    "band_form",
+    "band_dense",
+    "band_level_forms",
+    "an_x_lowpass_log1p",
+    "an_y_pass",
+    "syn_y_pass",
+    "syn_x_exp",
+    "an_x_lowpass_log1p_plain",
+    "an_y_pass_plain",
+    "syn_y_pass_plain",
+    "syn_x_exp_plain",
+    "KERNELS",
+]
+
+# Launch geometry, shared with the kernels through their arguments: K1/K4
+# run one thread per output column, K2/K3 blocks of columns x rows (powers
+# of two, as the block reductions require).
+_ROW_THREADS = 256
+_COLS, _ROWS = 64, 4
+
+
+# ---------------------------------------------------------------------------
+# Host: band form of a dense operator
+# ---------------------------------------------------------------------------
+
+
+def band_dense(start: np.ndarray, coef: np.ndarray, n: int) -> np.ndarray:
+    """The dense (m, n) operator a band form ``(start, coef)`` encodes."""
+    m, K = coef.shape
+    dense = np.zeros((m, n), coef.dtype)
+    cols = start[:, None].astype(np.int64) + np.arange(K)[None, :]
+    np.put_along_axis(dense, cols, coef, axis=1)
+    return dense
+
+
+def band_form(*mats: np.ndarray) -> Tuple[np.ndarray, Tuple[np.ndarray, ...]]:
+    """Compact band form of dense operators sharing their rows' support:
+    ``start`` (m,) int32 and one ``coef`` (m, K) float32 per operator, with
+    ``A[i, start[i] + k] = coef[i, k]`` and every other entry zero. K is the
+    widest row support; starts clamp to ``n - K`` so every window stays in
+    bounds. Raises ValueError unless the band form rebuilds each operator
+    exactly."""
+    mats = tuple(np.asarray(a, np.float32) for a in mats)
+    m, n = mats[0].shape
+    nz = np.zeros((m, n), bool)
+    for a in mats:
+        if a.shape != (m, n):
+            raise ValueError(f"operator shapes differ: {a.shape} vs {(m, n)}")
+        nz |= a != 0
+    has = nz.any(axis=1)
+    first = np.where(has, nz.argmax(axis=1), 0)
+    last = np.where(has, n - 1 - nz[:, ::-1].argmax(axis=1), 0)
+    K = int((last - first + 1)[has].max()) if has.any() else 1
+    if K > n:  # pragma: no cover - a row cannot be wider than the matrix
+        raise ValueError(f"band width {K} exceeds the axis length {n}")
+    start = np.minimum(first, n - K).astype(np.int32)
+    cols = start[:, None].astype(np.int64) + np.arange(K)[None, :]
+    coefs = tuple(
+        np.ascontiguousarray(np.take_along_axis(a, cols, axis=1))
+        for a in mats
+    )
+    for a, c in zip(mats, coefs):
+        if not np.array_equal(band_dense(start, c, n), a):
+            raise ValueError("operator is not banded within its row support")
+    return start, coefs
+
+
+def band_level_forms(an_y, an_x_lo, syn_y, syn_x_lo) -> dict:
+    """Band forms of one banded level's four dense operators (numpy):
+    ``an_x_lo`` (L_w, W) for K1, ``an_y`` (2 L_h, H) for K2 (lowpass and
+    highpass halves share their starts), ``syn_y`` (H, 2 L_h) for K3 (the
+    cA-correction and cH-delta halves share theirs) and ``syn_x_lo``
+    (W, L_w) for K4."""
+    L_h = an_y.shape[0] // 2
+    k1_start, (k1_coef,) = band_form(an_x_lo)
+    k2_start, (k2_lo, k2_hi) = band_form(an_y[:L_h], an_y[L_h:])
+    k3_start, (k3_lo, k3_hi) = band_form(syn_y[:, :L_h], syn_y[:, L_h:])
+    k4_start, (k4_coef,) = band_form(syn_x_lo)
+    return {
+        "k1_start": k1_start, "k1_coef": k1_coef,
+        "k2_start": k2_start, "k2_lo": k2_lo, "k2_hi": k2_hi,
+        "k3_start": k3_start, "k3_lo": k3_lo, "k3_hi": k3_hi,
+        "k4_start": k4_start, "k4_coef": k4_coef,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# K1: analysis x-pass, lowpass half, log(1 + x) fused
+# ---------------------------------------------------------------------------
+
+
+def an_x_lowpass_log1p_plain(x, a_lo, log1p=True, cls_cut=None):
+    """Plain twin of :func:`an_x_lowpass_log1p`, on any device."""
+    xf = x.to(torch.float32)
+    out = torch.matmul(torch.log(1.0 + xf) if log1p else xf, a_lo.t())
+    if cls_cut is None:
+        return out
+    m = xf >= cls_cut
+    xd = xf.to(torch.float64)
+    dims = (1, 2)
+    sums = torch.stack([
+        m.sum(dims, dtype=torch.float64),
+        (~m).sum(dims, dtype=torch.float64),
+        torch.where(m, xd, 0.0).sum(dims),
+        torch.where(m, 0.0, xd).sum(dims),
+    ], dim=1)
+    return out, sums.to(torch.float32)
+
+
+def an_x_lowpass_log1p(
+    x: torch.Tensor,  # (B, H, W) uint16 or float32
+    a_lo: torch.Tensor,  # (L, W) dense lowpass analysis operator
+    start: torch.Tensor,  # (L,) int32 band form of a_lo
+    coef: torch.Tensor,  # (L, K) float32
+    log1p: bool = True,
+    cls_cut: Optional[float] = None,
+):
+    """``f(x) @ a_lo^T`` with ``f = log(1 + x)`` (or the identity when
+    ``log1p=False``): (B, H, L) float32. With ``cls_cut`` also returns the
+    classifier's per-plane sums (B, 4) float32 ``[fg_cnt, bg_cnt, fg_sum,
+    bg_sum]`` of the raw values against ``x >= cls_cut``, summed in float64
+    (exact for uint16 input) and rounded once."""
+    if not on_cuda(x):
+        return an_x_lowpass_log1p_plain(x, a_lo, log1p, cls_cut)
+
+    B, H, W = x.shape
+    L, K = coef.shape
+    dev = x.device
+    check("x", x, (torch.uint16, torch.float32), dev)
+    check("start", start, (torch.int32,), dev, (L,))
+    check("coef", coef, (torch.float32,), dev)
+    out = torch.empty((B, H, L), dtype=torch.float32, device=dev)
+    gx = _cdiv(L, _ROW_THREADS)
+    partials = (
+        None if cls_cut is None
+        else torch.empty((B, H * gx, 4), dtype=torch.float64, device=dev)
+    )
+    launch(
+        "destripe_k1", dev, x.data_ptr(), int(x.dtype == torch.uint16),
+        out.data_ptr(), _ptr(partials), start.data_ptr(), coef.data_ptr(),
+        K, B, H, W, L, int(log1p), float(cls_cut or 0.0), _ROW_THREADS,
+    )
+    an_x_lowpass_log1p.launches += 1
+    if partials is None:
+        return out
+    return out, partials.sum(dim=1).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# K2: analysis y-pass, lowpass and highpass together
+# ---------------------------------------------------------------------------
+
+
+def an_y_pass_plain(x, a_y):
+    """Plain twin of :func:`an_y_pass`, on any device."""
+    L = a_y.shape[0] // 2
+    lox = torch.matmul(a_y, x)
+    lo, hi = lox[:, :L], lox[:, L:]
+    a = hi.abs()
+    return lo, hi, (a.amin(dim=(1, 2)), a.amax(dim=(1, 2)))
+
+
+def an_y_pass(
+    x: torch.Tensor,  # (B, H, Wc) float32 — the x-pass output
+    a_y: torch.Tensor,  # (2L, H) dense analysis operator [lowpass; highpass]
+    start: torch.Tensor,  # (L,) int32
+    coef_lo: torch.Tensor,  # (L, K) float32
+    coef_hi: torch.Tensor,  # (L, K) float32
+):
+    """Returns ``(lo, hi, (min|hi|, max|hi|))``: the cA and cH bands, each
+    (B, L, Wc) float32, and the per-plane extremes of ``|cH|`` ((B,) each),
+    which give the Otsu bin range without a second read of the band."""
+    if not on_cuda(x):
+        return an_y_pass_plain(x, a_y)
+
+    B, H, Wc = x.shape
+    L, K = coef_lo.shape
+    dev = x.device
+    check("x", x, (torch.float32,), dev)
+    check("start", start, (torch.int32,), dev, (L,))
+    check("coef_lo", coef_lo, (torch.float32,), dev)
+    check("coef_hi", coef_hi, (torch.float32,), dev, (L, K))
+    lo = torch.empty((B, L, Wc), dtype=torch.float32, device=dev)
+    hi = torch.empty_like(lo)
+    gx, gy = _cdiv(Wc, _COLS), _cdiv(L, _ROWS)
+    mm = torch.empty((B, gy * gx, 2), dtype=torch.float32, device=dev)
+    launch(
+        "destripe_k2", dev, x.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        mm.data_ptr(), start.data_ptr(), coef_lo.data_ptr(),
+        coef_hi.data_ptr(), K, B, H, Wc, L, _COLS, _ROWS,
+    )
+    an_y_pass.launches += 1
+    return lo, hi, (mm[..., 0].amin(dim=1), mm[..., 1].amax(dim=1))
+
+
+# ---------------------------------------------------------------------------
+# K3: y synthesis of the correction
+# ---------------------------------------------------------------------------
+
+
+def syn_y_pass_plain(corr, delta, s_y):
+    """Plain twin of :func:`syn_y_pass`, on any device."""
+    L = s_y.shape[1] // 2
+    if corr is None:
+        return torch.matmul(s_y[:, L:], delta)
+    return torch.matmul(s_y, torch.cat([corr, delta], dim=1))
+
+
+def syn_y_pass(
+    corr: Optional[torch.Tensor],  # (B, L, Wc) float32, or None
+    delta: torch.Tensor,  # (B, L, Wc) float32
+    s_y: torch.Tensor,  # (Ho, 2L) dense synthesis operator, rows trimmed
+    start: torch.Tensor,  # (Ho,) int32
+    coef_lo: torch.Tensor,  # (Ho, K) float32 — the cA-correction half
+    coef_hi: torch.Tensor,  # (Ho, K) float32 — the cH-delta half
+) -> torch.Tensor:
+    """``S_y[:, :L] @ corr + S_y[:, L:] @ delta`` -> (B, Ho, Wc) float32;
+    ``corr=None`` drops the cA half (the correction starts at zero)."""
+    if not on_cuda(delta):
+        return syn_y_pass_plain(corr, delta, s_y)
+
+    B, L, Wc = delta.shape
+    Ho, K = coef_hi.shape
+    dev = delta.device
+    check("delta", delta, (torch.float32,), dev)
+    if corr is not None:
+        check("corr", corr, (torch.float32,), dev, (B, L, Wc))
+    check("start", start, (torch.int32,), dev, (Ho,))
+    check("coef_lo", coef_lo, (torch.float32,), dev, (Ho, K))
+    check("coef_hi", coef_hi, (torch.float32,), dev)
+    out = torch.empty((B, Ho, Wc), dtype=torch.float32, device=dev)
+    launch(
+        "destripe_k3", dev, _ptr(corr), delta.data_ptr(), out.data_ptr(),
+        start.data_ptr(), coef_lo.data_ptr(), coef_hi.data_ptr(),
+        K, B, L, Wc, Ho, _COLS, _ROWS,
+    )
+    syn_y_pass.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4: x synthesis, optionally fused with exp and the uint16 epilogue
+# ---------------------------------------------------------------------------
+
+_BARE, _EXP, _FLAT, _WRAP = 0, 1, 2, 3
+
+
+def syn_x_exp_plain(stacked, images, s_x_lo, flat=None, dark=None,
+                    wrap=False):
+    """Plain twin of :func:`syn_x_exp`, on any device."""
+    corr = torch.matmul(stacked, s_x_lo.t())
+    if images is None:
+        return corr
+    y = torch.exp(torch.log(1.0 + images.to(torch.float32)) + corr) + 1.0
+    if flat is not None:
+        return flatfield_correction(y, flat, dark)
+    return wrap_cast(y) if wrap else y
+
+
+def syn_x_exp(
+    stacked: torch.Tensor,  # (B, H, L) float32 — the y-synthesised correction
+    images: Optional[torch.Tensor],  # (B, H, W) uint16/float32, or None
+    s_x_lo: torch.Tensor,  # (W, L) dense lowpass synthesis operator
+    start: torch.Tensor,  # (W,) int32
+    coef: torch.Tensor,  # (W, K) float32
+    flat: Optional[torch.Tensor] = None,  # (H, W) float32
+    dark: Optional[torch.Tensor] = None,  # (H, W) float32
+    wrap: bool = False,
+) -> torch.Tensor:
+    """``corr = stacked @ s_x_lo^T``. With ``images=None`` returns corr
+    (float32). Otherwise ``y = exp(log(1 + images) + corr) + 1``, returned
+    as float32, or as uint16 through the flat-field correction
+    (``flat``/``dark``) or the modulo-2^16 wrap cast (``wrap``)."""
+    if flat is not None and wrap:
+        raise ValueError("flat-field and wrap epilogues are exclusive")
+    if (flat is not None or wrap) and images is None:
+        raise ValueError("epilogues need the original images")
+    if not on_cuda(stacked):
+        return syn_x_exp_plain(stacked, images, s_x_lo, flat, dark, wrap)
+
+    B, H, L = stacked.shape
+    W, K = coef.shape
+    dev = stacked.device
+    check("stacked", stacked, (torch.float32,), dev)
+    check("start", start, (torch.int32,), dev, (W,))
+    check("coef", coef, (torch.float32,), dev)
+    mode = _BARE
+    if images is not None:
+        check("images", images, (torch.uint16, torch.float32), dev, (B, H, W))
+        mode = _FLAT if flat is not None else (_WRAP if wrap else _EXP)
+    if flat is not None:
+        check("flat", flat, (torch.float32,), dev, (H, W))
+        check("dark", dark, (torch.float32,), dev, (H, W))
+    out_dtype = torch.uint16 if mode in (_FLAT, _WRAP) else torch.float32
+    out = torch.empty((B, H, W), dtype=out_dtype, device=dev)
+    launch(
+        "destripe_k4", dev, stacked.data_ptr(), _ptr(images),
+        int(images is not None and images.dtype == torch.uint16),
+        _ptr(flat), _ptr(dark), out.data_ptr(), start.data_ptr(),
+        coef.data_ptr(), K, B, H, L, W, mode, _ROW_THREADS,
+    )
+    syn_x_exp.launches += 1
+    return out
+
+
+KERNELS = (an_x_lowpass_log1p, an_y_pass, syn_y_pass, syn_x_exp)
+for _k in KERNELS:
+    _k.launches = 0

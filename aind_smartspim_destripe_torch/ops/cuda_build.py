@@ -1,0 +1,153 @@
+"""
+Build, load and launch the port's CUDA kernels.
+
+The CUDA sources in ``csrc/`` of this package (``band.cu``: K1-K4,
+``hist.cu``: the Otsu histogram, ``notch.cu``: row medians and the notch
+tail) are compiled with ``nvcc`` for ``sm_90a`` into one shared library with
+a plain C interface and loaded with ``ctypes``. The build happens at first
+use, into ``build/torch_kernels/`` at the root of the checkout (listed in
+``.gitignore``), under a name keyed by the sources' content, so an edited
+source never loads a stale library. Nothing here runs
+at import time: the CPU tests import this module on hosts without ``nvcc``.
+
+The wrappers of ``cuda_band``, ``cuda_hist`` and ``cuda_notch`` dispatch
+with :func:`on_cuda`, validate with :func:`check` and launch with
+:func:`launch`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+__all__ = ["kernel_library", "build_dir", "find_nvcc", "SOURCES",
+           "on_cuda", "check", "launch"]
+
+SOURCES = tuple(
+    Path(__file__).resolve().parents[1] / "csrc" / name
+    for name in ("band.cu", "hist.cu", "notch.cu")
+)
+_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def build_dir() -> Path:
+    return Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+
+def find_nvcc() -> Optional[str]:
+    """nvcc from CUDA_HOME, PATH or /usr/local/cuda, or None."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    return next((c for c in cands if c and os.path.exists(c)), None)
+
+
+_SIGNATURES = {
+    "destripe_k1": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "destripe_k2": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+    "destripe_k3": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+    "destripe_k4": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "destripe_hist": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+    + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
+    + [ctypes.c_void_p],
+    "destripe_row_median": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p],
+    "destripe_notch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_library() -> ctypes.CDLL:
+    """The compiled kernel library (built on first call). Raises
+    RuntimeError when ``nvcc`` is missing or the build fails, with the
+    compiler's message. ``kernel_library.build_seconds`` and ``.build_log``
+    record the last build (0.0 and '' when a built library was reused)."""
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in SOURCES:
+        digest.update(src.name.encode() + src.read_bytes())
+    out = build_dir() / f"libdestripe_kernels_{digest.hexdigest()[:16]}.so"
+    kernel_library.build_seconds, kernel_library.build_log = 0.0, ""
+    if not out.exists():
+        nvcc = find_nvcc()
+        if nvcc is None:
+            raise RuntimeError(
+                "cannot build the CUDA kernels: nvcc not found (looked in "
+                "$CUDA_HOME/bin, PATH and /usr/local/cuda/bin)"
+            )
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [nvcc, *_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
+            capture_output=True, text=True, timeout=900,
+        )
+        kernel_library.build_seconds = time.perf_counter() - t0
+        kernel_library.build_log = res.stdout + res.stderr
+        if res.returncode != 0:
+            names = ", ".join(src.name for src in SOURCES)
+            raise RuntimeError(
+                f"nvcc failed to build {names} (exit {res.returncode}):\n"
+                + kernel_library.build_log[-8000:]
+            )
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.destripe_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.destripe_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain route for tensors on {t.device}")
+
+
+def check(name: str, t: torch.Tensor, dtypes, device, shape=None) -> None:
+    """Raise unless ``t`` has one of ``dtypes``, lies on ``device``, is
+    contiguous and (when given) has ``shape``."""
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+def launch(fn: str, device: torch.device, *args) -> None:
+    """Call the C entry ``fn`` with ``args`` and the current stream of
+    ``device``; raises RuntimeError when it reports a CUDA error."""
+    lib = kernel_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        msg = lib.destripe_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{fn} launch failed: CUDA error {rc} ({msg})")

@@ -1,0 +1,140 @@
+"""
+The per-level notch tail of the destripe step and exact row medians: the
+wrappers of the Hopper kernels in ``csrc/notch.cu`` and their plain PyTorch
+twins.
+
+Counterpart of ``aind_smartspim_destripe_tpu/ops/pallas_notch.py``
+(``notch_delta``) and ``ops/pallas_median.py`` (``row_median_masked``).
+Each wrapper dispatches on the device of its input: a CPU tensor takes the
+plain twin (also callable directly as ``<wrapper>_plain`` on any device), a
+CUDA tensor launches the kernel or raises. Each wrapper counts its kernel
+launches in ``<wrapper>.launches``.
+
+- :func:`row_median_masked`: the median of each row of
+  ``where(sqrt(x*x) > thr[b], 0, x)``;
+- :func:`notch_delta`: stripe mask -> row-median inpaint -> the plane's
+  notch operator -> the synthesis delta ``filtered - ch``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .cuda_build import check, launch, on_cuda
+
+__all__ = [
+    "row_median",
+    "row_median_masked",
+    "notch_delta",
+    "row_median_masked_plain",
+    "notch_delta_plain",
+    "KERNELS",
+]
+
+_MEDIAN_THREADS = 256
+
+
+# ---------------------------------------------------------------------------
+# Row medians
+# ---------------------------------------------------------------------------
+
+
+def row_median(x):
+    """Exact median over the last axis, keepdims, by sorting (the plain
+    twins' median); even lengths average the k-th and (k+1)-th values."""
+    n = x.shape[-1]
+    s = torch.sort(x, dim=-1).values
+    if n % 2:
+        return s[..., n // 2 : n // 2 + 1]
+    return (s[..., n // 2 - 1 : n // 2] + s[..., n // 2 : n // 2 + 1]) * 0.5
+
+
+def _stripe_mask(x, thr):
+    # sqrt(x*x), not |x|: the reference compares the rounded sqrt-of-square,
+    # which differs from |x| in ulp/underflow corners
+    return (torch.sqrt(x * x) > thr[:, None, None]).to(x.dtype)
+
+
+def row_median_masked_plain(x, thr):
+    """Plain twin of :func:`row_median_masked`, on any device."""
+    return row_median(x * (1.0 - _stripe_mask(x, thr)))
+
+
+def row_median_masked(
+    x: torch.Tensor,  # (B, h, w) float32
+    thr: torch.Tensor,  # (B,) float32 per-plane stripe threshold
+) -> torch.Tensor:
+    """Per-row median (B, h, 1) of ``where(sqrt(x*x) > thr[b], 0, x)``: the
+    inpainting background median, with the mask applied as the row is
+    read."""
+    if not on_cuda(x):
+        return row_median_masked_plain(x, thr)
+    B, h, w = x.shape
+    dev = x.device
+    check("x", x, (torch.float32,), dev)
+    check("thr", thr, (torch.float32,), dev, (B,))
+    med = torch.empty((B, h, 1), dtype=torch.float32, device=dev)
+    launch("destripe_row_median", dev, x.data_ptr(), thr.data_ptr(),
+           med.data_ptr(), B, h, w, _MEDIAN_THREADS)
+    row_median_masked.launches += 1
+    return med
+
+
+# ---------------------------------------------------------------------------
+# The notch tail
+# ---------------------------------------------------------------------------
+
+
+def notch_delta_plain(ch, thr, sel, notch_cat):
+    """Plain twin of :func:`notch_delta`, on any device: the JAX package's
+    dense formulation (both notch products in one matrix product, selected
+    per plane afterwards)."""
+    w = ch.shape[-1]
+    mask = _stripe_mask(ch, thr)
+    foreground = ch * mask
+    background = ch * (1.0 - mask)
+    inpainted = background + row_median(background) * mask
+    del background
+    both = torch.matmul(inpainted, notch_cat)
+    del inpainted
+    filtered = torch.where((sel == 0)[:, None, None], both[..., :w],
+                           both[..., w:])
+    del both
+    return foreground + filtered * (1.0 - mask) - ch
+
+
+def notch_delta(
+    ch: torch.Tensor,  # (B, h, w) float32 horizontal-detail band
+    thr: torch.Tensor,  # (B,) float32 per-plane stripe threshold
+    sel: torch.Tensor,  # (B,) int32: 0 = cells operator, 1 = no-cells
+    notch_cat: torch.Tensor,  # (w, 2w) float32 [cells | no-cells] operators
+) -> torch.Tensor:
+    """The per-level synthesis delta (B, h, w) float32: with ``stripes =
+    sqrt(ch*ch) > thr[b]`` and ``med`` the row median of the unstriped
+    values (stripes read as 0), ``where(stripes, 0, where(stripes, med, ch)
+    @ notch_cat[:, sel[b]*w : (sel[b]+1)*w] - ch)``.
+
+    On the card this is two launches: :func:`row_median_masked`, then the
+    notch GEMM with the mask and inpainting in its loader and the delta in
+    its epilogue, multiplying each plane by its own operator only."""
+    if not on_cuda(ch):
+        return notch_delta_plain(ch, thr, sel, notch_cat)
+
+    B, h, w = ch.shape
+    dev = ch.device
+    check("ch", ch, (torch.float32,), dev)
+    check("thr", thr, (torch.float32,), dev, (B,))
+    check("sel", sel, (torch.int32,), dev, (B,))
+    check("notch_cat", notch_cat, (torch.float32,), dev, (w, 2 * w))
+    med = row_median_masked(ch, thr)
+    out = torch.empty_like(ch)
+    launch("destripe_notch", dev, ch.data_ptr(), med.data_ptr(),
+           thr.data_ptr(), sel.data_ptr(), notch_cat.data_ptr(),
+           out.data_ptr(), B, h, w)
+    notch_delta.launches += 1
+    return out
+
+
+KERNELS = (row_median_masked, notch_delta)
+for _k in KERNELS:
+    _k.launches = 0

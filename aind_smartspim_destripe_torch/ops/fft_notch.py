@@ -1,0 +1,64 @@
+"""
+Gaussian-notch row filter as a dense operator, in numpy.
+
+Counterpart of ``aind_smartspim_destripe_tpu/ops/fft_notch.py`` (its numpy
+builders). The reference multiplies the *packed* FFTPACK rfft output by a
+1-D Gaussian notch, so frequency k's real part takes gain ``g[2k-1]`` and
+its imaginary part ``g[2k]``. rfft -> per-bin gains -> irfft is a fixed
+real linear map of each row; :func:`packed_notch_matrix` builds it exactly
+in float64, and the destripe step applies it as one matrix product.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+
+__all__ = ["notch", "gaussian_filter", "packed_notch_matrix"]
+
+
+def notch(n: int, sigma: float) -> np.ndarray:
+    """1-D Gaussian notch ``1 - exp(-x^2 / (2 sigma^2))`` of length n."""
+    if n <= 0:
+        raise ValueError("n must be positive")
+    n = int(n)
+    if sigma <= 0:
+        raise ValueError("sigma must be positive")
+    x = np.arange(n)
+    return 1.0 - np.exp(-(x**2) / (2.0 * sigma**2))
+
+
+def gaussian_filter(shape: tuple, sigma: float) -> np.ndarray:
+    """Broadcast the notch over ``shape``."""
+    g = notch(n=shape[-1], sigma=sigma)
+    return np.broadcast_to(g, shape).copy()
+
+
+def _packed_gains(n: int, g: np.ndarray):
+    """Per-frequency (real, imag) gains of the packed-layout vector ``g``
+    for the complex rfft layout of length n//2 + 1."""
+    nfreq = n // 2 + 1
+    a = np.zeros(nfreq)
+    b = np.zeros(nfreq)
+    a[0] = g[0]
+    b[0] = g[0]
+    for k in range(1, (n + 1) // 2):
+        a[k] = g[2 * k - 1]
+        b[k] = g[2 * k]
+    if n % 2 == 0:
+        a[n // 2] = g[n - 1]
+        b[n // 2] = g[n - 1]
+    return a, b
+
+
+@lru_cache(maxsize=None)
+def packed_notch_matrix(n: int, sigma: float) -> np.ndarray:
+    """The n x n operator B with ``x @ B.T`` equal to
+    ``fftpack.irfft(fftpack.rfft(x) * notch(n, sigma))`` on each row."""
+    g = notch(n, float(sigma))
+    a, b = _packed_gains(n, g)
+    spec = np.fft.rfft(np.eye(n), axis=-1)
+    spec = a * spec.real + 1j * (b * spec.imag)
+    basis = np.fft.irfft(spec, n=n, axis=-1)
+    return np.ascontiguousarray(basis.T)

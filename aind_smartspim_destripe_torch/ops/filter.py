@@ -1,0 +1,553 @@
+"""
+The destripe step in PyTorch: plan, classifier, per-level filter and the
+batched log-space wavelet-FFT destripe.
+
+Counterpart of ``aind_smartspim_destripe_tpu/ops/filter.py``. A *plan* is
+built once per image geometry: the per-level shape ladder and, in numpy,
+the dense DWT and packed-FFT notch operators (:meth:`DestripePlan.constants`),
+which :func:`constants_from_numpy` moves to a device. Planes run as a batch
+(B, H, W):
+
+- analysis keeps only the lowpass x half (only cA and cH are consumed);
+- each cH band goes through Otsu mask -> row-median inpaint -> notch of the
+  plane's configuration -> delta (:func:`.cuda_notch.notch_delta`, its
+  histogram through :func:`.cuda_hist.histogram256_batch`);
+- synthesis propagates only the deltas, by perfect reconstruction, and
+  adds them to ``log(1 + x)``, then ``exp(y) + 1``.
+
+Levels whose input passes the band gate (:func:`band_gate`, the same rule
+as the JAX package's) run their four passes through :mod:`.cuda_band`: the
+Hopper kernels K1-K4 for CUDA tensors, their plain twins for CPU tensors.
+K1 then takes the raw uint16 planes and emits the classifier's sums, K2 the
+Otsu bin range, and K4 applies the uint16 epilogue. The DWT of every other
+level is a ``torch.matmul`` in float32 with TF32 off. The tail of every
+level (Otsu histogram, row median, notch) runs the kernels of
+:mod:`.cuda_hist` and :mod:`.cuda_notch` for CUDA tensors and their plain
+twins, the JAX package's dense formulation, for CPU tensors.
+
+Replicated reference quirks (they define the golden output): ``exp(y) + 1``
+as the inverse of log1p; the float16 sigmoid classifier (center 400,
+crossover 20); notch sigma scaled by the level's row count over min(H, W);
+packed FFTPACK notch gains.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import cuda_band, cuda_notch, fft_notch, wavelets
+from .flatfield import flatfield_correction, wrap_cast
+from .otsu import threshold_otsu_batch
+from .wavelets import wavedec2_shapes, wavelet
+
+__all__ = [
+    "FilterConfig",
+    "DestripePlan",
+    "build_plan",
+    "band_gate",
+    "constants_from_numpy",
+    "destripe_batch",
+    "classify_planes",
+    "classify_from_sums",
+    "log_space_fft_filtering",
+    "normalize_flat_dark",
+    "wrap_cast",
+    "f32_matmul",
+]
+
+# Band gate of the JAX package (ops/filter.py band_spec): a level runs the
+# banded kernels when its input has at least this many pixels and sides.
+_BAND_MIN_PX = 400_000
+_BAND_MIN_SIDE = 560
+
+
+def f32_matmul() -> None:
+    """Full float32 matrix products on the card: TF32 off for cuBLAS and
+    cuDNN. TF32 keeps ~3 decimal digits; plain bf16 missed the 60 dB
+    fidelity gate by ~30 dB, and TF32 has not been measured."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+# ---------------------------------------------------------------------------
+# Plan
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class FilterConfig:
+    """Parameters of the reference log_space_fft_filtering."""
+
+    wavelet: str = "db3"
+    level: Optional[int] = None
+    sigma: float = 64.0
+    max_threshold: float = 4.0
+
+    @staticmethod
+    def from_dict(d: dict) -> "FilterConfig":
+        return FilterConfig(
+            wavelet=d.get("wavelet", "db3"),
+            level=d.get("level", None),
+            sigma=float(d.get("sigma", 64)),
+            max_threshold=float(d.get("max_threshold", 4)),
+        )
+
+
+def band_gate(h: int, w: int) -> bool:
+    """Does an analysis level with an (h, w) input run the banded kernels?"""
+    return h * w >= _BAND_MIN_PX and h >= _BAND_MIN_SIDE and w >= _BAND_MIN_SIDE
+
+
+@dataclass(frozen=True)
+class DestripePlan:
+    """Static description of a destripe computation for one image geometry
+    and a (cells, no-cells) config pair."""
+
+    height: int
+    width: int
+    wavelet: str
+    n_levels: int
+    ladder: Tuple[Tuple[int, int], ...]  # coarsest-first detail shapes
+    cells: FilterConfig
+    no_cells: FilterConfig
+
+    def notch_matrices(self, dtype=np.float32):
+        """Per-level (cells, no_cells) notch operators, coarsest first, with
+        sigma_effective = rows(level) * sigma / min(H, W)."""
+        min_side = min(self.height, self.width)
+        return tuple(
+            tuple(
+                fft_notch.packed_notch_matrix(
+                    w, float(h * cfg.sigma / min_side)).astype(dtype)
+                for cfg in (self.cells, self.no_cells)
+            )
+            for (h, w) in self.ladder
+        )
+
+    def notch_sigmas(self):
+        """Per-level (cells, no_cells) effective notch sigmas, coarsest
+        first."""
+        min_side = min(self.height, self.width)
+        return tuple(
+            (h * self.cells.sigma / min_side, h * self.no_cells.sigma / min_side)
+            for (h, _) in self.ladder
+        )
+
+    def constants(self, dense_only: bool = False) -> dict:
+        """The operator matrices as a dict of numpy arrays. Keys:
+        ``an_y`` (2L_h x h) and ``an_x_lo`` (L_w x w), finest first;
+        ``syn_y`` (h_t x 2L_h, rows trimmed to the crop-rule target),
+        ``syn_x_lo`` (w_t x L_w) and ``notch_cat`` ((w, 2w): the cells and
+        no-cells notch operators side by side), coarsest first. Unless
+        ``dense_only``, ``band{lvl}`` adds the band forms
+        (:func:`cuda_band.band_level_forms`) of each banded level."""
+        wav = wavelets.wavelet(self.wavelet)
+        an = wavelets.analysis_operators(
+            (self.height, self.width), wav, self.n_levels)
+        syn = wavelets.synthesis_operators(
+            (self.height, self.width), wav, self.n_levels)
+        out = {
+            "an_y": tuple(p[0] for p in an),
+            "an_x_lo": tuple(p[1][: p[1].shape[0] // 2] for p in an),
+            "syn_y": tuple(p[0] for p in syn),
+            "syn_x_lo": tuple(p[1][:, : p[1].shape[1] // 2] for p in syn),
+            "notch_cat": tuple(
+                np.concatenate([c.T, n.T], axis=1)
+                for c, n in self.notch_matrices()
+            ),
+        }
+        if not dense_only:
+            out.update(_band_constants(out))
+        return out
+
+
+def _band_constants(consts: dict) -> dict:
+    """``band{lvl}`` band forms for the leading levels that pass the gate
+    (coarser levels only shrink, so the first miss ends the run)."""
+    n = len(consts["an_y"])
+    out = {}
+    for lvl in range(n):
+        h = consts["an_y"][lvl].shape[1]
+        w = consts["an_x_lo"][lvl].shape[1]
+        if not band_gate(h, w):
+            break
+        out[f"band{lvl}"] = cuda_band.band_level_forms(
+            np.asarray(consts["an_y"][lvl]),
+            np.asarray(consts["an_x_lo"][lvl]),
+            np.asarray(consts["syn_y"][n - 1 - lvl]),
+            np.asarray(consts["syn_x_lo"][n - 1 - lvl]),
+        )
+    return out
+
+
+def constants_from_numpy(consts: dict, device) -> dict:
+    """Move a plan's numpy constants (this package's or the JAX package's
+    ``DestripePlan.constants()`` dict) to ``device`` as tensors: tuples of
+    float32 matrices per key, and a dict of band-form tensors per banded
+    level (built here from the dense operators where absent)."""
+    device = torch.device(device)
+    consts = dict(consts)
+    if not any(k.startswith("band") and "k1_start" in v
+               for k, v in consts.items()):
+        consts.update(_band_constants(consts))
+
+    def put(a):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        dtype = torch.int32 if a.dtype.kind in "iu" else torch.float32
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    out = {}
+    for k, v in consts.items():
+        if k.startswith("band") and "k1_start" in v:
+            out[k] = {name: put(a) for name, a in v.items()}
+        elif k in ("an_y", "an_x_lo", "syn_y", "syn_x_lo", "notch_cat"):
+            out[k] = tuple(put(a) for a in v)
+    return out
+
+
+@lru_cache(maxsize=32)
+def build_plan(
+    height: int,
+    width: int,
+    cells: FilterConfig,
+    no_cells: FilterConfig,
+) -> DestripePlan:
+    if (cells.wavelet, cells.level) != (no_cells.wavelet, no_cells.level):
+        raise NotImplementedError(
+            "cells/no_cells configs must share wavelet and level "
+            "(they do in the reference pipeline); for disjoint configs run "
+            "two plans and select on host."
+        )
+    wav = wavelet(cells.wavelet)
+    n_levels, ladder = wavedec2_shapes((height, width), wav, cells.level)
+    return DestripePlan(
+        height=height,
+        width=width,
+        wavelet=cells.wavelet,
+        n_levels=n_levels,
+        ladder=tuple(ladder),
+        cells=cells,
+        no_cells=no_cells,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Classifier (reference filtering.py:54-88, 459-467)
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=8)
+def _classifier_cut(
+    center: float, crossover: float, threshold_mask: float
+) -> Optional[float]:
+    """Exact single-compare form of the float16 sigmoid classifier: over the
+    float16 lattice ``sigmoid((x - center) / crossover) > threshold_mask``
+    equals ``x16 >= cut`` for one breakpoint, found by evaluating the numpy
+    float16 chain on all 65536 bit patterns. None if it is not monotone."""
+    bits = np.arange(65536, dtype=np.uint16)
+    v = bits.view(np.float16)
+    v = v[np.isfinite(v) | np.isinf(v)]
+    with np.errstate(over="ignore", invalid="ignore"):
+        z = (v - np.float16(center)) / np.float16(crossover)
+        frac = np.float16(1) / (np.float16(1) + np.exp(-z))
+    m = frac > np.float16(threshold_mask)
+    order = np.argsort(v.astype(np.float64), kind="stable")
+    vs, ms = v[order], m[order]
+    if not ms.any():
+        return None
+    first = int(np.argmax(ms))
+    if not bool(np.all(ms[first:])) or bool(np.any(ms[:first])):
+        return None
+    return float(vs[first])
+
+
+@lru_cache(maxsize=8)
+def _classifier_cut_f32(
+    center: float, crossover: float, threshold_mask: float
+) -> Optional[float]:
+    """Smallest float32 ``b`` with ``float16(b) >= cut``: ``f16(x) >= cut``
+    iff ``x >= b`` for every float32 or integer x, so a kernel evaluates the
+    float16 classifier as one f32 compare."""
+    cut = _classifier_cut(center, crossover, threshold_mask)
+    if cut is None or not cut > 0:
+        return None
+    c16 = np.float16(cut)
+    lo_b = np.float32(np.nextafter(c16, -np.inf, dtype=np.float16)).view(
+        np.uint32)
+    hi_b = np.float32(c16).view(np.uint32)
+    while hi_b - lo_b > 1:
+        mid_b = np.uint32((int(lo_b) + int(hi_b)) // 2)
+        if np.float16(mid_b.view(np.float32)) >= c16:
+            hi_b = mid_b
+        else:
+            lo_b = mid_b
+    return float(np.uint32(hi_b).view(np.float32))
+
+
+def classify_from_sums(fg_cnt, bg_cnt, fg_sum, bg_sum,
+                       microscope_high_int: float) -> torch.Tensor:
+    """Per-plane cells decision from the four (B,) float32 reductions."""
+    fg_mean = torch.where(fg_cnt > 0, fg_sum / fg_cnt.clamp_min(1.0), 0.0)
+    bg_mean = torch.where(bg_cnt > 0, bg_sum / bg_cnt.clamp_min(1.0), 0.0)
+    return (fg_mean > bg_mean) & (fg_mean > microscope_high_int)
+
+
+def classify_planes(images: torch.Tensor, microscope_high_int: float,
+                    threshold_mask: float = 0.3) -> torch.Tensor:
+    """Per-plane bool: does the plane contain cells? The float16 sigmoid
+    foreground classifier and the fore/back mean comparison; the sums run
+    in float64 (exact for uint16 planes) and round once to float32, as the
+    K1 side channel does."""
+    x16 = images.to(torch.float16)
+    cut = _classifier_cut(400.0, 20.0, float(threshold_mask))
+    if cut is not None:
+        cell = x16 >= cut
+    else:  # pragma: no cover - production parameters are monotone
+        z = (x16 - 400.0) / 20.0
+        cell = 1 / (1 + torch.exp(-z)) > threshold_mask
+    xd = images.to(torch.float64)
+    dims = tuple(range(1, images.ndim))
+    sums = [
+        cell.sum(dims, dtype=torch.float64),
+        (~cell).sum(dims, dtype=torch.float64),
+        torch.where(cell, xd, 0.0).sum(dims),
+        torch.where(cell, 0.0, xd).sum(dims),
+    ]
+    return classify_from_sums(
+        *(s.to(torch.float32) for s in sums), microscope_high_int)
+
+
+# ---------------------------------------------------------------------------
+# Per-level horizontal-band filtering (reference filtering.py:186-219)
+# ---------------------------------------------------------------------------
+
+
+def _filter_level_delta(
+    ch: torch.Tensor,  # (B, h, w) horizontal-detail band
+    is_cells: torch.Tensor,  # (B,) bool
+    bmat_cat: torch.Tensor,  # (w, 2w): [cells | no_cells] notch operators
+    thr_cells: float,
+    thr_no_cells: float,
+    abs_range=None,  # optional per-plane (min|ch|, max|ch|) for Otsu
+) -> torch.Tensor:
+    """Per-level synthesis delta ``filter(ch) - ch``: the Otsu stripe
+    threshold (capped by the configuration's), then
+    :func:`.cuda_notch.notch_delta` (mask -> row-median inpaint -> notch ->
+    recombine)."""
+    max_thr = torch.where(
+        is_cells,
+        torch.tensor(thr_cells, dtype=torch.float32, device=ch.device),
+        torch.tensor(thr_no_cells, dtype=torch.float32, device=ch.device),
+    )
+    otsu_sqrt = torch.sqrt(threshold_otsu_batch(
+        ch, square=True, abs_range=abs_range))
+    threshold = torch.minimum(max_thr, otsu_sqrt)
+    sel = torch.where(is_cells, 0, 1).to(torch.int32)
+    return cuda_notch.notch_delta(ch, threshold, sel, bmat_cat)
+
+
+def normalize_flat_dark(height: int, width: int, flat, dark, device):
+    """Validate a (flat, dark) pair and bring it to the plane extent as
+    contiguous float32 tensors on ``device``: paired-or-absent check,
+    darkfield crop, broadcast of 2-D fields to (H, W)."""
+    if (flat is None) != (dark is None):
+        raise ValueError(
+            "flat and dark must be provided together "
+            "(pass dark=torch.zeros((1, 1)) for a zero darkfield)"
+        )
+    if flat is None:
+        return None, None
+    hw = (height, width)
+    flat = torch.as_tensor(flat, dtype=torch.float32, device=device)
+    dark = torch.as_tensor(dark, dtype=torch.float32, device=device)
+    if dark.ndim >= 2:
+        dark = dark[..., :height, :width]
+    if flat.ndim <= 2 and dark.ndim <= 2:
+        try:
+            flat = torch.broadcast_to(flat, hw)
+            dark = torch.broadcast_to(dark, hw)
+        except RuntimeError:
+            raise ValueError(
+                f"flat {tuple(flat.shape)} / dark {tuple(dark.shape)} do "
+                f"not broadcast to the plane extent {hw}"
+            ) from None
+    return flat.contiguous(), dark.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# The full batched step
+# ---------------------------------------------------------------------------
+
+
+def destripe_batch(
+    plan: DestripePlan,
+    images: torch.Tensor,  # (B, H, W) uint16 or float32
+    microscope_high_int: float = 2700.0,
+    consts: Optional[dict] = None,
+    flat=None,
+    dark=None,
+    wrap: bool = False,
+    dual: bool = False,
+) -> torch.Tensor:
+    """log-space wavelet-FFT destripe of a batch of planes on the device of
+    ``images``; returns float32 of the same shape, or uint16 through the
+    flat-field correction (``flat``/``dark``) or the zarr-store wrap cast
+    (``wrap=True``). ``consts``: :func:`constants_from_numpy` of the plan's
+    constants on that device (built when None)."""
+    if dual:
+        raise NotImplementedError(
+            "dual-band mode is not ported to the torch package yet")
+    if flat is not None and wrap:
+        raise ValueError("flat-field and wrap epilogues are exclusive")
+    device = images.device
+    if images.dtype not in (torch.uint16, torch.float32):
+        images = images.to(torch.float32)  # the kernels read uint16 or f32
+    flat, dark = normalize_flat_dark(plan.height, plan.width, flat, dark,
+                                     device)
+
+    def epilogue(y):
+        if flat is not None:
+            return flatfield_correction(y, flat, dark)
+        return wrap_cast(y) if wrap else y
+
+    def xlog():
+        return torch.log(1.0 + images.to(torch.float32))
+
+    if plan.n_levels == 0:  # tiny image: wavedec2 returns it untouched
+        return epilogue(torch.exp(xlog()) + 1.0)
+    if consts is None:
+        consts = constants_from_numpy(plan.constants(), device)
+    bands = {lvl for lvl in range(plan.n_levels) if f"band{lvl}" in consts}
+
+    # Classifier: when level 0 is banded, K1 emits the four sums while it
+    # streams the raw planes, so the classifier costs no extra read.
+    cut32 = _classifier_cut_f32(400.0, 20.0, 0.3) if 0 in bands else None
+    is_cells = (
+        None if cut32 is not None
+        else classify_planes(images, microscope_high_int)
+    )
+
+    # Analysis, finest -> coarsest: the x pass (lowpass half only) first,
+    # since it halves the width before the y pass doubles the rows' bands.
+    chs, ch_ranges = [], {}
+    a = None
+    for lvl, (an_y, an_x_lo) in enumerate(zip(consts["an_y"],
+                                              consts["an_x_lo"])):
+        if lvl in bands:
+            bd = consts[f"band{lvl}"]
+            src = images if lvl == 0 else a
+            if lvl == 0 and cut32 is not None:
+                lox_w, sums = cuda_band.an_x_lowpass_log1p(
+                    src, an_x_lo, bd["k1_start"], bd["k1_coef"],
+                    cls_cut=cut32,
+                )
+                is_cells = classify_from_sums(*sums.unbind(1),
+                                              microscope_high_int)
+            else:
+                lox_w = cuda_band.an_x_lowpass_log1p(
+                    src, an_x_lo, bd["k1_start"], bd["k1_coef"],
+                    log1p=(lvl == 0),
+                )
+            a, ch, ch_ranges[lvl] = cuda_band.an_y_pass(
+                lox_w, an_y, bd["k2_start"], bd["k2_lo"], bd["k2_hi"])
+            del lox_w
+            chs.append(ch)
+            continue
+        if a is None:
+            a = xlog()
+        lox = torch.matmul(an_y, torch.matmul(a, an_x_lo.t()))
+        L_h = lox.shape[-2] // 2
+        a = lox[..., :L_h, :]  # cA: lowpass-y, lowpass-x
+        chs.append(lox[..., L_h:, :].contiguous())  # cH: highpass-y, lowpass-x
+    del a
+
+    # Filter each cH band, coarsest first (the notch operators' order).
+    n = len(chs)
+    deltas = []
+    for j, bm_cat in enumerate(consts["notch_cat"]):
+        ch = chs[n - 1 - j]
+        deltas.append(_filter_level_delta(
+            ch, is_cells, bm_cat,
+            plan.cells.max_threshold, plan.no_cells.max_threshold,
+            abs_range=ch_ranges.get(n - 1 - j),
+        ))
+        chs[n - 1 - j] = None
+    del chs
+
+    # Delta synthesis, coarsest -> finest: the unfiltered pyramid
+    # reconstructs log(1 + x) exactly, so only the correction
+    # [coarser correction; cH delta] goes through the synthesis operators.
+    corr = None
+    for i, (syn_y, syn_x_lo) in enumerate(zip(consts["syn_y"],
+                                              consts["syn_x_lo"])):
+        delta, deltas[i] = deltas[i], None
+        lvl = n - 1 - i
+        if lvl in bands:
+            bd = consts[f"band{lvl}"]
+            stacked = cuda_band.syn_y_pass(
+                corr, delta, syn_y, bd["k3_start"], bd["k3_lo"], bd["k3_hi"])
+            if lvl > 0:
+                corr = cuda_band.syn_x_exp(
+                    stacked, None, syn_x_lo, bd["k4_start"], bd["k4_coef"])
+                continue
+            # finest level: exp and the uint16 epilogue fused into K4
+            hw = (plan.height, plan.width)
+            if flat is not None and tuple(flat.shape) == hw:
+                return cuda_band.syn_x_exp(
+                    stacked, images, syn_x_lo, bd["k4_start"],
+                    bd["k4_coef"], flat=flat, dark=dark)
+            out = cuda_band.syn_x_exp(
+                stacked, images, syn_x_lo, bd["k4_start"], bd["k4_coef"],
+                wrap=wrap)
+            return out if wrap else epilogue(out)
+        L_h = syn_y.shape[-1] // 2
+        if corr is None:
+            stacked = torch.matmul(syn_y[:, L_h:], delta)
+        else:
+            up = torch.cat([corr[..., :L_h, :], delta], dim=-2)
+            stacked = torch.matmul(syn_y, up)
+        corr = torch.matmul(stacked, syn_x_lo.t())
+
+    return epilogue(torch.exp(xlog() + corr) + 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Single-config entry point (reference filtering.py:139-224)
+# ---------------------------------------------------------------------------
+
+
+def log_space_fft_filtering(
+    input_image,
+    wavelet: str = "db3",
+    level: Optional[int] = 0,
+    sigma: float = 64,
+    max_threshold: float = 4,
+    device=None,
+):
+    """Host convenience entry point: a 2-D plane or a (B, H, W) batch of
+    planes (numpy) in, float32 numpy out, filtered per plane with one
+    configuration. ``device``: where to run (None: the current CUDA device;
+    raises when there is none)."""
+    from ..runtime.pipeline import resolve_device
+
+    img = np.asarray(input_image)
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[None]
+    dev = resolve_device(None if device is None else [device])
+    f32_matmul()
+    cfg = FilterConfig(wavelet=wavelet, level=level, sigma=float(sigma),
+                       max_threshold=float(max_threshold))
+    plan = build_plan(img.shape[-2], img.shape[-1], cfg, cfg)
+    x = torch.as_tensor(img.astype(np.float32), device=dev)
+    with torch.inference_mode():
+        out = destripe_batch(plan, x, -np.inf).cpu().numpy()
+    return out[0] if squeeze else out

@@ -1,0 +1,400 @@
+"""
+Streaming destripe pipeline: Zarr slabs -> device batches -> Zarr.
+
+Counterpart of ``aind_smartspim_destripe_tpu/runtime/pipeline.py`` for one
+CUDA device (or, explicitly, the CPU). One process, three stages:
+
+  [reader threads]  decode input Zarr chunks for slab k+1..k+prefetch
+  [device]          destripe + flat-field on fixed-size uint16 batches
+                    (uint16 in and out, so host<->device traffic is halved)
+  [writer threads]  encode and write level-0 chunks of slab k-1
+
+Each batch goes host -> device -> step -> host in order; at most two
+dispatches are in flight. A per-slab commit journal in the output store
+lets an interrupted run resume instead of recomputing the tile.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+import threading
+import time
+import warnings
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..ops.filter import (
+    DestripePlan,
+    constants_from_numpy,
+    destripe_batch,
+    f32_matmul,
+)
+
+__all__ = [
+    "PipelineStats",
+    "StreamingDestriper",
+    "make_device_step",
+    "resolve_device",
+]
+
+
+def resolve_device(devices=None) -> torch.device:
+    """The one device a step runs on. ``None``: the current CUDA device
+    (raises when CUDA is absent; there is no CPU fallback). A one-element
+    list names the device, ``[torch.device("cpu")]`` included. More than
+    one device is not supported yet."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device; pass devices=[torch.device('cpu')] to run "
+                "on the CPU"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    devices = list(devices)
+    if len(devices) > 1:
+        raise NotImplementedError(
+            "more than one device is not supported by the torch package yet")
+    if not devices:
+        raise ValueError("devices is empty")
+    return torch.device(devices[0])
+
+
+@dataclass
+class PipelineStats:
+    planes: int = 0
+    slabs: int = 0
+    slabs_skipped: int = 0
+    read_s: float = 0.0
+    compute_s: float = 0.0
+    write_s: float = 0.0
+    wall_s: float = 0.0
+    pixels: int = 0
+    # per-slab records [(z0, z1, read_wait_s, compute_s)]: read_wait is the
+    # time the loop blocked on the prefetched read
+    slab_records: list = None
+
+    def __post_init__(self):
+        if self.slab_records is None:
+            self.slab_records = []
+
+    @property
+    def gpix_per_s(self) -> float:
+        return self.pixels / self.wall_s / 1e9 if self.wall_s else 0.0
+
+
+def make_device_step(plan: DestripePlan, microscope_high_int: float,
+                     with_flatfield: bool, devices=None, dual: bool = False):
+    """(B, H, W) uint16 -> uint16 device step: destripe, then the
+    flat-field correction (``with_flatfield``) or the zarr-store wrap cast.
+    The operator matrices are moved to the device once. Matrix products run
+    in full float32 (TF32 off).
+
+    The returned callable ``step(images, flat, dark)`` carries ``.put``
+    (numpy batch -> device tensor), ``.put_const`` and ``.n_devices``.
+    ``dual=True`` (the dual-band blend) is not ported yet and raises."""
+    if dual:
+        raise NotImplementedError(
+            "dual-band mode is not ported to the torch package yet")
+    device = resolve_device(devices)
+    f32_matmul()
+    consts = constants_from_numpy(plan.constants(), device)
+
+    def step(images, flat, dark):
+        with torch.inference_mode():
+            if with_flatfield:
+                return destripe_batch(plan, images, microscope_high_int,
+                                      consts, flat=flat, dark=dark)
+            return destripe_batch(plan, images, microscope_high_int, consts,
+                                  wrap=True)
+
+    def put(chunk):
+        chunk = np.ascontiguousarray(chunk)
+        with warnings.catch_warnings():
+            # slabs decoded from a store can be read-only; the step only
+            # reads its input, so no copy is needed on the host
+            warnings.simplefilter("ignore", UserWarning)
+            t = torch.from_numpy(chunk)
+        return t.to(device)
+
+    step.n_devices = 1
+    step.put = put
+    step.put_const = put
+    return step
+
+
+class _Journal:
+    """Per-slab commit log enabling cheap resume (one JSON file in the
+    output store; a slab is recomputed unless its exact geometry was
+    committed under the same meta)."""
+
+    def __init__(self, path: str, meta: dict):
+        self.path = path
+        self.meta = meta
+        self.done = set()
+        # commit() runs on concurrent writer threads
+        self._lock = threading.Lock()
+        if os.path.exists(path):
+            try:
+                with open(path) as f:
+                    state = json.load(f)
+                if state.get("meta") == meta:
+                    self.done = set(map(tuple, state.get("slabs", [])))
+            except (json.JSONDecodeError, OSError, TypeError,
+                    AttributeError):
+                pass  # a corrupt or foreign journal means recompute
+
+    def commit(self, slab: tuple):
+        with self._lock:
+            self.done.add(slab)
+            snapshot = sorted(self.done)
+            tmp = self.path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({"meta": self.meta, "slabs": snapshot}, f)
+            os.replace(tmp, self.path)
+
+
+class StreamingDestriper:
+    """Drive one tile (3-D or 5-D Zarr array) through the device step.
+    ``slab`` is the streamed Z extent, ``prefetch`` the read-ahead depth,
+    ``device_batch`` the planes per dispatch, ``devices`` as in
+    :func:`resolve_device`."""
+
+    def __init__(
+        self,
+        input_array,
+        output_array,
+        plan: DestripePlan,
+        flatfield: Optional[np.ndarray] = None,
+        darkfield: Optional[np.ndarray] = None,
+        microscope_high_int: float = 2500.0,
+        slab: int = 64,
+        device_batch: int = 64,
+        prefetch: int = 2,
+        io_threads: int = 0,
+        logger: Optional[logging.Logger] = None,
+        journal: bool = True,
+        devices=None,
+        dual: bool = False,
+    ):
+        self.inp = input_array
+        self.out = output_array
+        self.plan = plan
+        self.high_int = microscope_high_int
+        self.slab = slab
+        self.prefetch = max(1, prefetch)
+        self.logger = logger or logging.getLogger(__name__)
+
+        in_shape = tuple(input_array.shape)
+        if len(in_shape) == 5:
+            if in_shape[:2] != (1, 1):
+                raise ValueError(
+                    f"5-D input must be (1, 1, Z, Y, X); got {in_shape} — "
+                    "destripe each channel's tile separately"
+                )
+            self._lead = (0, 0)
+            self.zyx = in_shape[2:]
+        elif len(in_shape) == 3:
+            self._lead = ()
+            self.zyx = in_shape
+        else:
+            raise ValueError(f"expected 3-D or 5-D input, got {in_shape}")
+        if self.zyx[1:] != (plan.height, plan.width):
+            raise ValueError(
+                f"plan geometry {(plan.height, plan.width)} != data {self.zyx[1:]}"
+            )
+
+        self.with_flat = flatfield is not None
+        h, w = plan.height, plan.width
+        flat = (np.asarray(flatfield, np.float32) if self.with_flat
+                else np.ones((1, 1), np.float32))
+        if self.with_flat and darkfield is not None:
+            dark = np.asarray(darkfield, np.float32)[:h, :w]
+        else:
+            if darkfield is not None:
+                self.logger.warning(
+                    "darkfield provided without a flatfield — dark "
+                    "subtraction only applies inside the flat-field "
+                    "correction; ignoring it (reference semantics)"
+                )
+            dark = np.zeros((1, 1), np.float32)
+        if self.with_flat:
+            if flat.shape[-2:] != (h, w):
+                raise ValueError(f"flatfield shape {flat.shape} != plane {(h, w)}")
+            if dark.shape[-2:] != (h, w):
+                dark = np.broadcast_to(dark, (h, w)).copy()
+        self._step = make_device_step(
+            plan, microscope_high_int, self.with_flat, devices=devices,
+            dual=dual,
+        )
+        self.device_batch = device_batch
+        self._flat = self._step.put_const(flat)
+        self._dark = self._step.put_const(dark)
+        self.io = ThreadPoolExecutor(
+            max_workers=io_threads or min(16, (os.cpu_count() or 4))
+        )
+
+        meta = {
+            "slab": slab,
+            "zyx": list(self.zyx),
+            "cells": str(plan.cells),
+            "no_cells": str(plan.no_cells),
+            "high_int": microscope_high_int,
+            "with_flat": self.with_flat,
+        }
+        if self.with_flat:
+            # a run resumed after the flats changed must not stitch slabs
+            # corrected with the old fields to slabs with the new ones
+            sig = hashlib.sha1(flat.tobytes())
+            sig.update(dark.tobytes())
+            meta["flats_sha1"] = sig.hexdigest()
+        self.journal = (
+            _Journal(
+                os.path.join(
+                    getattr(output_array, "path", "."), ".destripe_journal.json"
+                ),
+                meta,
+            )
+            if journal and hasattr(output_array, "path")
+            else None
+        )
+
+    # -- IO helpers (bounded retries for flaky network stores) ------------
+
+    def _read_slab(self, z0: int, z1: int) -> np.ndarray:
+        for attempt in range(3):
+            try:
+                if self._lead:
+                    return np.asarray(self.inp[0, 0, z0:z1])
+                return np.asarray(self.inp[z0:z1])
+            except OSError:
+                if attempt == 2:
+                    raise
+                self.logger.error(f"retrying read of slab {z0}:{z1}...")
+                time.sleep(0.05)
+
+    def _write_slab(self, z0: int, z1: int, data: np.ndarray):
+        for attempt in range(10):
+            try:
+                if len(self.out.shape) == 5:
+                    self.out[0:1, 0:1, z0:z1] = data[None, None]
+                else:
+                    self.out[z0:z1] = data
+                return
+            except OSError:
+                if attempt == 9:
+                    raise
+                self.logger.error(f"retrying write of slab {z0}:{z1}...")
+                time.sleep(0.05)
+
+    # -- device ------------------------------------------------------------
+
+    def _process_slab(self, data: np.ndarray) -> np.ndarray:
+        """Destripe a (n, H, W) numpy slab in fixed-size device batches;
+        returns uint16 (n, H, W)."""
+        n = data.shape[0]
+        b = self.device_batch
+        outs = []
+        pending = deque()
+        for i in range(0, n, b):
+            chunk = data[i : i + b]
+            if chunk.shape[0] < b:  # pad the tail to the batch size
+                pad = np.zeros((b - chunk.shape[0],) + chunk.shape[1:], chunk.dtype)
+                chunk = np.concatenate([chunk, pad], axis=0)
+            dev = self._step.put(chunk)
+            pending.append((i, min(b, n - i), self._step(dev, self._flat, self._dark)))
+            # at most 2 dispatches in flight
+            while len(pending) > 2:
+                j, k, res = pending.popleft()
+                outs.append((j, res[:k].cpu().numpy()))
+        while pending:
+            j, k, res = pending.popleft()
+            outs.append((j, res[:k].cpu().numpy()))
+        return np.concatenate([o for _, o in outs], axis=0)
+
+    # -- main loop ---------------------------------------------------------
+
+    def run(self) -> PipelineStats:
+        stats = PipelineStats()
+        t_start = time.time()
+        Z, H, W = self.zyx
+        slabs = [(z0, min(z0 + self.slab, Z)) for z0 in range(0, Z, self.slab)]
+
+        read_q: deque = deque()
+        writes: deque[Future] = deque()
+        # each in-flight write pins a full uint16 slab: bound them
+        max_inflight_writes = self.prefetch + 1
+        next_read = 0
+
+        def schedule_reads():
+            nonlocal next_read
+            while next_read < len(slabs) and len(read_q) < self.prefetch:
+                z0, z1 = slabs[next_read]
+                if self.journal and (z0, z1) in self.journal.done:
+                    read_q.append(((z0, z1), None))
+                else:
+                    read_q.append(
+                        ((z0, z1), self.io.submit(self._read_slab, z0, z1))
+                    )
+                next_read += 1
+
+        schedule_reads()
+        try:
+            self._run_slabs(stats, read_q, writes, schedule_reads,
+                            max_inflight_writes, H, W)
+            for wfut in writes:
+                stats.write_s += wfut.result()
+        finally:
+            # leave no reads or writes racing the store after an error,
+            # and nothing parked once the tile is done
+            self.io.shutdown(wait=True, cancel_futures=True)
+        stats.wall_s = time.time() - t_start
+        self.logger.info(
+            f"pipeline done: {stats.planes} planes in {stats.wall_s:.2f}s "
+            f"({stats.gpix_per_s:.3f} GPix/s) read={stats.read_s:.1f}s "
+            f"compute={stats.compute_s:.1f}s write={stats.write_s:.1f}s "
+            f"skipped={stats.slabs_skipped}"
+        )
+        return stats
+
+    def _run_slabs(self, stats, read_q, writes, schedule_reads,
+                   max_inflight_writes, H, W):
+        while read_q:
+            (z0, z1), item = read_q.popleft()
+            schedule_reads()
+            if item is None:
+                stats.slabs_skipped += 1
+                self.logger.info(f"slab {z0}:{z1} already committed; skipping")
+                continue
+            t0 = time.time()
+            data = item.result()
+            read_wait = time.time() - t0
+            stats.read_s += read_wait
+
+            t0 = time.time()
+            out = self._process_slab(data)
+            compute = time.time() - t0
+            stats.compute_s += compute
+            stats.slab_records.append((z0, z1, read_wait, compute))
+
+            def write(z0=z0, z1=z1, out=out):
+                t0 = time.time()
+                self._write_slab(z0, z1, out)
+                if self.journal:
+                    self.journal.commit((z0, z1))
+                return time.time() - t0
+
+            writes.append(self.io.submit(write))
+            while len(writes) > max_inflight_writes:
+                stats.write_s += writes.popleft().result()
+            stats.slabs += 1
+            stats.planes += z1 - z0
+            stats.pixels += (z1 - z0) * H * W
+            self.logger.info(f"slab {z0}:{z1} destriped ({z1 - z0} planes)")

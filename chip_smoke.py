@@ -1,0 +1,460 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / H100 port (aind_smartspim_destripe_torch) on
+one NVIDIA GPU.
+
+Run from the root of a checkout, on a machine with one card:
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, each printing its lines:
+
+1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
+   the TF32 flags and the blosc-zstd codec backend;
+2. the build of the CUDA kernels from ``aind_smartspim_destripe_torch/csrc``;
+3. each kernel of the destripe step against its plain PyTorch twin on the
+   card, on the same inputs, at the step's shapes for a 64-plane batch of
+   1600x2000 planes: the banded DWT passes K1-K4 at levels 0 and 1, and the
+   Otsu histogram, masked row median and notch tail at every level (on the
+   real level-0 and level-1 bands): max error against the stated
+   tolerance, and the kernel's and the twin's time (CUDA events);
+4. the port's main path: a synthetic capsule (one channel, one tile of
+   128 x 1600 x 2000 uint16 planes with dark and flats, in the layout of
+   tests/test_run_capsule_e2e.py) through ``run_capsule.run()`` on the card
+   with 64-plane device batches; every kernel must have launched in this
+   run, pyramid levels 1-2 must exist and agree with level 0, and one
+   stored chunk must decode to the data read back; then the device step
+   alone on one resident 64-plane batch (CUDA events);
+5. four sampled planes of level 0 against the port's plain path on the CPU,
+   within 1 LSB outside a stated flip budget and at PSNR >= 100 dB.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. Any failed phase raises and exits
+non-zero; so does a host without CUDA, before any result is printed.
+Z is cut to 128 planes (two slabs) only to keep the run short.
+"""
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+# Tolerances of kernel vs plain twin on the card. f32 outputs: both sum the
+# same products in f32 in another order (the twin's GEMM adds exact zeros
+# besides), so they agree to a few ulps of the operands: 1e-5 of the
+# largest operand magnitude (for the notch delta, a difference of two terms
+# of the band's size, of the band's). uint16 outputs: 1 LSB (a value on a
+# rounding boundary). Classifier sums, histogram counts and medians: exact.
+F32_RTOL = 1e-5
+U16_LSB = 1
+EXACT = ("histogram256_batch", "row_median_masked")
+# Sampled planes against the plain path on the CPU: a coefficient on a
+# threshold can fall on the other side of it (Otsu bin or stripe mask), and
+# the pixels it reconstructs then move by more than 1 LSB. Budget: 1e-4 of
+# the sampled pixels (0 measured), and PSNR >= 100 dB over all of them,
+# which bounds how far any pixel may move.
+FLIP_BUDGET = 1e-4
+PSNR_MIN = 100.0
+SHAPE = (128, 1600, 2000)
+BATCH = 64
+SAMPLED = (0, 1, 64, 127)
+CSRC = "aind_smartspim_destripe_torch/csrc/"
+TPU = "aind_smartspim_destripe_tpu/ops/"
+SOURCE = {
+    "an_x_lowpass_log1p": CSRC + "band.cu",
+    "an_y_pass": CSRC + "band.cu",
+    "syn_y_pass": CSRC + "band.cu",
+    "syn_x_exp": CSRC + "band.cu",
+    "histogram256_batch": CSRC + "hist.cu",
+    "row_median_masked": CSRC + "notch.cu",
+    "notch_delta": CSRC + "notch.cu",
+}
+REPLACES = {
+    "an_x_lowpass_log1p": TPU + "pallas_band.py:178",
+    "an_y_pass": TPU + "pallas_band.py:301",
+    "syn_y_pass": TPU + "pallas_band.py:415",
+    "syn_x_exp": TPU + "pallas_band.py:525",
+    "histogram256_batch": TPU + "pallas_hist.py:111",
+    "row_median_masked": TPU + "pallas_median.py:163",
+    "notch_delta": TPU + "pallas_notch.py:89",
+}
+
+
+def _time_ms(fn, reps=10):
+    """Mean milliseconds per call over ``reps`` calls after 2 warm-ups."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _err(got, want, exact=False, scale=None):
+    """(max abs error, allowed) of a kernel output against its twin;
+    ``scale``: the operands' largest magnitude (default: the twin's)."""
+    import torch
+
+    if want.dtype == torch.uint16:
+        d = (got.to(torch.int32) - want.to(torch.int32)).abs().max().item()
+        return float(d), float(U16_LSB)
+    err = (got - want).abs().max().item()
+    if exact:
+        return err, 0.0
+    if scale is None:
+        scale = want.abs().max().item()
+    return err, F32_RTOL * max(1.0, scale)
+
+
+def _compare(rec, name, lvl, kern, plain, scale=None):
+    """Hold one kernel call against its twin, time both, print and record;
+    raises on a disagreement."""
+    import torch
+
+    got, want = kern(), plain()
+    if name == "an_x_lowpass_log1p" and isinstance(got, tuple):
+        (got, gs), (want, ws) = got, want
+        if not torch.equal(gs, ws):
+            raise AssertionError("K1 classifier sums differ")
+    if name == "an_y_pass":  # cA and cH, then the |cH| range
+        for a, b in zip(got[2], want[2]):
+            err, tol = _err(a, b)
+            if err > tol:
+                raise AssertionError(f"K2 |cH| range: {err} > {tol}")
+        got = torch.cat([got[0], got[1]], dim=1)
+        want = torch.cat([want[0], want[1]], dim=1)
+    err, tol = _err(got, want, name in EXACT, scale)
+    ms, plain_ms = _time_ms(kern), _time_ms(plain)
+    ok = err <= tol
+    print(f"[kernels] {name} level {lvl} out {tuple(got.shape)} "
+          f"{str(got.dtype).replace('torch.', '')}: max_abs_err "
+          f"{err:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'}; "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    if not ok:
+        raise AssertionError(f"{name} level {lvl}: {err} > {tol}")
+    rec[name][lvl] = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                          shape=list(got.shape))
+
+
+def _tail_calls(ch, notch_cat, thr_cap):
+    """The histogram, median and notch calls of one level's tail on band
+    ``ch``, with the step's inputs: the Otsu bin range, the capped Otsu
+    threshold and the per-plane operator choice (alternating)."""
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import cuda_hist as th
+    from aind_smartspim_destripe_torch.ops import cuda_notch as tn
+    from aind_smartspim_destripe_torch.ops.otsu import threshold_otsu_batch
+
+    B = ch.shape[0]
+    a = ch.abs()
+    lo = a.amin(dim=(1, 2)) ** 2
+    span = a.amax(dim=(1, 2)) ** 2 - lo
+    span = torch.where(span > 0, span, torch.ones_like(span))
+    sel = (torch.arange(B, device=ch.device) % 2).to(torch.int32)
+    thr = torch.minimum(
+        torch.where(sel == 0, thr_cap[0], thr_cap[1]),
+        torch.sqrt(threshold_otsu_batch(ch, square=True)))
+    return {
+        "histogram256_batch": (
+            lambda: th.histogram256_batch(ch, lo, span, square=True),
+            lambda: th.histogram256_batch_plain(ch, lo, span, square=True)),
+        "row_median_masked": (
+            lambda: tn.row_median_masked(ch, thr),
+            lambda: tn.row_median_masked_plain(ch, thr)),
+        "notch_delta": (
+            lambda: tn.notch_delta(ch, thr, sel, notch_cat),
+            lambda: tn.notch_delta_plain(ch, thr, sel, notch_cat)),
+    }
+
+
+def phase_kernels(plan, consts, dev, seed):
+    """Every kernel vs its plain twin at the step's shapes (B=64): K1-K4 at
+    levels 0 and 1, the tail kernels at every level."""
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import cuda_band as cb
+    from aind_smartspim_destripe_torch.ops.filter import _classifier_cut_f32
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = plan.n_levels
+    cut = _classifier_cut_f32(400.0, 20.0, 0.3)
+    thr_cap = (plan.cells.max_threshold, plan.no_cells.max_threshold)
+    rec = {name: {} for name in REPLACES}
+    B, H, W = BATCH, plan.height, plan.width
+    x = torch.randint(0, 4000, (B, H, W), generator=g, device=dev,
+                      dtype=torch.int32).to(torch.uint16)
+    flat = 1.0 + 0.2 * torch.rand((H, W), generator=g, device=dev)
+    dark = torch.full((H, W), 3.0, device=dev)
+    src = x
+    for lvl in (0, 1):
+        bd = consts[f"band{lvl}"]
+        a_x, a_y = consts["an_x_lo"][lvl], consts["an_y"][lvl]
+        s_y, s_x = consts["syn_y"][n - 1 - lvl], consts["syn_x_lo"][n - 1 - lvl]
+        log1p = lvl == 0
+        kcut = cut if lvl == 0 else None
+        _compare(rec, "an_x_lowpass_log1p", lvl,
+                 lambda: cb.an_x_lowpass_log1p(src, a_x, bd["k1_start"],
+                                               bd["k1_coef"], log1p, kcut),
+                 lambda: cb.an_x_lowpass_log1p_plain(src, a_x, log1p, kcut))
+        k1 = cb.an_x_lowpass_log1p(src, a_x, bd["k1_start"], bd["k1_coef"],
+                                   log1p)
+        _compare(rec, "an_y_pass", lvl,
+                 lambda: cb.an_y_pass(k1, a_y, bd["k2_start"], bd["k2_lo"],
+                                      bd["k2_hi"]),
+                 lambda: cb.an_y_pass_plain(k1, a_y))
+        ca, ch, _ = cb.an_y_pass(k1, a_y, bd["k2_start"], bd["k2_lo"],
+                                 bd["k2_hi"])
+        del k1
+        for name, (kern, plain) in _tail_calls(
+                ch, consts["notch_cat"][n - 1 - lvl], thr_cap).items():
+            _compare(rec, name, lvl, kern, plain,
+                     scale=ch.abs().max().item())
+        corr = torch.randn(ch.shape, generator=g, device=dev) * 0.01
+        delta = torch.randn(ch.shape, generator=g, device=dev) * 0.01
+        del ch
+        _compare(rec, "syn_y_pass", lvl,
+                 lambda: cb.syn_y_pass(corr, delta, s_y, bd["k3_start"],
+                                       bd["k3_lo"], bd["k3_hi"]),
+                 lambda: cb.syn_y_pass_plain(corr, delta, s_y))
+        st = cb.syn_y_pass(corr, delta, s_y, bd["k3_start"], bd["k3_lo"],
+                           bd["k3_hi"])
+        epi = dict(flat=flat, dark=dark) if lvl == 0 else {}
+        img = x if lvl == 0 else None
+        _compare(rec, "syn_x_exp", lvl,
+                 lambda: cb.syn_x_exp(st, img, s_x, bd["k4_start"],
+                                      bd["k4_coef"], **epi),
+                 lambda: cb.syn_x_exp_plain(st, img, s_x, **epi))
+        src = ca
+        del corr, delta, st
+    # the tail at the deeper (dense) levels, on bands of their shapes
+    for lvl in range(2, n):
+        h, w = plan.ladder[n - 1 - lvl]
+        ch = torch.randn((B, h, w), generator=g, device=dev) * 0.5
+        for name, (kern, plain) in _tail_calls(
+                ch, consts["notch_cat"][n - 1 - lvl], thr_cap).items():
+            _compare(rec, name, lvl, kern, plain, scale=ch.abs().max().item())
+    torch.cuda.synchronize()
+    return rec
+
+
+def build_capsule(base: Path, vol, flat_sides, dark):
+    """The capsule input layout of tests/test_run_capsule_e2e.py."""
+    from aind_smartspim_destripe_torch.io import group, imsave
+
+    data, results = base / "data", base / "results"
+    (data / "derivatives").mkdir(parents=True)
+    results.mkdir()
+    acq = {"tiles": [{"coordinate_transformations": [
+        {"type": "scale", "scale": ["1.8", "1.8", "2.0"]}]}]}
+    (data / "acquisition.json").write_text(json.dumps(acq))
+    tile = "471320_461360"
+    (data / "laser_tiles.json").write_text(json.dumps({"0": [tile], "1": []}))
+    for side, f in enumerate(flat_sides):
+        imsave(str(data / f"flat_{side}.tiff"), f)
+        os.replace(data / f"flat_{side}.tiff",
+                   data / f"estimated_flat_laser_Ex_488_Em_525_{side}.tif")
+    imsave(str(data / "derivatives" / "Dark.tiff"), dark)
+    os.replace(data / "derivatives" / "Dark.tiff",
+               data / "derivatives" / "DarkMaster_cropped.tif")
+    tg = group(str(data / "Ex_488_Em_525" / f"{tile}.zarr"))
+    lvl0 = tg.create_dataset(0, shape=(1, 1) + vol.shape,
+                             chunks=(1, 1, 64, 128, 128), dtype=vol.dtype)
+    lvl0[:] = vol[None, None]
+    return data, results, tile
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+
+    from aind_smartspim_destripe_torch import ops, run_capsule
+    from aind_smartspim_destripe_torch.io import ensure_native_codec, open_zarr
+    from aind_smartspim_destripe_torch.ops import cuda_build
+    from aind_smartspim_destripe_torch.ops import filter as tf
+    from aind_smartspim_destripe_torch.ops.multiscale import windowed_mean
+    from aind_smartspim_destripe_torch.runtime.pipeline import (
+        make_device_step,
+    )
+
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+
+    # -- 1. environment ---------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    tf.f32_matmul()
+    print(f"[env] torch {torch.__version__} CUDA {torch.version.cuda} "
+          f"device {kind} x{torch.cuda.device_count()}; "
+          f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}")
+    print(f"[env] blosc-zstd codec backend: {ensure_native_codec()}")
+
+    # -- 2. kernel build --------------------------------------------------
+    t0 = time.perf_counter()
+    cuda_build.kernel_library()
+    regs = sorted(set(re.findall(r"Used (\d+) registers",
+                                 cuda_build.kernel_library.build_log)), key=int)
+    print(f"[build] {', '.join(sorted(set(SOURCE.values())))} -> sm_90a in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc "
+          f"{cuda_build.kernel_library.build_seconds:.2f} s; registers per "
+          f"thread {'/'.join(regs) or 'n/a'})")
+
+    # -- 3. kernels vs plain twins ----------------------------------------
+    cfg = run_capsule.PRODUCTION_PARAMETERS
+    plan = tf.build_plan(SHAPE[1], SHAPE[2],
+                         tf.FilterConfig.from_dict(cfg["cells_config"]),
+                         tf.FilterConfig.from_dict(cfg["no_cells_config"]))
+    consts = tf.constants_from_numpy(plan.constants(), dev)
+    rec = phase_kernels(plan, consts, dev, args.seed)
+    del consts
+    torch.cuda.empty_cache()
+
+    # -- 4. the main path: run_capsule.run on the card ---------------------
+    work = ROOT / "build" / "smoke_capsule"
+    shutil.rmtree(work, ignore_errors=True)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    Z, H, W = SHAPE
+    z = torch.arange(Z, device=dev)[:, None, None]
+    base = torch.where(z % 4 == 1, 3000.0, 280.0)  # every 4th plane: cells
+    vol = base + torch.randn((Z, H, 1), generator=g, device=dev) * 50
+    vol = vol + torch.randn((Z, H, W), generator=g, device=dev) * 8
+    vol = vol.clamp_(0, 65535).to(torch.int32).cpu().numpy().astype(np.uint16)
+    yy = np.linspace(-1, 1, H, dtype=np.float32)[:, None]
+    xx = np.linspace(-1, 1, W, dtype=np.float32)[None, :]
+    flats = [(1.0 + 0.25 * side + 0.3 * (xx * xx + yy * yy) / 2).astype(
+        np.float32) for side in (0, 1)]
+    dark = (3 + (np.arange(W) % 3)[None, :] * np.ones((H, 1))).astype(np.uint16)
+    t0 = time.perf_counter()
+    data, results, tile = build_capsule(work, vol, flats, dark)
+    print(f"[capsule] synthetic tile {SHAPE} uint16 written in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_capsule.run(data_folder=str(data), results_folder=str(results),
+                    scratch_folder=str(work / "scratch"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in ops.kernels()}
+    log = "".join(p.read_text() for p in results.glob("destripe_log_*.log"))
+    piped = re.findall(r"pipeline done: .*", log)
+    print(f"[slice] run_capsule.run: {Z * H * W / 1e6:.1f} MPix in "
+          f"{secs:.2f} s = {Z * H * W / 1e6 / secs:.1f} MPix/s end to end "
+          f"(pyramid and stores included); {piped[-1] if piped else ''}")
+    print(f"[slice] kernel launches in the run: {launches}")
+    if set(launches) != set(REPLACES) or not all(launches.values()):
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+
+    tile_group = open_zarr(str(results / "destriped_data" / "Ex_488_Em_525"
+                               / f"{tile}.zarr"))
+    if set(tile_group.keys()) != {"0", "1", "2"}:
+        raise AssertionError(f"pyramid levels {sorted(tile_group.keys())}")
+    lvl0 = tile_group["0"]
+    if tuple(lvl0.shape) != (1, 1) + SHAPE or lvl0.dtype != np.uint16:
+        raise AssertionError(f"level 0 {lvl0.shape} {lvl0.dtype}")
+    head = np.asarray(lvl0[0, 0, 0:4])
+    want1 = windowed_mean(torch.from_numpy(head)).numpy()
+    if not np.array_equal(np.asarray(tile_group["1"][0, 0, 0:2]), want1):
+        raise AssertionError("level 1 is not the windowed mean of level 0")
+    if tuple(tile_group["2"].shape) != (1, 1, Z // 4, H // 4, W // 4):
+        raise AssertionError(f"level 2 shape {tile_group['2'].shape}")
+    print(f"[slice] levels 0-2 present, level 1 agrees with level 0; "
+          f"level-0 mean {head.mean():.1f}")
+    # one stored chunk, decoded by the store's own blosc-zstd codec
+    key = lvl0.separator.join("0" * len(lvl0.shape))
+    frame = (Path(lvl0.path) / key).read_bytes()
+    if frame[2] >> 5 & 7 != 4:
+        raise AssertionError(f"chunk {key} is not a blosc-zstd frame")
+    region = tuple(slice(0, c) for c in lvl0.chunks)
+    chunk = np.frombuffer(lvl0.codec.decode(frame), np.uint16).reshape(
+        lvl0.chunks)
+    if not np.array_equal(chunk, np.asarray(lvl0[region])):
+        raise AssertionError(f"chunk {key} decodes to other data")
+    print(f"[slice] chunk {key} {tuple(lvl0.chunks)}: blosc-zstd frame of "
+          f"{len(frame)} bytes ({chunk.nbytes / len(frame):.2f}x) decodes "
+          f"to the data read back")
+
+    # the device step alone: one resident 64-plane uint16 batch, repeated
+    step = make_device_step(plan, 2500.0, True, devices=[dev])
+    imgs = step.put(vol[:BATCH])
+    flat_d = step.put_const(flats[0])
+    dark_d = step.put_const(dark.astype(np.float32))
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = _time_ms(lambda: step(imgs, flat_d, dark_d), reps=5)
+    print(f"[step] device step ({BATCH}, {H}, {W}) uint16 -> uint16, "
+          f"flat-field epilogue: {ms:.2f} ms = {BATCH * H * W / 1e3 / ms:.1f} "
+          f"MPix/s; "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del step, imgs
+
+    # -- 5. sampled planes vs the plain path on the CPU --------------------
+    planes = np.stack([np.asarray(lvl0[0, 0, i]) for i in SAMPLED])
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = tf.destripe_batch(
+            plan, torch.from_numpy(vol[list(SAMPLED)]), 2500.0,
+            flat=flats[0], dark=dark.astype(np.float32)).numpy()
+    d = np.abs(planes.astype(np.int64) - ref.astype(np.int64))
+    flips = int((d > 1).sum())
+    mse = float((d.astype(np.float64) ** 2).mean())
+    psnr = 10 * np.log10(65535.0**2 / mse) if mse else float("inf")
+    print(f"[check] planes {SAMPLED} vs the plain path on the CPU "
+          f"({time.perf_counter() - t0:.1f} s): max {int(d.max())} LSB, "
+          f"{flips} pixels > 1 LSB ({flips / d.size:.2e}, budget "
+          f"{FLIP_BUDGET}), PSNR {psnr:.1f} dB (min {PSNR_MIN})")
+    if flips > FLIP_BUDGET * d.size:
+        raise AssertionError("sampled planes exceed the flip budget")
+    if psnr < PSNR_MIN:
+        raise AssertionError(f"sampled planes at {psnr:.1f} dB")
+    shutil.rmtree(work, ignore_errors=True)
+
+    kernels = [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": SOURCE[name],
+            "replaces": REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rec[name].values()),
+            "ms": rec[name][0]["ms"],
+            "plain_ms": rec[name][0]["plain_ms"],
+            "shape": rec[name][0]["shape"],
+            "level1": {k: rec[name][1][k] for k in ("ms", "plain_ms",
+                                                    "max_abs_err", "shape")},
+        }
+        for name in REPLACES
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,235 @@
+"""K1-K4 of the torch package (ops/cuda_band.py).
+
+On the CPU: each plain twin against the JAX package's Pallas kernel
+(ops/pallas_band.py) in interpret mode, at that kernel's own test
+geometries (640x768 B=2 for level 0, 1280x1280 level=2 for level 1). The
+Pallas kernels accumulate three bf16 products in f32 (== XLA's HIGH
+precision, ~2^-21 relative), the twins plain f32; the tolerances are those
+of tests/test_pallas_band.py for the same reason. Classifier counts are
+exact and uint16 outputs within 1 LSB.
+
+The Hopper kernels themselves are held against these twins on the card by
+tests/test_torch_card.py and chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from aind_smartspim_destripe_tpu.ops import filter as jf  # noqa: E402
+from aind_smartspim_destripe_tpu.ops import pallas_band as pb  # noqa: E402
+from aind_smartspim_destripe_torch.ops import cuda_band as cb  # noqa: E402
+from aind_smartspim_destripe_torch.ops import cuda_build  # noqa: E402
+from aind_smartspim_destripe_torch.ops import filter as tf  # noqa: E402
+
+H, W = 640, 768
+
+
+def _plans(h, w, level):
+    jc = jf.FilterConfig(wavelet="db3", level=level, sigma=64, max_threshold=3)
+    tc = tf.FilterConfig(wavelet="db3", level=level, sigma=64, max_threshold=3)
+    return jf.build_plan(h, w, jc, jc), tf.build_plan(h, w, tc, tc)
+
+
+def _level(h, w, level, lvl, device="cpu"):
+    """(jax plan, jax band spec, jax band ops, port tensors of level lvl)."""
+    jp, tp = _plans(h, w, level)
+    consts = tf.constants_from_numpy(tp.constants(), device)
+    n = tp.n_levels
+    ops = {
+        "an_x_lo": consts["an_x_lo"][lvl],
+        "an_y": consts["an_y"][lvl],
+        "syn_y": consts["syn_y"][n - 1 - lvl],
+        "syn_x_lo": consts["syn_x_lo"][n - 1 - lvl],
+        **consts[f"band{lvl}"],
+    }
+    return jp, jf.band_spec(jp, lvl), jf.band_operators(jp, lvl), ops
+
+
+@pytest.fixture(scope="module")
+def lvl0():
+    return _level(H, W, 1, 0)
+
+
+@pytest.fixture(scope="module")
+def lvl1():
+    return _level(1280, 1280, 2, 1)
+
+
+def _k1(x, ops, **kw):
+    return cb.an_x_lowpass_log1p(
+        x, ops["an_x_lo"], ops["k1_start"], ops["k1_coef"], **kw)
+
+
+def _k2(x, ops):
+    return cb.an_y_pass(
+        x, ops["an_y"], ops["k2_start"], ops["k2_lo"], ops["k2_hi"])
+
+
+def _k3(corr, delta, ops):
+    return cb.syn_y_pass(
+        corr, delta, ops["syn_y"], ops["k3_start"], ops["k3_lo"], ops["k3_hi"])
+
+
+def _k4(st, img, ops, **kw):
+    return cb.syn_x_exp(
+        st, img, ops["syn_x_lo"], ops["k4_start"], ops["k4_coef"], **kw)
+
+
+def test_k1_uint16_log1p_and_classifier_sums(lvl0):
+    jp, spec, bops, ops = lvl0
+    L_w = jp.ladder[-1][1]
+    cut = jf._classifier_cut_f32(400.0, 20.0, 0.3)
+    x = np.random.default_rng(10).integers(0, 3000, (2, H, W), np.uint16)
+    want, st = pb.an_x_lowpass_log1p(
+        jnp.asarray(x), bops["bk1"], spec["k1"]["starts"], L_w,
+        cls_cut=cut, interpret=True)
+    got, sums = _k1(torch.from_numpy(x), ops, cls_cut=cut)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-3)
+    st = np.asarray(st)
+    for q, lane in enumerate((0, 128)):  # counts: exact
+        np.testing.assert_array_equal(sums[:, q].numpy(),
+                                      st[:, :, 0, lane].sum(1))
+    m = x.astype(np.float16) >= np.float16(383.25)
+    xf = x.astype(np.float64)
+    exact = np.stack([np.where(m, xf, 0).sum((1, 2)),
+                      np.where(~m, xf, 0).sum((1, 2))], 1)
+    np.testing.assert_array_equal(sums[:, 2:].numpy(),
+                                  exact.astype(np.float32))
+    np.testing.assert_allclose(sums[:, 2].numpy(), st[:, :, 0, 256].sum(1),
+                               rtol=1e-6)
+
+
+def test_k1_float_input(lvl0):
+    jp, spec, bops, ops = lvl0
+    L_w = jp.ladder[-1][1]
+    x = np.random.default_rng(1).uniform(0, 4000, (2, H, W)).astype(np.float32)
+    want = pb.an_x_lowpass_log1p(jnp.asarray(x), bops["bk1"],
+                                 spec["k1"]["starts"], L_w, interpret=True)
+    got = _k1(torch.from_numpy(x), ops)
+    assert got.shape == (2, H, L_w)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-4)
+
+
+def test_k2_bands_and_abs_range(lvl0):
+    jp, spec, bops, ops = lvl0
+    L_h, L_w = jp.ladder[-1]
+    x = (np.random.default_rng(11).normal(size=(2, H, L_w)) * 3).astype(
+        np.float32)
+    lo_j, hi_j, mm = pb.an_y_pass(
+        jnp.asarray(x), bops["bk2"], spec["k2"]["stride"], spec["k2"]["pad"],
+        L_h, stats=True, interpret=True)
+    lo, hi, (mn, mx) = _k2(torch.from_numpy(x), ops)
+    np.testing.assert_allclose(lo.numpy(), np.asarray(lo_j),
+                               rtol=2e-5, atol=2e-4)
+    np.testing.assert_allclose(hi.numpy(), np.asarray(hi_j),
+                               rtol=2e-5, atol=2e-4)
+    # the range is exact on each package's own band
+    a = np.abs(hi.numpy())
+    np.testing.assert_array_equal(mn.numpy(), a.min((1, 2)))
+    np.testing.assert_array_equal(mx.numpy(), a.max((1, 2)))
+    np.testing.assert_allclose(mx.numpy(), np.asarray(mm)[:, :, 0, 128].max(1),
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("with_corr", [True, False])
+def test_k3_synthesis_y(lvl0, with_corr):
+    jp, spec, bops, ops = lvl0
+    L_h, L_w = jp.ladder[-1]
+    rng = np.random.default_rng(3)
+    corr = rng.normal(size=(2, L_h, L_w)).astype(np.float32)
+    delta = rng.normal(size=(2, L_h, L_w)).astype(np.float32)
+    want = pb.syn_y_pass(
+        jnp.asarray(corr) if with_corr else None, jnp.asarray(delta),
+        bops["bk3_lo"] if with_corr else None, bops["bk3_hi"],
+        spec["k3"]["stride"], spec["k3"]["pad"], H, interpret=True)
+    got = _k3(torch.from_numpy(corr) if with_corr else None,
+              torch.from_numpy(delta), ops)
+    assert got.shape == (2, H, L_w)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-4)
+
+
+@pytest.mark.parametrize("epilogue", ["exp", "flat", "wrap", "bare"])
+def test_k4_synthesis_x_epilogues(lvl0, epilogue):
+    jp, spec, bops, ops = lvl0
+    L_w = jp.ladder[-1][1]
+    rng = np.random.default_rng(4)
+    st = (rng.normal(size=(2, H, L_w)) * 0.01).astype(np.float32)
+    img = rng.integers(0, 3000, (2, H, W), np.uint16)
+    flat = (1.0 + 0.3 * rng.random((H, W))).astype(np.float32)
+    dark = rng.uniform(0, 40, (H, W)).astype(np.float32)
+    kw_j, kw_t = {}, {}
+    if epilogue == "flat":
+        kw_j = dict(flat=jnp.asarray(flat), dark=jnp.asarray(dark))
+        kw_t = dict(flat=torch.from_numpy(flat), dark=torch.from_numpy(dark))
+    elif epilogue == "wrap":
+        kw_j = kw_t = dict(wrap=True)
+    with_img = epilogue != "bare"
+    want = np.asarray(pb.syn_x_exp(
+        jnp.asarray(st), jnp.asarray(img) if with_img else None, bops["bk4"],
+        spec["k4"]["starts"], W, interpret=True, **kw_j))
+    got = _k4(torch.from_numpy(st), torch.from_numpy(img) if with_img else None,
+              ops, **kw_t).numpy()
+    assert got.dtype == want.dtype and got.shape == (2, H, W)
+    if epilogue in ("flat", "wrap"):
+        d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+        assert d.max() <= 1
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-4,
+                                   atol=2e-2 if with_img else 1e-5)
+
+
+def test_level1_chain(lvl1):
+    """Level 1 (no log1p): K1 -> K2 and K3 -> bare K4 at 1280x1280."""
+    jp, spec, bops, ops = lvl1
+    h, w, lh, lw = jf._band_level_geometry(jp, 1)
+    rng = np.random.default_rng(9)
+    a = rng.normal(size=(2, h, w)).astype(np.float32)
+    lox_j = pb.an_x_lowpass_log1p(jnp.asarray(a), bops["bk1"],
+                                  spec["k1"]["starts"], lw, log1p=False,
+                                  interpret=True)
+    ca_j, ch_j = pb.an_y_pass(lox_j, bops["bk2"], spec["k2"]["stride"],
+                              spec["k2"]["pad"], lh, interpret=True)
+    lox = _k1(torch.from_numpy(a), ops, log1p=False)
+    ca, ch, _ = _k2(lox, ops)
+    np.testing.assert_allclose(ca.numpy(), np.asarray(ca_j), rtol=3e-5,
+                               atol=6e-4)
+    np.testing.assert_allclose(ch.numpy(), np.asarray(ch_j), rtol=3e-5,
+                               atol=6e-4)
+
+    corr = rng.normal(size=(2, lh, lw)).astype(np.float32)
+    delta = rng.normal(size=(2, lh, lw)).astype(np.float32)
+    st_j = pb.syn_y_pass(jnp.asarray(corr), jnp.asarray(delta),
+                         bops["bk3_lo"], bops["bk3_hi"], spec["k3"]["stride"],
+                         spec["k3"]["pad"], h, interpret=True)
+    want = pb.syn_x_exp(st_j, None, bops["bk4"], spec["k4"]["starts"], w,
+                        interpret=True)
+    got = _k4(_k3(torch.from_numpy(corr), torch.from_numpy(delta), ops),
+              None, ops)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
+                               atol=2e-3)
+
+
+def test_loader_raises_without_nvcc(monkeypatch):
+    monkeypatch.setattr(cuda_build, "find_nvcc", lambda: None)
+    monkeypatch.setattr(cuda_build, "build_dir",
+                        lambda: cuda_build.Path("/nonexistent/kernels"))
+    cuda_build.kernel_library.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.kernel_library()
+    cuda_build.kernel_library.cache_clear()
+
+
+def test_wrapper_refuses_other_devices(lvl0):
+    """A tensor that is neither on the CPU nor on a CUDA device gets no
+    route: no silent fallback to the plain twin."""
+    _, _, _, ops = lvl0
+    x = torch.empty((1, H, W), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain route"):
+        _k1(x, ops)

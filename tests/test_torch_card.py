@@ -1,0 +1,175 @@
+"""The Hopper kernels of the torch package against their plain PyTorch twins
+on the card (marker ``cuda``; every test skips without one).
+
+This file imports no JAX, so it runs on a card host without it, from the
+root of a checkout (``tests/conftest.py`` imports JAX, hence the flag):
+
+    python -m pytest --noconftest tests/test_torch_card.py -q
+
+Tolerances. f32 outputs: kernel and twin sum the same products in f32 in
+another order (the twin's GEMM adds exact zeros besides), so they agree to
+a few ulps of the operands: 1e-5 of the largest operand magnitude. uint16
+outputs: 1 LSB (a value on a rounding boundary). Classifier sums, histogram
+counts and row medians: exact.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from aind_smartspim_destripe_torch import ops as tops  # noqa: E402
+from aind_smartspim_destripe_torch.ops import cuda_band as cb  # noqa: E402
+from aind_smartspim_destripe_torch.ops import cuda_hist as th  # noqa: E402
+from aind_smartspim_destripe_torch.ops import cuda_notch as tn  # noqa: E402
+from aind_smartspim_destripe_torch.ops import filter as tf  # noqa: E402
+
+F32_RTOL = 1e-5
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    tf.f32_matmul()
+    return torch.device("cuda")
+
+
+def _close(got, want, scale=None):
+    if want.dtype == torch.uint16:
+        d = (got.to(torch.int32) - want.to(torch.int32)).abs().max().item()
+        assert d <= 1, f"uint16 outputs differ by {d} LSB"
+        return
+    if scale is None:
+        scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert err <= F32_RTOL * max(1.0, scale), err
+
+
+def _ops(hw, lvl, device):
+    """The dense operators and band forms of analysis level ``lvl``."""
+    cfg = tf.FilterConfig(wavelet="db3", level=None, sigma=64,
+                          max_threshold=3)
+    plan = tf.build_plan(*hw, cfg, cfg)
+    consts = tf.constants_from_numpy(plan.constants(), device)
+    n = plan.n_levels
+    return {
+        "an_x_lo": consts["an_x_lo"][lvl],
+        "an_y": consts["an_y"][lvl],
+        "syn_y": consts["syn_y"][n - 1 - lvl],
+        "syn_x_lo": consts["syn_x_lo"][n - 1 - lvl],
+        **consts[f"band{lvl}"],
+    }
+
+
+@pytest.mark.parametrize("hw,level", [((1600, 2000), 0), ((1600, 2000), 1),
+                                      ((1001, 777), 0), ((2048, 2048), 1)])
+def test_card_band_kernels_match_twins(card, hw, level):
+    ops = _ops(hw, level, card)
+    g = torch.Generator(device="cpu").manual_seed(level)
+    L = ops["an_x_lo"].shape[0]
+    Ho, w = ops["syn_y"].shape[0], ops["syn_x_lo"].shape[0]
+    Lh = ops["an_y"].shape[0] // 2
+    if level == 0:
+        x = torch.randint(0, 4000, (2, Ho, w), generator=g).to(torch.uint16)
+    else:
+        x = torch.randn((2, Ho, w), generator=g) * 2 + 6
+    x = x.to(card)
+    cut = tf._classifier_cut_f32(400.0, 20.0, 0.3) if level == 0 else None
+    k1 = cb.an_x_lowpass_log1p(x, ops["an_x_lo"], ops["k1_start"],
+                               ops["k1_coef"], log1p=level == 0, cls_cut=cut)
+    t1 = cb.an_x_lowpass_log1p_plain(x, ops["an_x_lo"], level == 0, cut)
+    if cut is not None:
+        (k1, ks), (t1, ts) = k1, t1
+        assert torch.equal(ks, ts)
+    _close(k1, t1)
+    lo, hi, (mn, mx) = cb.an_y_pass(k1, ops["an_y"], ops["k2_start"],
+                                    ops["k2_lo"], ops["k2_hi"])
+    lo_t, hi_t, (mn_t, mx_t) = cb.an_y_pass_plain(k1, ops["an_y"])
+    for a, b in ((lo, lo_t), (hi, hi_t), (mn, mn_t), (mx, mx_t)):
+        _close(a, b)
+    corr = (torch.randn((2, Lh, L), generator=g) * 0.01).to(card)
+    delta = (torch.randn((2, Lh, L), generator=g) * 0.01).to(card)
+
+    def k3(c):
+        return cb.syn_y_pass(c, delta, ops["syn_y"], ops["k3_start"],
+                             ops["k3_lo"], ops["k3_hi"])
+
+    for c in (corr, None):
+        _close(k3(c), cb.syn_y_pass_plain(c, delta, ops["syn_y"]))
+    st = k3(corr)
+
+    def k4(img, **kw):
+        return cb.syn_x_exp(st, img, ops["syn_x_lo"], ops["k4_start"],
+                            ops["k4_coef"], **kw)
+
+    if level == 1:
+        _close(k4(None), cb.syn_x_exp_plain(st, None, ops["syn_x_lo"]))
+        return
+    flat = (1.0 + 0.2 * torch.rand((Ho, w), generator=g)).to(card)
+    dark = torch.full((Ho, w), 3.0, device=card)
+    for kw in (dict(flat=flat, dark=dark), dict(wrap=True), {}):
+        _close(k4(x, **kw), cb.syn_x_exp_plain(st, x, ops["syn_x_lo"], **kw))
+
+
+@pytest.mark.parametrize("shape", [(4, 802, 1002), (4, 403, 503),
+                                   (3, 11, 12), (2, 37, 203)])
+def test_card_tail_kernels_match_twins(card, shape):
+    g = torch.Generator(device="cpu").manual_seed(shape[1])
+    ch = (torch.randn(shape, generator=g) * 0.3).to(card)
+    B, h, w = shape
+    a = ch.abs()
+    ranges = {
+        True: (a.amin(dim=(1, 2)) ** 2,
+               a.amax(dim=(1, 2)) ** 2 - a.amin(dim=(1, 2)) ** 2),
+        False: (ch.amin(dim=(1, 2)),
+                ch.amax(dim=(1, 2)) - ch.amin(dim=(1, 2))),
+    }
+    for square, (lo, span) in ranges.items():
+        assert torch.equal(
+            th.histogram256_batch(ch, lo, span, square=square),
+            th.histogram256_batch_plain(ch, lo, span, square=square))
+    u16 = torch.randint(0, 4000, shape, generator=g).to(torch.uint16).to(card)
+    lo16 = torch.zeros(B, device=card)
+    span16 = torch.full((B,), 4000.0, device=card)
+    assert torch.equal(th.histogram256_batch(u16, lo16, span16),
+                       th.histogram256_batch_plain(u16, lo16, span16))
+    thr = torch.linspace(0.1, 0.6, B, device=card)
+    assert torch.equal(tn.row_median_masked(ch, thr),
+                       tn.row_median_masked_plain(ch, thr))
+    sel = (torch.arange(B, device=card) % 2).to(torch.int32)
+    cat = (torch.randn((w, 2 * w), generator=g) / w**0.5).to(card)
+    got = tn.notch_delta(ch, thr, sel, cat)
+    _close(got, tn.notch_delta_plain(ch, thr, sel, cat),
+           scale=ch.abs().max().item())
+    stripes = torch.sqrt(ch * ch) > thr[:, None, None]
+    assert bool((got[stripes] == 0).all())
+
+
+@pytest.mark.parametrize("epilogue", ["flat", "wrap"])
+def test_card_destripe_batch_matches_cpu(card, epilogue):
+    """The whole step on the card (K1-K4 at level 0, the histogram and
+    notch kernels at every level) against the plain path on the CPU: within
+    1 LSB apart from threshold flips (budget 1e-4 of the pixels)."""
+    h, w = 640, 768
+    cfg_c = tf.FilterConfig(wavelet="db3", sigma=64, max_threshold=3)
+    cfg_n = tf.FilterConfig(wavelet="db3", sigma=128, max_threshold=12)
+    plan = tf.build_plan(h, w, cfg_c, cfg_n)
+    rng = np.random.default_rng(21)
+    x = np.clip(300 + rng.normal(size=(4, h, 1)) * 50
+                + rng.normal(size=(4, h, w)) * 10
+                + np.array([0, 2800, 0, 2800])[:, None, None],
+                0, 65535).astype(np.uint16)
+    kw = dict(wrap=True)
+    if epilogue == "flat":
+        kw = dict(flat=(1.0 + 0.2 * rng.random((h, w))).astype(np.float32),
+                  dark=np.full((h, w), 3.0, np.float32))
+    tops.reset_launches()
+    got = tf.destripe_batch(plan, torch.from_numpy(x).to(card), 2500.0,
+                            **kw).cpu().numpy()
+    assert all(k.launches > 0 for k in tops.kernels())
+    want = tf.destripe_batch(plan, torch.from_numpy(x), 2500.0, **kw).numpy()
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    assert (d > 1).mean() <= 1e-4, f"{(d > 1).mean():.2%} flipped"

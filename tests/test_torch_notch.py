@@ -1,0 +1,138 @@
+"""The Otsu histogram, masked row median and notch tail of the torch package
+(ops/cuda_hist.py, ops/cuda_notch.py).
+
+On the CPU: each plain twin against the JAX package's Pallas kernel
+(ops/pallas_hist.py, ops/pallas_median.py, ops/pallas_notch.py) in interpret
+mode, at those kernels' own test geometries. Histogram counts and medians
+are exact. The notch tail's product is bf16x3 on the TPU kernel (== XLA's
+HIGH precision, ~2^-21 relative) and plain f32 in the twin, so it is held to
+the tolerance of tests/test_pallas_notch.py; stripe pixels are exactly 0.
+
+The Hopper kernels themselves are held against these twins on the card by
+tests/test_torch_card.py and chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from aind_smartspim_destripe_tpu.ops import fft_notch as jn  # noqa: E402
+from aind_smartspim_destripe_tpu.ops import pallas_hist as ph  # noqa: E402
+from aind_smartspim_destripe_tpu.ops import pallas_median as pm  # noqa: E402
+from aind_smartspim_destripe_tpu.ops import pallas_notch as pn  # noqa: E402
+from aind_smartspim_destripe_torch import ops as tops  # noqa: E402
+from aind_smartspim_destripe_torch.ops import cuda_hist as th  # noqa: E402
+from aind_smartspim_destripe_torch.ops import cuda_notch as tn  # noqa: E402
+from aind_smartspim_destripe_torch.ops import filter as tf  # noqa: E402
+
+
+def _range(x, square):
+    v = x.reshape(x.shape[0], -1).astype(np.float32)
+    if square:
+        v = v * v
+    lo, hi = v.min(axis=1), v.max(axis=1)
+    return lo, np.where(hi > lo, hi - lo, 1.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("dtype,shape", [(np.float32, (3, 13, 130)),
+                                         (np.float32, (2, 204, 254)),
+                                         (np.uint16, (2, 52, 130))])
+def test_histogram_matches_pallas(square, dtype, shape):
+    rng = np.random.default_rng(shape[1])
+    if dtype == np.uint16:
+        x = rng.integers(0, 4000, shape).astype(np.uint16)
+    else:
+        x = (rng.normal(size=shape) * 3.0).astype(np.float32)
+    lo, span = _range(x, square)
+    want = np.asarray(ph.histogram256_batch(
+        jnp.asarray(x), jnp.asarray(lo), jnp.asarray(span), square=square,
+        interpret=True))
+    got = th.histogram256_batch(torch.from_numpy(x), torch.from_numpy(lo),
+                                torch.from_numpy(span), square=square)
+    assert got.dtype == torch.float32 and got.shape == (shape[0], 256)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.all(got.numpy().sum(1) == np.prod(shape[1:]))
+
+
+@pytest.mark.parametrize("shape,thr", [((4, 37, 203), [0.5, 2.0, 0.0, 100.0]),
+                                       ((2, 9, 130), [0.7, 0.1])])
+def test_row_median_masked_matches_pallas(shape, thr):
+    x = np.random.default_rng(shape[2]).normal(scale=3.0, size=shape).astype(
+        np.float32)
+    thr = np.asarray(thr, np.float32)
+    want = np.asarray(pm.row_median_masked(jnp.asarray(x), jnp.asarray(thr),
+                                           interpret=True))
+    got = tn.row_median_masked(torch.from_numpy(x), torch.from_numpy(thr))
+    assert got.shape == shape[:2] + (1,)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.fixture(scope="module")
+def notch_case():
+    """The JAX notch kernel's test case: (3, 96, 250), two operators."""
+    rng = np.random.default_rng(0)
+    B, h, w = 3, 96, 250
+    ch = (rng.normal(size=(B, h, w)) * 2.0).astype(np.float32)
+    bc = jn.packed_notch_matrix(w, 12.0).astype(np.float32)
+    bn = jn.packed_notch_matrix(w, 40.0).astype(np.float32)
+    thr = np.array([1.5, 0.8, 2.5], np.float32)
+    sel = np.array([0, 1, 0], np.int32)
+    return ch, bc, bn, thr, sel
+
+
+def test_notch_delta_matches_pallas(notch_case):
+    ch, bc, bn, thr, sel = notch_case
+    want = np.asarray(pn.notch_delta(
+        jnp.asarray(ch), None, jnp.asarray(thr), jnp.asarray(sel),
+        pn.stacked_notch_operators(bc, bn), interpret=True))
+    cat = np.concatenate([bc.T, bn.T], axis=1)
+    got = tn.notch_delta(torch.from_numpy(ch), torch.from_numpy(thr),
+                         torch.from_numpy(sel), torch.from_numpy(cat)).numpy()
+    assert got.shape == ch.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    stripes = np.sqrt(ch * ch) > thr[:, None, None]
+    assert np.all(got[stripes] == 0.0) and np.all(want[stripes] == 0.0)
+
+
+def test_filter_level_delta_goes_through_notch_delta(notch_case, monkeypatch):
+    """destripe_batch's per-level tail hands the capped Otsu threshold and
+    the per-plane operator choice to notch_delta."""
+    ch, bc, bn, _, _ = notch_case
+    cat = torch.from_numpy(np.concatenate([bc.T, bn.T], axis=1))
+    seen = {}
+
+    def spy(ch_, thr_, sel_, cat_):
+        seen.update(thr=thr_, sel=sel_)
+        return tn.notch_delta_plain(ch_, thr_, sel_, cat_)
+
+    monkeypatch.setattr(tn, "notch_delta", spy)
+    is_cells = torch.tensor([True, False, True])
+    t = torch.from_numpy(ch)
+    tf._filter_level_delta(t, is_cells, cat, 0.5, 12.0)
+    otsu = torch.sqrt(tf.threshold_otsu_batch(t, square=True))
+    want = torch.minimum(torch.tensor([0.5, 12.0, 0.5]), otsu)
+    assert torch.equal(seen["thr"], want)
+    assert seen["sel"].dtype == torch.int32
+    assert seen["sel"].tolist() == [0, 1, 0]
+
+
+def test_registry_lists_every_kernel():
+    names = [k.__name__ for k in tops.kernels()]
+    assert names == ["an_x_lowpass_log1p", "an_y_pass", "syn_y_pass",
+                     "syn_x_exp", "histogram256_batch", "row_median_masked",
+                     "notch_delta"]
+    tops.reset_launches()
+    assert all(k.launches == 0 for k in tops.kernels())
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.empty((1, 4, 6), dtype=torch.float32, device="meta")
+    t = torch.zeros(1, device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain route"):
+        th.histogram256_batch(x, t, t)
+    with pytest.raises(ValueError, match="no kernel or plain route"):
+        tn.row_median_masked(x, t)

@@ -1,0 +1,168 @@
+"""The torch package's capsule path on the CPU, against the JAX package.
+
+``run_capsule.run(devices=[cpu])`` on the synthetic capsule of
+tests/test_run_capsule_e2e.py (two 16x96x128 tiles): level 0 against the
+JAX ``destripe_batch`` with the flat-field epilogue on the same tile,
+levels 1-2 against ``windowed_mean_np`` of the port's own level 0, the
+OME-NGFF metadata and provenance, resume through the journal, and a
+subprocess run in which jax is never imported.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from aind_smartspim_destripe_tpu.io.readers import imread  # noqa: E402
+from aind_smartspim_destripe_tpu.io.zarr import open_zarr  # noqa: E402
+from aind_smartspim_destripe_tpu.ops import filter as jf  # noqa: E402
+from aind_smartspim_destripe_tpu.ops.multiscale import (  # noqa: E402
+    windowed_mean_np,
+)
+from aind_smartspim_destripe_torch import run_capsule  # noqa: E402
+from aind_smartspim_destripe_torch.runtime import pipeline  # noqa: E402
+from tests.test_run_capsule_e2e import H, W, Z, build_capsule  # noqa: E402
+
+CPU = [torch.device("cpu")]
+TILES = {"471320_461360": 0, "489620_461360": 1}  # tile -> laser side
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _tile(results, tile):
+    return open_zarr(str(results / "destriped_data" / "Ex_488_Em_525"
+                         / f"{tile}.zarr"))
+
+
+@pytest.fixture(scope="module")
+def capsule(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("capsule")
+    data, results = build_capsule(tmp)
+    run_capsule.run(data_folder=str(data), results_folder=str(results),
+                    scratch_folder=str(tmp / "scratch"), devices=CPU)
+    return data, results
+
+
+def test_level0_matches_jax(capsule):
+    data, results = capsule
+    cfg = run_capsule.PRODUCTION_PARAMETERS
+    plan = jf.build_plan(H, W, jf.FilterConfig.from_dict(cfg["cells_config"]),
+                         jf.FilterConfig.from_dict(cfg["no_cells_config"]))
+    dark = imread(str(data / "derivatives" / "DarkMaster_cropped.tif"))
+    for tile, side in TILES.items():
+        flat = imread(str(data / f"estimated_flat_laser_Ex_488_Em_525_{side}.tif"))
+        src = np.asarray(open_zarr(str(data / "Ex_488_Em_525" / f"{tile}.zarr"))["0"][0, 0])
+        want = np.asarray(jf.destripe_batch(
+            plan, jnp.asarray(src), 2500.0, plan.constants(),
+            flat=jnp.asarray(flat, jnp.float32),
+            dark=jnp.asarray(dark, jnp.float32)))
+        got = np.asarray(_tile(results, tile)["0"][0, 0])
+        assert got.dtype == np.uint16 and got.shape == (Z, H, W)
+        d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+        assert d.max() <= 1, f"{tile}: {d.max()} LSB"
+
+
+def test_pyramid_metadata_and_provenance(capsule):
+    _, results = capsule
+    for tile in TILES:
+        g = _tile(results, tile)
+        assert set(g.keys()) == {"0", "1", "2"}
+        lvl0, lvl1 = g["0"][:], g["1"][:]
+        np.testing.assert_array_equal(lvl1, windowed_mean_np(lvl0))
+        np.testing.assert_array_equal(g["2"][:], windowed_mean_np(lvl1))
+        ms = g.attrs["multiscales"][0]
+        assert len(ms["datasets"]) == 3
+        assert ms["datasets"][0]["coordinateTransformations"][0]["scale"] == [
+            1.0, 1.0, 2.0, 1.8, 1.8]
+    prov = results / "image_destriping_Ex_488_Em_525_processing.json"
+    names = [p["name"] for p in
+             json.load(open(prov))["processing_pipeline"]["data_processes"]]
+    assert names == ["Image destriping", "Image flat-field correction"]
+
+
+def test_second_run_resumes_through_journal(capsule, monkeypatch):
+    data, results = capsule
+    before = {t: _tile(results, t)["0"][:] for t in TILES}
+
+    def no_compute(self, data):
+        raise AssertionError("a committed slab was recomputed")
+
+    monkeypatch.setattr(pipeline.StreamingDestriper, "_process_slab",
+                        no_compute)
+    run_capsule.run(data_folder=str(data), results_folder=str(results),
+                    scratch_folder=str(data.parent / "scratch"), devices=CPU)
+    for t in TILES:
+        np.testing.assert_array_equal(_tile(results, t)["0"][:], before[t])
+
+
+def test_subprocess_run_never_imports_jax(tmp_path):
+    data, results = build_capsule(tmp_path)
+    code = (
+        "import sys, torch\n"
+        "from aind_smartspim_destripe_torch import run_capsule\n"
+        f"run_capsule.run({str(data)!r}, {str(results)!r}, "
+        f"{str(tmp_path / 'scratch')!r}, devices=[torch.device('cpu')])\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "print('NO_JAX_OK')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "NO_JAX_OK" in res.stdout
+    assert set(_tile(results, "471320_461360").keys()) == {"0", "1", "2"}
+
+
+def test_device_resolution(monkeypatch):
+    assert pipeline.resolve_device(CPU) == torch.device("cpu")
+    with pytest.raises(NotImplementedError):
+        pipeline.resolve_device(CPU * 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.resolve_device(None)
+
+
+def test_dual_band_not_ported(tmp_path, monkeypatch):
+    data, results = build_capsule(tmp_path)
+    monkeypatch.setenv("DESTRIPE_DUAL_BAND", "1")
+    with pytest.raises(NotImplementedError, match="dual-band"):
+        run_capsule.run(data_folder=str(data), results_folder=str(results),
+                        scratch_folder=str(tmp_path / "scratch"), devices=CPU)
+
+
+def test_codec_build_with_zstd_shim(tmp_path, monkeypatch):
+    """Where the reference codec has no native library, ensure_native_codec
+    builds the blosc runtime against libzstd.so.1 with the package's zstd
+    declarations, into the port's build directory, and installs it; its
+    frames equal the reference native codec's byte for byte."""
+    import shutil
+
+    from aind_smartspim_destripe_torch.io import codec
+    from aind_smartspim_destripe_tpu.io import blosc
+
+    if shutil.which("g++") is None or blosc._load_native() is False:
+        pytest.skip("needs g++ and the reference native codec")
+    data = (np.random.default_rng(0).normal(size=200_000) * 40 + 500).astype(
+        np.uint16)
+    want = blosc.compress(data, 2)
+    ref = blosc._load_native()
+    monkeypatch.setattr(codec, "build_dir", lambda: tmp_path)
+    monkeypatch.setattr(blosc, "_native", False)  # as on a host without it
+    monkeypatch.setattr(codec, "_shim", None)
+    assert codec.ensure_native_codec() == "native-shim"
+    assert codec.ensure_native_codec() == "native-shim"
+    assert [p.suffix for p in tmp_path.iterdir()] == [".so"]
+    assert blosc._native and blosc._load_native() is blosc._native
+    for name in ("blosc1_compress", "blosc1_decompress",
+                 "blosc1_compress_batch", "blosc1_decompress_batch",
+                 "blosc1_compress_slab", "blosc1_decompress_slab"):
+        mine, theirs = getattr(blosc._native, name), getattr(ref, name)
+        assert (mine.restype, mine.argtypes) == (theirs.restype,
+                                                 theirs.argtypes), name
+    assert blosc.compress(data, 2) == want
+    assert blosc.decompress(want) == data.tobytes()

@@ -1,0 +1,202 @@
+"""The torch package's numpy plan against the JAX package's.
+
+Filter banks, operator builders, notch operators, shape ladders, the dense
+constants and the classifier cut must be equal (np.array_equal) at the
+production geometry 1600x2000, at 2048x2048 and at an odd geometry. The
+band form the Hopper kernels read must rebuild each dense operator exactly
+(float64), and constants_from_numpy must carry the arrays to torch
+unchanged, from either package's constants.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from aind_smartspim_destripe_tpu.ops import fft_notch as jn  # noqa: E402
+from aind_smartspim_destripe_tpu.ops import filter as jf  # noqa: E402
+from aind_smartspim_destripe_tpu.ops import wavelets as jw  # noqa: E402
+from aind_smartspim_destripe_torch.ops import cuda_band as cb  # noqa: E402
+from aind_smartspim_destripe_torch.ops import fft_notch as tn  # noqa: E402
+from aind_smartspim_destripe_torch.ops import filter as tf  # noqa: E402
+from aind_smartspim_destripe_torch.ops import wavelets as tw  # noqa: E402
+
+GEOMETRIES = [(1600, 2000), (2048, 2048), (1001, 777)]
+CELLS = dict(wavelet="db3", level=None, sigma=64.0, max_threshold=3.0)
+NO_CELLS = dict(wavelet="db3", level=None, sigma=128.0, max_threshold=12.0)
+
+
+def _plans(h, w):
+    jp = jf.build_plan(h, w, jf.FilterConfig(**CELLS),
+                       jf.FilterConfig(**NO_CELLS))
+    tp = tf.build_plan(h, w, tf.FilterConfig(**CELLS),
+                       tf.FilterConfig(**NO_CELLS))
+    return jp, tp
+
+
+@pytest.mark.parametrize("name", ["haar", "db1", "db3", "db4", "db8", "db20"])
+def test_filter_banks_equal(name):
+    a, b = jw.wavelet(name), tw.wavelet(name)
+    assert a.rec_lo == b.rec_lo and a.name == b.name
+    for attr in ("dec_lo", "dec_hi", "rec_lo_arr", "rec_hi"):
+        np.testing.assert_array_equal(getattr(a, attr), getattr(b, attr))
+
+
+def _banded(tp):
+    """The levels that run the banded kernels, as destripe_batch reads
+    them: the band keys of the plan's constants on a device."""
+    consts = tf.constants_from_numpy(tp.constants(), "cpu")
+    return tuple(sorted(int(k[4:]) for k in consts if k.startswith("band")))
+
+
+@pytest.mark.parametrize("n", [12, 128, 503, 1002, 2000])
+def test_axis_operators_equal(n):
+    assert tw.dwt_max_level(n, 6) == jw.dwt_max_level(n, 6)
+    assert tw.dwt_coeff_len(n, 6) == jw.dwt_coeff_len(n, 6)
+    assert tw.idwt_len(n, 6) == jw.idwt_len(n, 6)
+    np.testing.assert_array_equal(tw._fold_symmetric(np.arange(-9, n + 9), n),
+                                  jw._fold_symmetric(np.arange(-9, n + 9), n))
+    np.testing.assert_array_equal(tw.analysis_operator(n, "db3"),
+                                  jw.analysis_operator(n, "db3"))
+    np.testing.assert_array_equal(tw.synthesis_operator(n, "db3"),
+                                  jw.synthesis_operator(n, "db3"))
+
+
+@pytest.mark.parametrize("n,sigma", [(12, 2.0), (67, 9.5), (1002, 40.1)])
+def test_notch_builders_equal(n, sigma):
+    np.testing.assert_array_equal(tn.notch(n, sigma), jn.notch(n, sigma))
+    np.testing.assert_array_equal(tn.gaussian_filter((3, n), sigma),
+                                  jn.gaussian_filter((3, n), sigma))
+    g = tn.notch(n, sigma)
+    for a, b in zip(tn._packed_gains(n, g), jn._packed_gains(n, g)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(tn.packed_notch_matrix(n, sigma),
+                                  jn.packed_notch_matrix(n, sigma))
+
+
+@pytest.mark.parametrize("hw", GEOMETRIES)
+def test_plan_and_dense_constants_equal(hw):
+    jp, tp = _plans(*hw)
+    assert (tp.height, tp.width, tp.wavelet, tp.n_levels) == (
+        jp.height, jp.width, jp.wavelet, jp.n_levels)
+    assert tp.ladder == jp.ladder
+    assert tp.notch_sigmas() == jp.notch_sigmas()
+    shape = hw
+    wav_j, wav_t = jw.wavelet("db3"), tw.wavelet("db3")
+    for (ja, jx), (ta, tx) in zip(jw.analysis_operators(shape, wav_j),
+                                  tw.analysis_operators(shape, wav_t)):
+        np.testing.assert_array_equal(ta, ja)
+        np.testing.assert_array_equal(tx, jx)
+    for (ja, jx), (ta, tx) in zip(jw.synthesis_operators(shape, wav_j),
+                                  tw.synthesis_operators(shape, wav_t)):
+        np.testing.assert_array_equal(ta, ja)
+        np.testing.assert_array_equal(tx, jx)
+    jc = jp.constants(dense_only=True)
+    tc = tp.constants(dense_only=True)
+    assert set(tc) == set(jc)
+    for key in jc:
+        assert len(tc[key]) == len(jc[key])
+        for a, b in zip(tc[key], jc[key]):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+def test_ladder_production_geometry():
+    _, tp = _plans(1600, 2000)
+    assert tp.n_levels == 8
+    assert tp.ladder[-1] == (802, 1002) and tp.ladder[0] == (11, 12)
+    assert _banded(tp) == (0, 1)
+
+
+@pytest.mark.parametrize("hw,level", [((1600, 2000), None), ((2048, 2048), 1),
+                                      ((1001, 777), None), ((1280, 1280), 2),
+                                      ((96, 128), None)])
+def test_band_gate_matches_jax(hw, level):
+    cfg_j = jf.FilterConfig(wavelet="db3", level=level)
+    cfg_t = tf.FilterConfig(wavelet="db3", level=level)
+    jp = jf.build_plan(*hw, cfg_j, cfg_j)
+    tp = tf.build_plan(*hw, cfg_t, cfg_t)
+    want = []
+    for lvl in range(jp.n_levels):
+        if jf.band_spec(jp, lvl) is None:
+            break
+        want.append(lvl)
+    assert _banded(tp) == tuple(want)
+
+
+def test_classifier_cut_equal():
+    assert tf._classifier_cut(400.0, 20.0, 0.3) == jf._classifier_cut(
+        400.0, 20.0, 0.3)
+    assert tf._classifier_cut_f32(400.0, 20.0, 0.3) == jf._classifier_cut_f32(
+        400.0, 20.0, 0.3)
+    cut = tf._classifier_cut_f32(400.0, 20.0, 0.3)
+    x = np.arange(65536, dtype=np.float32)
+    with np.errstate(over="ignore"):  # 65520.. round to inf in float16
+        x16 = x.astype(np.float16)
+    np.testing.assert_array_equal(
+        x >= np.float32(cut),
+        x16 >= np.float16(tf._classifier_cut(400.0, 20.0, 0.3)))
+
+
+@pytest.mark.parametrize("hw", GEOMETRIES)
+def test_band_forms_rebuild_dense_operators(hw):
+    _, tp = _plans(*hw)
+    consts = tp.constants()
+    n = tp.n_levels
+    lvls = _banded(tp)
+    assert lvls and all(f"band{lvl}" in consts for lvl in lvls)
+    assert f"band{len(lvls)}" not in consts
+    for lvl in lvls:
+        bd = consts[f"band{lvl}"]
+        an_y, an_x = consts["an_y"][lvl], consts["an_x_lo"][lvl]
+        syn_y, syn_x = consts["syn_y"][n - 1 - lvl], consts["syn_x_lo"][n - 1 - lvl]
+        L_h = an_y.shape[0] // 2
+        pairs = [
+            (bd["k1_start"], bd["k1_coef"], an_x),
+            (bd["k2_start"], bd["k2_lo"], an_y[:L_h]),
+            (bd["k2_start"], bd["k2_hi"], an_y[L_h:]),
+            (bd["k3_start"], bd["k3_lo"], syn_y[:, :L_h]),
+            (bd["k3_start"], bd["k3_hi"], syn_y[:, L_h:]),
+            (bd["k4_start"], bd["k4_coef"], syn_x),
+        ]
+        for start, coef, dense in pairs:
+            assert start.dtype == np.int32 and coef.dtype == np.float32
+            assert start.min() >= 0
+            assert start.max() + coef.shape[1] <= dense.shape[1]
+            np.testing.assert_array_equal(
+                cb.band_dense(start, coef.astype(np.float64), dense.shape[1]),
+                dense.astype(np.float64))
+        # db3: 6 analysis taps, 3 synthesis taps per output
+        assert bd["k1_coef"].shape[1] == bd["k2_lo"].shape[1] == 6
+        assert bd["k3_lo"].shape[1] == bd["k4_coef"].shape[1] == 3
+
+
+def test_band_form_of_a_small_operator():
+    A = np.zeros((3, 40), np.float32)
+    A[0, 0] = A[0, 3] = 1.0  # width 4
+    A[1, 10] = 1.0
+    A[2, 20] = A[2, 23] = 2.0
+    start, (coef,) = cb.band_form(A)
+    assert coef.shape == (3, 4)
+    np.testing.assert_array_equal(cb.band_dense(start, coef, 40), A)
+    with pytest.raises(ValueError, match="shapes differ"):
+        cb.band_form(A, A[:, :30])
+
+
+def test_constants_from_numpy_round_trip():
+    jp, tp = _plans(1001, 777)
+    mine = tf.constants_from_numpy(tp.constants(), "cpu")
+    theirs = tf.constants_from_numpy(jp.constants(dense_only=True), "cpu")
+    ref = tp.constants()
+    assert set(mine) == set(theirs) == set(ref)
+    for key, val in ref.items():
+        if key.startswith("band"):
+            for name, arr in val.items():
+                for got in (mine[key][name], theirs[key][name]):
+                    assert got.dtype == (torch.int32 if arr.dtype == np.int32
+                                         else torch.float32)
+                    np.testing.assert_array_equal(got.numpy(), arr)
+            continue
+        for arr, a, b in zip(val, mine[key], theirs[key]):
+            np.testing.assert_array_equal(a.numpy(), arr)
+            np.testing.assert_array_equal(b.numpy(), arr)
