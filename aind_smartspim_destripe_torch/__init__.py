@@ -2,15 +2,16 @@
 aind_smartspim_destripe_torch — the PyTorch / CUDA port of the SmartSPIM
 destriping framework, for one NVIDIA H100.
 
-It mirrors ``aind_smartspim_destripe_tpu`` (the JAX reference, which it
-never imports beyond its JAX-free ``io`` and ``utils.provenance`` modules):
+It mirrors ``aind_smartspim_destripe_tpu`` (the JAX reference), and imports
+nothing of it: the host code it shares (store IO, the blosc codec source,
+provenance) is the port's own copy.
 
 - ``ops``     — the numpy plan builders, the destripe step in torch, and its
                 CUDA kernels (``csrc/``: the banded DWT passes K1-K4, the
                 Otsu histogram, the masked row median and the notch tail)
                 with their plain twins;
 - ``runtime`` — the streaming host<->device pipeline and tracing;
-- ``io``      — the reference's store IO and the blosc-zstd codec build;
+- ``io``      — store IO (Zarr, OME-NGFF, TIFF) and the blosc-zstd codec;
 - ``utils``   — logging, resource profiling, system information.
 
 ``zarr_destriper`` and ``run_capsule`` carry the production Zarr path.

@@ -198,67 +198,76 @@ enum K4Mode { kBare = 0, kExp = 1, kFlat = 2, kWrap = 3 };
 // kBare: corr; kExp: exp(log(1 + img) + corr) + 1; kFlat: that, dark
 // subtracted (clamped at 0), divided by flat, clipped to [0, 65535] and
 // truncated to uint16; kWrap: that, truncated to int32, modulo 2^16.
+// img holds P planes (P divides B) and output plane b reads image plane
+// b % P (the dual-band form: two corrections per raw plane). Block z is an
+// image plane: its threads read the pixel once, then run the corrections
+// b = z, z + P, ... < B. The pixel's load is issued before the loop and
+// its log taken inside, so the load overlaps the taps' loads.
 template <typename TI, int kMode>
 __global__ void k4_kernel(const float* __restrict__ st,
                           const TI* __restrict__ img,
                           const float* __restrict__ flat,
                           const float* __restrict__ dark, void* __restrict__ out,
                           const int* __restrict__ start,
-                          const float* __restrict__ coef, int K, int H, int L,
-                          int W) {
-  const int b = blockIdx.z, h = blockIdx.y;
+                          const float* __restrict__ coef, int K, int B, int H,
+                          int L, int W) {
+  const int P = gridDim.z, h = blockIdx.y;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= W) return;
-  const float* row = st + ((size_t)b * H + h) * L;
   const int s = start[j];
-  float corr = 0.0f;
-  for (int k = 0; k < K; ++k) {
-    corr = fmaf(coef[(size_t)j * K + k], row[s + k], corr);
-  }
-  const size_t o = ((size_t)b * H + h) * W + j;
-  if (kMode == kBare) {
-    static_cast<float*>(out)[o] = corr;
-    return;
-  }
-  const float v = to_f32(img[o]);
-  float y = expf(logf(1.0f + v) + corr) + 1.0f;
-  if (kMode == kExp) {
-    static_cast<float*>(out)[o] = y;
-  } else if (kMode == kFlat) {
-    const float d = dark[(size_t)h * W + j];
-    y = (y <= d) ? 0.0f : y - d;
-    y = y / flat[(size_t)h * W + j];
-    y = fminf(fmaxf(y, 0.0f), 65535.0f);
-    static_cast<unsigned short*>(out)[o] = (unsigned short)__float2int_rz(y);
-  } else {
-    int m = __float2int_rz(y) % 65536;
-    if (m < 0) m += 65536;
-    static_cast<unsigned short*>(out)[o] = (unsigned short)m;
+  float v = 0.0f;
+  if (kMode != kBare) v = to_f32(img[((size_t)blockIdx.z * H + h) * W + j]);
+  for (int b = blockIdx.z; b < B; b += P) {
+    const float* row = st + ((size_t)b * H + h) * L;
+    float corr = 0.0f;
+    for (int k = 0; k < K; ++k) {
+      corr = fmaf(coef[(size_t)j * K + k], row[s + k], corr);
+    }
+    const size_t o = ((size_t)b * H + h) * W + j;
+    if (kMode == kBare) {
+      static_cast<float*>(out)[o] = corr;
+      continue;
+    }
+    float y = expf(logf(1.0f + v) + corr) + 1.0f;
+    if (kMode == kExp) {
+      static_cast<float*>(out)[o] = y;
+    } else if (kMode == kFlat) {
+      const float d = dark[(size_t)h * W + j];
+      y = (y <= d) ? 0.0f : y - d;
+      y = y / flat[(size_t)h * W + j];
+      y = fminf(fmaxf(y, 0.0f), 65535.0f);
+      static_cast<unsigned short*>(out)[o] =
+          (unsigned short)__float2int_rz(y);
+    } else {
+      int m = __float2int_rz(y) % 65536;
+      if (m < 0) m += 65536;
+      static_cast<unsigned short*>(out)[o] = (unsigned short)m;
+    }
   }
 }
 
 template <typename TI>
 void launch_k4(dim3 grid, dim3 block, cudaStream_t s, const float* st,
                const void* img, const float* flat, const float* dark,
-               void* out, const int* start, const float* coef, int K, int H,
-               int L, int W, int mode) {
+               void* out, const int* start, const float* coef, int K, int B,
+               int H, int L, int W, int mode) {
   const TI* im = static_cast<const TI*>(img);
   switch (mode) {
     case kBare:
-      k4_kernel<TI, kBare><<<grid, block, 0, s>>>(st, im, flat, dark, out,
-                                                  start, coef, K, H, L, W);
+      k4_kernel<TI, kBare><<<grid, block, 0, s>>>(
+          st, im, flat, dark, out, start, coef, K, B, H, L, W);
       break;
     case kExp:
-      k4_kernel<TI, kExp><<<grid, block, 0, s>>>(st, im, flat, dark, out,
-                                                 start, coef, K, H, L, W);
+      k4_kernel<TI, kExp><<<grid, block, 0, s>>>(
+          st, im, flat, dark, out, start, coef, K, B, H, L, W);
       break;
     case kFlat:
-      k4_kernel<TI, kFlat><<<grid, block, 0, s>>>(st, im, flat, dark, out,
-                                                  start, coef, K, H, L, W);
+      k4_kernel<TI, kFlat><<<grid, block, 0, s>>>(
+          st, im, flat, dark, out, start, coef, K, B, H, L, W);
       break;
     default:
-      k4_kernel<TI, kWrap><<<grid, block, 0, s>>>(st, im, flat, dark, out,
-                                                  start, coef, K, H, L, W);
+      k4_kernel<TI, kWrap><<<grid, block, 0, s>>>(
+          st, im, flat, dark, out, start, coef, K, B, H, L, W);
       break;
   }
 }
@@ -345,20 +354,22 @@ int destripe_k3(const float* corr, const float* delta, float* out,
 }
 
 // st (B, H, L) f32 -> out (B, H, W): f32 for modes 0-1, uint16 for 2-3.
-// img (B, H, W) uint16 (img_u16=1) or f32, null in mode 0; flat, dark
-// (H, W) f32, read in mode 2 only.
+// img (img_planes, H, W) uint16 (img_u16=1) or f32 with B a multiple of
+// img_planes (= B in mode 0), null in mode 0; flat, dark (H, W) f32, read in
+// mode 2 only.
 int destripe_k4(const float* st, const void* img, int img_u16,
                 const float* flat, const float* dark, void* out,
-                const int* start, const float* coef, int K, int B, int H,
-                int L, int W, int mode, int threads, void* stream) {
-  const dim3 grid((W + threads - 1) / threads, H, B);
+                const int* start, const float* coef, int K, int B,
+                int img_planes, int H, int L, int W, int mode, int threads,
+                void* stream) {
+  const dim3 grid((W + threads - 1) / threads, H, img_planes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (img_u16) {
     launch_k4<unsigned short>(grid, dim3(threads), s, st, img, flat, dark,
-                              out, start, coef, K, H, L, W, mode);
+                              out, start, coef, K, B, H, L, W, mode);
   } else {
     launch_k4<float>(grid, dim3(threads), s, st, img, flat, dark, out, start,
-                     coef, K, H, L, W, mode);
+                     coef, K, B, H, L, W, mode);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,6 +19,12 @@
 // [cells | no-cells] bank), so each plane multiplies only its own operator
 // and neither the inpainted band nor the product is stored.
 //
+// Both take an output batch n_out that is a multiple of the band's batch
+// n_in: output plane b reads band plane b % n_in, with thr[b] and sel[b] of
+// its own (the dual-band form, k = 2: one band, two thresholds and notch
+// operators, without a concatenated copy of the band). The median is taken
+// per output plane, since its mask depends on thr[b].
+//
 // The median is exact: a radix select over the bits of the float (4 passes
 // of 8 bits, counts in a shared-memory histogram with integer atomics),
 // once for odd rows and twice for even rows, whose two middle values are
@@ -99,14 +105,16 @@ __device__ unsigned int select_kth(const float* __restrict__ row, int w,
   return prefix;
 }
 
-// med[b, r] = median of row r of plane b, masked against thr[b].
+// med[b, r] = median of row r of band plane b % n_in, masked against
+// thr[b].
 __global__ void row_median_kernel(const float* __restrict__ x,
                                   const float* __restrict__ thr,
-                                  float* __restrict__ med, int h, int w) {
+                                  float* __restrict__ med, int n_in, int h,
+                                  int w) {
   __shared__ unsigned int hist[256];
   __shared__ unsigned int pick[2];
   const int b = blockIdx.y, r = blockIdx.x;
-  const float* row = x + ((size_t)b * h + r) * w;
+  const float* row = x + ((size_t)(b % n_in) * h + r) * w;
   const float t = thr[b];
   const unsigned int k1 = (w - 1) / 2, k2 = w / 2;
   const float v1 = key_float(select_kth(row, w, t, k1, hist, pick));
@@ -125,12 +133,17 @@ constexpr int BM = 128, BN = 64, BK = 16, TM = 8, TN = 4;
 constexpr int kNotchThreads = (BM / TM) * (BN / TN);
 
 // out[b, r, c] = stripes ? 0 : sum_k inpainted[b, r, k] * op[k, sel*w + c]
-//                                - x[b, r, c]; op is (w, 2w) row-major.
-__global__ void __launch_bounds__(kNotchThreads)
+//                                - x[b % n_in, r, c]; op is (w, 2w)
+// row-major. Three blocks per SM (at most 80 registers per thread). The
+// wrapped form (kWrapped, n_out > n_in) keeps a second plane base live
+// through the K loop and spills a few bytes at that cap; the unwrapped form
+// shares one base between x and out and spills nothing.
+template <bool kWrapped>
+__global__ void __launch_bounds__(kNotchThreads, 3)
     notch_kernel(const float* __restrict__ x, const float* __restrict__ med,
                  const float* __restrict__ thr, const int* __restrict__ sel,
-                 const float* __restrict__ op, float* __restrict__ out, int h,
-                 int w) {
+                 const float* __restrict__ op, float* __restrict__ out,
+                 int n_in, int h, int w) {
   __shared__ __align__(16) float As[BK][BM + 4];  // A tile, k-major
   __shared__ __align__(16) float Bs[BK][BN];
   const int b = blockIdx.z;
@@ -140,7 +153,7 @@ __global__ void __launch_bounds__(kNotchThreads)
   const float t = thr[b];
   const size_t ldo = 2 * (size_t)w;
   const float* bop = op + (size_t)sel[b] * w;
-  const float* xb = x + (size_t)b * h * w;
+  const float* xb = x + (size_t)(kWrapped ? b % n_in : b) * h * w;
   const float* mb = med + (size_t)b * h;
 
   float acc[TM][TN];
@@ -206,23 +219,32 @@ __global__ void __launch_bounds__(kNotchThreads)
 
 extern "C" {
 
-// x (B, h, w) f32, thr (B,) f32 -> med (B, h) f32, the median of each row
-// with the values over thr[b] read as 0. threads a multiple of 32.
-int destripe_row_median(const float* x, const float* thr, float* med, int B,
-                        int h, int w, int threads, void* stream) {
-  row_median_kernel<<<dim3(h, B), threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(x, thr, med, h, w);
+// x (n_in, h, w) f32, thr (n_out,) f32 -> med (n_out, h) f32, the median of
+// each row of plane b % n_in with the values over thr[b] read as 0; n_out a
+// multiple of n_in. threads a multiple of 32.
+int destripe_row_median(const float* x, const float* thr, float* med,
+                        int n_out, int n_in, int h, int w, int threads,
+                        void* stream) {
+  row_median_kernel<<<dim3(h, n_out), threads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(x, thr, med, n_in,
+                                                           h, w);
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (B, h, w) f32, med (B, h) f32, thr (B,) f32, sel (B,) int32 in {0, 1},
-// op (w, 2w) f32 -> out (B, h, w) f32.
+// x (n_in, h, w) f32, med (n_out, h) f32, thr (n_out,) f32, sel (n_out,)
+// int32 in {0, 1}, op (w, 2w) f32 -> out (n_out, h, w) f32.
 int destripe_notch(const float* x, const float* med, const float* thr,
-                   const int* sel, const float* op, float* out, int B, int h,
-                   int w, void* stream) {
-  const dim3 grid((w + BN - 1) / BN, (h + BM - 1) / BM, B);
-  notch_kernel<<<grid, kNotchThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, med, thr, sel, op, out, h, w);
+                   const int* sel, const float* op, float* out, int n_out,
+                   int n_in, int h, int w, void* stream) {
+  const dim3 grid((w + BN - 1) / BN, (h + BM - 1) / BM, n_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_out == n_in) {
+    notch_kernel<false><<<grid, kNotchThreads, 0, s>>>(x, med, thr, sel, op,
+                                                       out, n_in, h, w);
+  } else {
+    notch_kernel<true><<<grid, kNotchThreads, 0, s>>>(x, med, thr, sel, op,
+                                                      out, n_in, h, w);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,11 @@
-"""Store IO of the port: the reference package's JAX-free image readers and
-writers and its Zarr store, re-exported, and the blosc-zstd codec they
-encode with (:mod:`.codec`)."""
-
-from aind_smartspim_destripe_tpu.io.readers import imread
-from aind_smartspim_destripe_tpu.io.writers import imsave
-from aind_smartspim_destripe_tpu.io.zarr import group, open_zarr
+"""Store IO of the port: image readers and writers, the Zarr v2 store, the
+OME-NGFF metadata writer and the blosc-zstd chunk codec, the port's own
+copies of the JAX package's JAX-free ``io`` modules, with the native codec
+built by :mod:`.codec`."""
 
 from .codec import ensure_native_codec
+from .readers import imread
+from .writers import imsave
+from .zarr import group, open_zarr
 
 __all__ = ["imread", "imsave", "group", "open_zarr", "ensure_native_codec"]

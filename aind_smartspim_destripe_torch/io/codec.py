@@ -1,19 +1,15 @@
 """
-The blosc-zstd chunk codec the output stores are written with.
+Build and bind the native blosc-zstd runtime of the port's own codec.
 
-The port writes its stores through the reference package's JAX-free
-``aind_smartspim_destripe_tpu.io`` modules. Their codec (``io/blosc.py``)
-prefers the native runtime ``csrc/libdestripe_runtime.so`` (built from
-``csrc/destripe_runtime.cpp`` by ``make -C csrc``) and otherwise the
-``zstandard`` module. A host can have neither: the zstd runtime library
-without its header, and no ``zstandard``. :func:`ensure_native_codec` then
-builds the same source, with the reference Makefile's flags, into this
-package's build directory (``build/torch_kernels/``, next to the CUDA
-kernels), against ``libzstd.so.1`` and the zstd declarations of
-``csrc/zstd_shim/zstd.h``, and installs it as the reference codec's native
-library. That install sets the reference module's ``_native`` handle: the
-one private name of the reference package the port relies on. The store
-format and its bytes do not change (tests/test_torch_pipeline.py).
+:mod:`.blosc` encodes and decodes chunk frames through a native library
+built from this package's ``csrc/destripe_runtime.cpp`` (a copy of the JAX
+package's codec source) and otherwise through the ``zstandard`` module. A
+host can have the zstd runtime library without its header, and no
+``zstandard``. So the source is built here against ``libzstd.so.1`` and the
+zstd declarations of ``csrc/zstd_shim/zstd.h``, with the JAX package's
+Makefile flags, into ``build/torch_kernels/`` (next to the CUDA kernels),
+once per source and host CPU, at first use. The frames are byte-identical
+to the JAX package's encoder (tests/test_torch_pipeline.py).
 """
 
 from __future__ import annotations
@@ -25,16 +21,15 @@ import shutil
 import subprocess
 from pathlib import Path
 
-from aind_smartspim_destripe_tpu.io import blosc as _blosc
-
 from ..ops.cuda_build import build_dir
+from . import blosc
 
-__all__ = ["ensure_native_codec", "build_shim_codec"]
+__all__ = ["ensure_native_codec", "build_shim_codec", "load_native_codec"]
 
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "destripe_runtime.cpp"
-_SHIM = Path(__file__).resolve().parents[1] / "csrc" / "zstd_shim"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_SRC = _CSRC / "destripe_runtime.cpp"
+_SHIM = _CSRC / "zstd_shim"
 _FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
-_shim = None  # the library ensure_native_codec installed, once it has
 
 
 def _host_cpu() -> bytes:
@@ -74,8 +69,7 @@ def build_shim_codec() -> Path:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signatures of ``csrc/destripe_runtime.cpp``, as the
-    reference codec's loader does."""
+    """Declare the C signatures of ``csrc/destripe_runtime.cpp``."""
     ll, sz = ctypes.c_longlong, ctypes.c_size_t
     pp = ctypes.POINTER(ctypes.c_char_p)
     i = ctypes.c_int
@@ -103,17 +97,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def ensure_native_codec() -> str:
-    """Make a blosc-zstd encoder available and name it: 'native' (the
-    reference package's own build), 'native-shim' (built here against the
-    zstd declarations shim, wherever g++ is) or 'zstandard'. Raises
+def load_native_codec():
+    """The bound native runtime, built here first when needed; False where
+    there is no g++ (:mod:`.blosc` then uses ``zstandard``). Raises
     RuntimeError, with the compiler's message, when the build fails."""
-    global _shim
-    if _shim is not None and _blosc._native is _shim:
-        return "native-shim"
-    if _blosc._load_native():
-        return "native"
-    if shutil.which("g++") is None and _blosc._zstd is not None:
-        return "zstandard"
-    _shim = _blosc._native = _bind(ctypes.CDLL(str(build_shim_codec())))
-    return "native-shim"
+    if shutil.which("g++") is None:
+        return False
+    return _bind(ctypes.CDLL(str(build_shim_codec())))
+
+
+def ensure_native_codec() -> str:
+    """Make the blosc-zstd encoder of :mod:`.blosc` ready and name its
+    backend: 'native-shim' (the native runtime built here) or
+    'zstandard'."""
+    return "native-shim" if blosc._load_native() else "zstandard"

@@ -16,7 +16,9 @@ two. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
   per-plane range of ``|cH|``;
 - :func:`syn_y_pass` (K3): ``S_y[:, :L] @ corr + S_y[:, L:] @ delta``;
 - :func:`syn_x_exp` (K4): ``stacked @ S_x_lo^T``, optionally fused with
-  ``exp(log(1 + x) + corr) + 1`` and the flat-field or wrap epilogue.
+  ``exp(log(1 + x) + corr) + 1`` and the flat-field or wrap epilogue; with
+  fewer image planes than corrections (dual band: 2B corrections, B planes)
+  correction ``b`` reads image plane ``b mod B``.
 """
 
 from __future__ import annotations
@@ -290,13 +292,24 @@ def syn_y_pass(
 _BARE, _EXP, _FLAT, _WRAP = 0, 1, 2, 3
 
 
+def _image_planes(stacked, images) -> int:
+    """The image batch, which the correction batch must be a multiple of."""
+    bi = stacked.shape[0] if images is None else images.shape[0]
+    if bi == 0 or stacked.shape[0] % bi:
+        raise ValueError(f"correction batch {stacked.shape[0]} not a "
+                         f"multiple of image batch {bi}")
+    return bi
+
+
 def syn_x_exp_plain(stacked, images, s_x_lo, flat=None, dark=None,
                     wrap=False):
     """Plain twin of :func:`syn_x_exp`, on any device."""
     corr = torch.matmul(stacked, s_x_lo.t())
     if images is None:
         return corr
-    y = torch.exp(torch.log(1.0 + images.to(torch.float32)) + corr) + 1.0
+    reps = stacked.shape[0] // _image_planes(stacked, images)
+    xlog = torch.log(1.0 + images.to(torch.float32))
+    y = torch.exp(xlog.repeat(reps, 1, 1) + corr) + 1.0
     if flat is not None:
         return flatfield_correction(y, flat, dark)
     return wrap_cast(y) if wrap else y
@@ -304,7 +317,7 @@ def syn_x_exp_plain(stacked, images, s_x_lo, flat=None, dark=None,
 
 def syn_x_exp(
     stacked: torch.Tensor,  # (B, H, L) float32 — the y-synthesised correction
-    images: Optional[torch.Tensor],  # (B, H, W) uint16/float32, or None
+    images: Optional[torch.Tensor],  # (Bi, H, W) uint16/float32 (B % Bi == 0)
     s_x_lo: torch.Tensor,  # (W, L) dense lowpass synthesis operator
     start: torch.Tensor,  # (W,) int32
     coef: torch.Tensor,  # (W, K) float32
@@ -315,7 +328,8 @@ def syn_x_exp(
     """``corr = stacked @ s_x_lo^T``. With ``images=None`` returns corr
     (float32). Otherwise ``y = exp(log(1 + images) + corr) + 1``, returned
     as float32, or as uint16 through the flat-field correction
-    (``flat``/``dark``) or the modulo-2^16 wrap cast (``wrap``)."""
+    (``flat``/``dark``) or the modulo-2^16 wrap cast (``wrap``). Output
+    plane ``b`` reads image plane ``b mod Bi``."""
     if flat is not None and wrap:
         raise ValueError("flat-field and wrap epilogues are exclusive")
     if (flat is not None or wrap) and images is None:
@@ -325,13 +339,15 @@ def syn_x_exp(
 
     B, H, L = stacked.shape
     W, K = coef.shape
+    Bi = _image_planes(stacked, images)
     dev = stacked.device
     check("stacked", stacked, (torch.float32,), dev)
     check("start", start, (torch.int32,), dev, (W,))
     check("coef", coef, (torch.float32,), dev)
     mode = _BARE
     if images is not None:
-        check("images", images, (torch.uint16, torch.float32), dev, (B, H, W))
+        check("images", images, (torch.uint16, torch.float32), dev,
+              (Bi, H, W))
         mode = _FLAT if flat is not None else (_WRAP if wrap else _EXP)
     if flat is not None:
         check("flat", flat, (torch.float32,), dev, (H, W))
@@ -342,7 +358,7 @@ def syn_x_exp(
         "destripe_k4", dev, stacked.data_ptr(), _ptr(images),
         int(images is not None and images.dtype == torch.uint16),
         _ptr(flat), _ptr(dark), out.data_ptr(), start.data_ptr(),
-        coef.data_ptr(), K, B, H, L, W, mode, _ROW_THREADS,
+        coef.data_ptr(), K, B, Bi, H, L, W, mode, _ROW_THREADS,
     )
     syn_x_exp.launches += 1
     return out

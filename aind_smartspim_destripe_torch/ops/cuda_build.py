@@ -3,16 +3,17 @@ Build, load and launch the port's CUDA kernels.
 
 The CUDA sources in ``csrc/`` of this package (``band.cu``: K1-K4,
 ``hist.cu``: the Otsu histogram, ``notch.cu``: row medians and the notch
-tail) are compiled with ``nvcc`` for ``sm_90a`` into one shared library with
-a plain C interface and loaded with ``ctypes``. The build happens at first
-use, into ``build/torch_kernels/`` at the root of the checkout (listed in
-``.gitignore``), under a name keyed by the sources' content, so an edited
-source never loads a stale library. Nothing here runs
+tail, ``blend.cu``: the dual-band blend) are compiled with ``nvcc`` for
+``sm_90a``, one ``nvcc`` per source, all started together, and linked into
+one shared library with a plain C interface, loaded with ``ctypes``. The
+build happens at first use, into ``build/torch_kernels/`` at the root of
+the checkout (listed in ``.gitignore``), under a name keyed by the sources'
+content, so an edited source never loads a stale library. Nothing here runs
 at import time: the CPU tests import this module on hosts without ``nvcc``.
 
-The wrappers of ``cuda_band``, ``cuda_hist`` and ``cuda_notch`` dispatch
-with :func:`on_cuda`, validate with :func:`check` and launch with
-:func:`launch`.
+The wrappers of ``cuda_band``, ``cuda_hist``, ``cuda_notch`` and
+``cuda_blend`` dispatch with :func:`on_cuda`, validate with :func:`check`
+and launch with :func:`launch`.
 """
 
 from __future__ import annotations
@@ -34,12 +35,10 @@ __all__ = ["kernel_library", "build_dir", "find_nvcc", "SOURCES",
 
 SOURCES = tuple(
     Path(__file__).resolve().parents[1] / "csrc" / name
-    for name in ("band.cu", "hist.cu", "notch.cu")
+    for name in ("band.cu", "hist.cu", "notch.cu", "blend.cu")
 )
-_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
-)
+_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+_FLAGS = (_ARCH, "-std=c++17", "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 
 def build_dir() -> Path:
@@ -64,14 +63,16 @@ _SIGNATURES = {
     "destripe_k3": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
     "destripe_k4": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "destripe_hist": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
     + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
-    "destripe_row_median": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    "destripe_row_median": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
-    "destripe_notch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    "destripe_notch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
+    "destripe_blend": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -94,20 +95,38 @@ def kernel_library() -> ctypes.CDLL:
                 "$CUDA_HOME/bin, PATH and /usr/local/cuda/bin)"
             )
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        tag = f"{out.stem}.{os.getpid()}"
+        objs = [out.with_name(f"{tag}.{src.stem}.o") for src in SOURCES]
+        tmp = out.with_name(f"{tag}.so.tmp")
         t0 = time.perf_counter()
-        res = subprocess.run(
-            [nvcc, *_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
-            capture_output=True, text=True, timeout=900,
-        )
+        procs = [
+            (src.name, subprocess.Popen(
+                [nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src, obj in zip(SOURCES, objs)
+        ]
+        try:
+            steps = [(name, p.communicate(timeout=900)[0], p.returncode)
+                     for name, p in procs]
+        finally:  # leave no compiler running after a timeout
+            for _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if all(rc == 0 for _, _, rc in steps):
+            res = subprocess.run(
+                [nvcc, _ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True, timeout=300)
+            steps.append(("link", res.stdout + res.stderr, res.returncode))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         kernel_library.build_seconds = time.perf_counter() - t0
-        kernel_library.build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            names = ", ".join(src.name for src in SOURCES)
+        kernel_library.build_log = "".join(log for _, log, _ in steps)
+        failed = [(name, rc, log) for name, log, rc in steps if rc != 0]
+        if failed:
+            name, rc, log = failed[0]
             raise RuntimeError(
-                f"nvcc failed to build {names} (exit {res.returncode}):\n"
-                + kernel_library.build_log[-8000:]
-            )
+                f"nvcc failed to build {name} (exit {rc}):\n" + log[-8000:])
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():

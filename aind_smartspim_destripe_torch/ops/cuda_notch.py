@@ -14,6 +14,11 @@ launches in ``<wrapper>.launches``.
   ``where(sqrt(x*x) > thr[b], 0, x)``;
 - :func:`notch_delta`: stripe mask -> row-median inpaint -> the plane's
   notch operator -> the synthesis delta ``filtered - ch``.
+
+Both take per-plane ``thr`` (and ``sel``) of k x B entries for a band of B
+planes: output plane ``b`` reads band plane ``b mod B`` with its own
+threshold and operator (the dual-band form, k = 2), without a concatenated
+copy of the band.
 """
 
 from __future__ import annotations
@@ -49,6 +54,20 @@ def row_median(x):
     return (s[..., n // 2 - 1 : n // 2] + s[..., n // 2 : n // 2 + 1]) * 0.5
 
 
+def _n_out(x, thr) -> int:
+    """The output batch: thr's length, a multiple of x's batch."""
+    n_out, B = thr.shape[0], x.shape[0]
+    if B == 0 or n_out % B:
+        raise ValueError(f"output batch {n_out} not a multiple of input {B}")
+    return n_out
+
+
+def _tiled(x, n_out):
+    """The band tiled to the output batch (plane b is band plane b mod B);
+    the plain twins' counterpart of the kernels' wrapped index."""
+    return x if n_out == x.shape[0] else x.repeat(n_out // x.shape[0], 1, 1)
+
+
 def _stripe_mask(x, thr):
     # sqrt(x*x), not |x|: the reference compares the rounded sqrt-of-square,
     # which differs from |x| in ulp/underflow corners
@@ -57,25 +76,27 @@ def _stripe_mask(x, thr):
 
 def row_median_masked_plain(x, thr):
     """Plain twin of :func:`row_median_masked`, on any device."""
+    x = _tiled(x, _n_out(x, thr))
     return row_median(x * (1.0 - _stripe_mask(x, thr)))
 
 
 def row_median_masked(
     x: torch.Tensor,  # (B, h, w) float32
-    thr: torch.Tensor,  # (B,) float32 per-plane stripe threshold
+    thr: torch.Tensor,  # (kB,) float32 per-output-plane stripe threshold
 ) -> torch.Tensor:
-    """Per-row median (B, h, 1) of ``where(sqrt(x*x) > thr[b], 0, x)``: the
-    inpainting background median, with the mask applied as the row is
-    read."""
+    """Per-row median (kB, h, 1) of ``where(sqrt(x*x) > thr[b], 0, x)``
+    over band plane ``b mod B``: the inpainting background median, with the
+    mask applied as the row is read."""
     if not on_cuda(x):
         return row_median_masked_plain(x, thr)
     B, h, w = x.shape
+    n_out = _n_out(x, thr)
     dev = x.device
     check("x", x, (torch.float32,), dev)
-    check("thr", thr, (torch.float32,), dev, (B,))
-    med = torch.empty((B, h, 1), dtype=torch.float32, device=dev)
+    check("thr", thr, (torch.float32,), dev, (n_out,))
+    med = torch.empty((n_out, h, 1), dtype=torch.float32, device=dev)
     launch("destripe_row_median", dev, x.data_ptr(), thr.data_ptr(),
-           med.data_ptr(), B, h, w, _MEDIAN_THREADS)
+           med.data_ptr(), n_out, B, h, w, _MEDIAN_THREADS)
     row_median_masked.launches += 1
     return med
 
@@ -90,6 +111,7 @@ def notch_delta_plain(ch, thr, sel, notch_cat):
     dense formulation (both notch products in one matrix product, selected
     per plane afterwards)."""
     w = ch.shape[-1]
+    ch = _tiled(ch, _n_out(ch, thr))
     mask = _stripe_mask(ch, thr)
     foreground = ch * mask
     background = ch * (1.0 - mask)
@@ -105,14 +127,15 @@ def notch_delta_plain(ch, thr, sel, notch_cat):
 
 def notch_delta(
     ch: torch.Tensor,  # (B, h, w) float32 horizontal-detail band
-    thr: torch.Tensor,  # (B,) float32 per-plane stripe threshold
-    sel: torch.Tensor,  # (B,) int32: 0 = cells operator, 1 = no-cells
+    thr: torch.Tensor,  # (kB,) float32 per-output-plane stripe threshold
+    sel: torch.Tensor,  # (kB,) int32: 0 = cells operator, 1 = no-cells
     notch_cat: torch.Tensor,  # (w, 2w) float32 [cells | no-cells] operators
 ) -> torch.Tensor:
-    """The per-level synthesis delta (B, h, w) float32: with ``stripes =
-    sqrt(ch*ch) > thr[b]`` and ``med`` the row median of the unstriped
-    values (stripes read as 0), ``where(stripes, 0, where(stripes, med, ch)
-    @ notch_cat[:, sel[b]*w : (sel[b]+1)*w] - ch)``.
+    """The per-level synthesis delta (kB, h, w) float32: output plane b
+    reads band plane ``c = ch[b mod B]``; with ``stripes = sqrt(c*c) >
+    thr[b]`` and ``med`` the row median of the unstriped values (stripes
+    read as 0), ``where(stripes, 0, where(stripes, med, c) @ notch_cat[:,
+    sel[b]*w : (sel[b]+1)*w] - c)``.
 
     On the card this is two launches: :func:`row_median_masked`, then the
     notch GEMM with the mask and inpainting in its loader and the delta in
@@ -121,16 +144,17 @@ def notch_delta(
         return notch_delta_plain(ch, thr, sel, notch_cat)
 
     B, h, w = ch.shape
+    n_out = _n_out(ch, thr)
     dev = ch.device
     check("ch", ch, (torch.float32,), dev)
-    check("thr", thr, (torch.float32,), dev, (B,))
-    check("sel", sel, (torch.int32,), dev, (B,))
+    check("thr", thr, (torch.float32,), dev, (n_out,))
+    check("sel", sel, (torch.int32,), dev, (n_out,))
     check("notch_cat", notch_cat, (torch.float32,), dev, (w, 2 * w))
     med = row_median_masked(ch, thr)
-    out = torch.empty_like(ch)
+    out = torch.empty((n_out, h, w), dtype=torch.float32, device=dev)
     launch("destripe_notch", dev, ch.data_ptr(), med.data_ptr(),
            thr.data_ptr(), sel.data_ptr(), notch_cat.data_ptr(),
-           out.data_ptr(), B, h, w)
+           out.data_ptr(), n_out, B, h, w)
     notch_delta.launches += 1
     return out
 

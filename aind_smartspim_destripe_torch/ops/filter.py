@@ -25,6 +25,11 @@ level (Otsu histogram, row median, notch) runs the kernels of
 :mod:`.cuda_hist` and :mod:`.cuda_notch` for CUDA tensors and their plain
 twins, the JAX package's dense formulation, for CPU tensors.
 
+``dual=True`` (the dual-band mode) runs both of the plan's configurations
+on every plane from one decomposition: analysis and Otsu once per plane,
+then the wrapped median and notch kernels emit 2B deltas from B bands, and
+synthesis runs on 2B planes, K4 reading raw plane ``b mod B``.
+
 Replicated reference quirks (they define the golden output): ``exp(y) + 1``
 as the inverse of log1p; the float16 sigmoid classifier (center 400,
 crossover 20); notch sigma scaled by the level's row count over min(H, W);
@@ -337,18 +342,21 @@ def _filter_level_delta(
     thr_cells: float,
     thr_no_cells: float,
     abs_range=None,  # optional per-plane (min|ch|, max|ch|) for Otsu
+    otsu_sqrt=None,  # optional per-output-plane sqrt(otsu(ch**2))
 ) -> torch.Tensor:
     """Per-level synthesis delta ``filter(ch) - ch``: the Otsu stripe
     threshold (capped by the configuration's), then
     :func:`.cuda_notch.notch_delta` (mask -> row-median inpaint -> notch ->
-    recombine)."""
+    recombine). ``is_cells`` (and ``otsu_sqrt``) may hold k x B entries for
+    B band planes: k deltas per plane (dual band, k = 2)."""
     max_thr = torch.where(
         is_cells,
         torch.tensor(thr_cells, dtype=torch.float32, device=ch.device),
         torch.tensor(thr_no_cells, dtype=torch.float32, device=ch.device),
     )
-    otsu_sqrt = torch.sqrt(threshold_otsu_batch(
-        ch, square=True, abs_range=abs_range))
+    if otsu_sqrt is None:
+        otsu_sqrt = torch.sqrt(threshold_otsu_batch(
+            ch, square=True, abs_range=abs_range))
     threshold = torch.minimum(max_thr, otsu_sqrt)
     sel = torch.where(is_cells, 0, 1).to(torch.int32)
     return cuda_notch.notch_delta(ch, threshold, sel, bmat_cat)
@@ -401,12 +409,20 @@ def destripe_batch(
     ``images``; returns float32 of the same shape, or uint16 through the
     flat-field correction (``flat``/``dark``) or the zarr-store wrap cast
     (``wrap=True``). ``consts``: :func:`constants_from_numpy` of the plan's
-    constants on that device (built when None)."""
-    if dual:
-        raise NotImplementedError(
-            "dual-band mode is not ported to the torch package yet")
+    constants on that device (built when None).
+
+    ``dual=True`` skips the classifier and filters every plane with both
+    configurations: it returns (2B, H, W) float32, ``[:B]`` with
+    ``plan.cells`` (the foreground band) and ``[B:]`` with
+    ``plan.no_cells`` (the background band); blend them before any
+    epilogue."""
     if flat is not None and wrap:
         raise ValueError("flat-field and wrap epilogues are exclusive")
+    if dual and (flat is not None or wrap):
+        raise ValueError(
+            "dual mode returns both float32 bands; blend them before "
+            "applying a flat-field or wrap epilogue"
+        )
     device = images.device
     if images.dtype not in (torch.uint16, torch.float32):
         images = images.to(torch.float32)  # the kernels read uint16 or f32
@@ -422,18 +438,25 @@ def destripe_batch(
         return torch.log(1.0 + images.to(torch.float32))
 
     if plan.n_levels == 0:  # tiny image: wavedec2 returns it untouched
-        return epilogue(torch.exp(xlog()) + 1.0)
+        out = epilogue(torch.exp(xlog()) + 1.0)
+        return torch.cat([out, out]) if dual else out
     if consts is None:
         consts = constants_from_numpy(plan.constants(), device)
     bands = {lvl for lvl in range(plan.n_levels) if f"band{lvl}" in consts}
 
     # Classifier: when level 0 is banded, K1 emits the four sums while it
-    # streams the raw planes, so the classifier costs no extra read.
-    cut32 = _classifier_cut_f32(400.0, 20.0, 0.3) if 0 in bands else None
-    is_cells = (
-        None if cut32 is not None
-        else classify_planes(images, microscope_high_int)
-    )
+    # streams the raw planes, so the classifier costs no extra read. Dual
+    # mode has none: the first half of the 2B outputs takes the cells
+    # configuration, the second half the no-cells one.
+    B = images.shape[0]
+    cut32 = (_classifier_cut_f32(400.0, 20.0, 0.3)
+             if 0 in bands and not dual else None)
+    if dual:
+        is_cells = torch.arange(2 * B, device=device) < B
+    elif cut32 is None:
+        is_cells = classify_planes(images, microscope_high_int)
+    else:
+        is_cells = None  # K1 emits it at level 0
 
     # Analysis, finest -> coarsest: the x pass (lowpass half only) first,
     # since it halves the width before the y pass doubles the rows' bands.
@@ -470,14 +493,21 @@ def destripe_batch(
     del a
 
     # Filter each cH band, coarsest first (the notch operators' order).
+    # Dual: one Otsu per band plane, shared by both configurations (the
+    # stripe threshold depends on the coefficients only), tiled to 2B.
     n = len(chs)
     deltas = []
     for j, bm_cat in enumerate(consts["notch_cat"]):
         ch = chs[n - 1 - j]
+        abs_range = ch_ranges.get(n - 1 - j)
+        otsu_sqrt = None
+        if dual:
+            otsu_sqrt = torch.sqrt(threshold_otsu_batch(
+                ch, square=True, abs_range=abs_range)).repeat(2)
         deltas.append(_filter_level_delta(
             ch, is_cells, bm_cat,
             plan.cells.max_threshold, plan.no_cells.max_threshold,
-            abs_range=ch_ranges.get(n - 1 - j),
+            abs_range=abs_range, otsu_sqrt=otsu_sqrt,
         ))
         chs[n - 1 - j] = None
     del chs
@@ -498,7 +528,8 @@ def destripe_batch(
                 corr = cuda_band.syn_x_exp(
                     stacked, None, syn_x_lo, bd["k4_start"], bd["k4_coef"])
                 continue
-            # finest level: exp and the uint16 epilogue fused into K4
+            # finest level: exp and the uint16 epilogue fused into K4 (in
+            # dual mode K4 reads raw plane b mod B for correction b)
             hw = (plan.height, plan.width)
             if flat is not None and tuple(flat.shape) == hw:
                 return cuda_band.syn_x_exp(
@@ -516,7 +547,10 @@ def destripe_batch(
             stacked = torch.matmul(syn_y, up)
         corr = torch.matmul(stacked, syn_x_lo.t())
 
-    return epilogue(torch.exp(xlog() + corr) + 1.0)
+    xl = xlog()
+    if dual:  # both bands' corrections apply to the same log-space input
+        xl = torch.cat([xl, xl])
+    return epilogue(torch.exp(xl + corr) + 1.0)
 
 
 # ---------------------------------------------------------------------------

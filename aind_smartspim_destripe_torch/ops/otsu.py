@@ -3,7 +3,9 @@ Otsu threshold in torch, matching skimage.filters.threshold_otsu (256 bins).
 
 Counterpart of ``aind_smartspim_destripe_tpu/ops/otsu.py``. The bin index
 is ``floor((x - lo) / safe_span * 256)`` clipped to [0, 255], operation for
-operation as in the JAX package. The counts come from
+operation as in the JAX package. Raw uint16 planes are binned as they are
+(the kernel converts exactly as it reads), so no float copy of the batch is
+made. The counts come from
 :func:`.cuda_hist.histogram256_batch`: the Hopper kernel for CUDA tensors
 (integer atomics), ``torch.bincount`` for CPU tensors; never from a matrix
 product, so they are exact at any plane size.
@@ -44,6 +46,15 @@ def _safe(span):
     return torch.where(span > 0, span, torch.ones_like(span))
 
 
+def _u16_range(x: torch.Tensor, dims):
+    """Per-plane (min, max) of uint16 planes as float32, reduced on the
+    integers: XOR 0x8000 maps the unsigned order onto int16's, so the
+    reduction needs neither unsigned support nor a 4-byte copy."""
+    s = x.view(torch.int16) ^ -32768
+    return tuple(r.to(torch.float32) + 32768.0
+                 for r in (s.amin(dim=dims), s.amax(dim=dims)))
+
+
 def histogram_fixed_bins(x: torch.Tensor, nbins: int = 256):
     """Histogram of ``x`` (flattened) over [min, max] with ``nbins`` equal
     bins, the right-most bin closed. Returns (counts float32, centers)."""
@@ -79,11 +90,14 @@ def threshold_otsu_batch(
     max|x|)``, which equals ``min(x**2)`` and ``max(x**2)`` bit for bit
     (rounding is monotone); ``abs_range`` passes that pair in (each (B,)),
     as the analysis kernel K2 emits it while the band is in registers."""
-    xs = x if torch.is_floating_point(x) else x.to(torch.float32)
-    dims = tuple(range(1, xs.ndim))
+    dims = tuple(range(1, x.ndim))
     if abs_range is not None and not square:
         raise ValueError("abs_range implies square=True semantics")
-    if square:
+    raw16 = x.dtype == torch.uint16 and not square
+    xs = x if torch.is_floating_point(x) or raw16 else x.to(torch.float32)
+    if raw16:
+        lo, hi = _u16_range(xs, dims)
+    elif square:
         if abs_range is None:
             a = xs.abs()
             abs_range = (a.amin(dim=dims), a.amax(dim=dims))
@@ -96,7 +110,7 @@ def threshold_otsu_batch(
     span = hi - lo
     counts = histogram256_batch(xs, lo, _safe(span), square=square,
                                 nbins=nbins)
-    steps = torch.arange(nbins + 1, dtype=xs.dtype, device=xs.device)
+    steps = torch.arange(nbins + 1, dtype=lo.dtype, device=xs.device)
     # edges = lo + span * i / nbins, in the JAX package's order of operations
     edges = lo[:, None] + span[:, None] * steps[None, :] / nbins
     centers = (edges[:, :-1] + edges[:, 1:]) / 2.0

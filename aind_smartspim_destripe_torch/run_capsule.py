@@ -18,12 +18,9 @@ from pathlib import Path
 from time import time
 from typing import List, Tuple
 
-from aind_smartspim_destripe_tpu.utils.provenance import (
-    generate_data_processing,
-)
-
 from . import __version__, zarr_destriper
 from .utils import utils
+from .utils.provenance import generate_data_processing
 
 __all__ = ["PRODUCTION_PARAMETERS", "get_data_config", "get_resolution",
            "validate_capsule_inputs", "run"]
@@ -95,8 +92,9 @@ def run(
     """Validate inputs and destripe every channel on ``devices`` (None: the
     current CUDA device; ``[torch.device("cpu")]`` runs on the CPU).
     ``scratch_folder`` is accepted for parity: the pipeline streams through
-    memory. ``DESTRIPE_DUAL_BAND=1`` asks for the dual-band mode, which is
-    not ported yet and raises."""
+    memory. ``DESTRIPE_DUAL_BAND=1`` runs the dual-band mode, with
+    ``DESTRIPE_DUAL_CROSSOVER`` and ``DESTRIPE_DUAL_THRESHOLD`` as its
+    sigmoid width and centre when set."""
     data_folder = Path(os.path.abspath(data_folder))
     results_folder = Path(os.path.abspath(results_folder))
     Path(os.path.abspath(scratch_folder))
@@ -152,6 +150,14 @@ def run(
         }
         if os.environ.get("DESTRIPE_DUAL_BAND", "") == "1":
             parameters["dual_band"] = True
+            if os.environ.get("DESTRIPE_DUAL_CROSSOVER"):
+                parameters["crossover"] = float(
+                    os.environ["DESTRIPE_DUAL_CROSSOVER"]
+                )
+            if os.environ.get("DESTRIPE_DUAL_THRESHOLD"):
+                parameters["dual_threshold"] = float(
+                    os.environ["DESTRIPE_DUAL_THRESHOLD"]
+                )
 
         destriping_start_time = time()
         zarr_destriper.destripe_channel(

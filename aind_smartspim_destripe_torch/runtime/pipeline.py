@@ -31,12 +31,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.dual_band import check_crossover, dual_band_destripe_batch
 from ..ops.filter import (
     DestripePlan,
     constants_from_numpy,
     destripe_batch,
     f32_matmul,
 )
+from ..ops.flatfield import flatfield_correction, wrap_cast
 
 __all__ = [
     "PipelineStats",
@@ -91,24 +93,36 @@ class PipelineStats:
 
 
 def make_device_step(plan: DestripePlan, microscope_high_int: float,
-                     with_flatfield: bool, devices=None, dual: bool = False):
+                     with_flatfield: bool, devices=None, dual: bool = False,
+                     crossover: float = 100.0, dual_threshold: float = -1.0):
     """(B, H, W) uint16 -> uint16 device step: destripe, then the
     flat-field correction (``with_flatfield``) or the zarr-store wrap cast.
     The operator matrices are moved to the device once. Matrix products run
     in full float32 (TF32 off).
 
+    ``dual=True`` replaces the classifier dispatch with the dual-band blend
+    (:func:`..ops.dual_band.dual_band_destripe_batch`: both of the plan's
+    configurations from one decomposition, blended per pixel by the
+    smoothed sigmoid foreground fraction of width ``crossover`` and centre
+    ``dual_threshold``, < 0 for the per-plane Otsu); the flat-field or wrap
+    epilogue then applies to the blended float32 plane.
+
     The returned callable ``step(images, flat, dark)`` carries ``.put``
-    (numpy batch -> device tensor), ``.put_const`` and ``.n_devices``.
-    ``dual=True`` (the dual-band blend) is not ported yet and raises."""
+    (numpy batch -> device tensor), ``.put_const`` and ``.n_devices``."""
     if dual:
-        raise NotImplementedError(
-            "dual-band mode is not ported to the torch package yet")
+        check_crossover(crossover)
     device = resolve_device(devices)
     f32_matmul()
     consts = constants_from_numpy(plan.constants(), device)
 
     def step(images, flat, dark):
         with torch.inference_mode():
+            if dual:
+                blended = dual_band_destripe_batch(
+                    plan, images, crossover, dual_threshold, consts=consts)
+                if with_flatfield:
+                    return flatfield_correction(blended, flat, dark)
+                return wrap_cast(blended)
             if with_flatfield:
                 return destripe_batch(plan, images, microscope_high_int,
                                       consts, flat=flat, dark=dark)
@@ -183,6 +197,8 @@ class StreamingDestriper:
         journal: bool = True,
         devices=None,
         dual: bool = False,
+        crossover: float = 100.0,
+        dual_threshold: float = -1.0,
     ):
         self.inp = input_array
         self.out = output_array
@@ -232,7 +248,7 @@ class StreamingDestriper:
                 dark = np.broadcast_to(dark, (h, w)).copy()
         self._step = make_device_step(
             plan, microscope_high_int, self.with_flat, devices=devices,
-            dual=dual,
+            dual=dual, crossover=crossover, dual_threshold=dual_threshold,
         )
         self.device_batch = device_batch
         self._flat = self._step.put_const(flat)
@@ -255,6 +271,15 @@ class StreamingDestriper:
             sig = hashlib.sha1(flat.tobytes())
             sig.update(dark.tobytes())
             meta["flats_sha1"] = sig.hexdigest()
+        if dual:
+            # a dual-band slab is not interchangeable with a classifier-
+            # dispatched one; the keys appear only in dual mode, so existing
+            # single-band journals keep resuming
+            meta.update({
+                "dual": True,
+                "crossover": float(crossover),
+                "dual_threshold": float(dual_threshold),
+            })
         self.journal = (
             _Journal(
                 os.path.join(

@@ -1,27 +1,23 @@
 """
 Logging, resource profiling, environment limits and filesystem helpers.
 
-The JAX-free helpers of ``aind_smartspim_destripe_tpu/utils/utils.py`` are
-re-exported as they are; :func:`print_system_information` is this package's
-own, logging the CUDA devices torch sees.
+The port's own copies of the helpers of
+``aind_smartspim_destripe_tpu/utils/utils.py`` it calls;
+:func:`print_system_information` logs the CUDA devices torch sees.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import platform
+import threading
+import time
+from datetime import datetime
+from typing import List, Optional
 
 import torch
-
-from aind_smartspim_destripe_tpu.utils.utils import (  # noqa: F401
-    ResourceProfiler,
-    create_folder,
-    create_logger,
-    get_code_ocean_cpu_limit,
-    get_size,
-    read_json_as_dict,
-)
 
 try:
     import psutil
@@ -33,9 +29,153 @@ __all__ = [
     "create_folder",
     "create_logger",
     "get_code_ocean_cpu_limit",
+    "get_size",
     "read_json_as_dict",
     "print_system_information",
 ]
+
+
+class ResourceProfiler:
+    """Thread-based sampler with the same output as the reference's
+    profiler subprocess (zarr_destriper.py:987-1002 + utils.py:64-121)."""
+
+    def __init__(self, interval: int = 20):
+        self.interval = interval
+        self.time_points: List[float] = []
+        self.cpu: List[float] = []
+        self.mem: List[float] = []
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self):
+        def loop():
+            t0 = time.time()
+            while not self._stop.is_set():
+                self.time_points.append(time.time() - t0)
+                if psutil is not None:
+                    self.cpu.append(psutil.cpu_percent(interval=None))
+                    self.mem.append(psutil.virtual_memory().percent)
+                self._stop.wait(self.interval)
+
+        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=5)
+
+    def save_graphs(self, output_path: str, prefix: str):
+        generate_resources_graphs(
+            self.time_points, self.cpu, self.mem, output_path, prefix
+        )
+
+
+def generate_resources_graphs(
+    time_points: List,
+    cpu_percentages: List,
+    memory_usages: List,
+    output_path: str,
+    prefix: str,
+):
+    """Two-panel CPU/memory usage PNG (reference utils.py:64-121)."""
+    n = min(len(time_points), len(cpu_percentages), len(memory_usages))
+    if not n:
+        return
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:  # pragma: no cover
+        return
+
+    fig, (ax1, ax2) = plt.subplots(2, 1, figsize=(10, 6))
+    ax1.plot(time_points[:n], cpu_percentages[:n], label="CPU Usage")
+    ax1.set_xlabel("Time (s)")
+    ax1.set_ylabel("CPU Usage (%)")
+    ax1.set_title("CPU Usage Over Time")
+    ax1.grid(True)
+    ax1.legend()
+    ax2.plot(time_points[:n], memory_usages[:n], label="Memory Usage")
+    ax2.set_xlabel("Time (s)")
+    ax2.set_ylabel("Memory Usage (%)")
+    ax2.set_title("Memory Usage Over Time")
+    ax2.grid(True)
+    ax2.legend()
+    fig.tight_layout()
+    fig.savefig(f"{output_path}/{prefix}_compute_resources.png", bbox_inches="tight")
+    plt.close(fig)
+
+def create_logger(output_log_path: str) -> logging.Logger:
+    """Stream + file logger writing ``destripe_log_{timestamp}.log``
+    (reference utils.py:137-172)."""
+    stamp = datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
+    logs_file = f"{output_log_path}/destripe_log_{stamp}.log"
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s - %(levelname)s : %(message)s",
+        datefmt="%Y-%m-%d %H:%M",
+        handlers=[logging.StreamHandler(), logging.FileHandler(logs_file, "a")],
+        force=True,
+    )
+    logger = logging.getLogger(__name__)
+    logger.setLevel(logging.INFO)
+    return logger
+
+
+def get_size(nbytes, suffix: str = "B") -> str:
+    """Human-readable byte size (reference utils.py:175-194)."""
+    factor = 1024
+    for unit in ["", "K", "M", "G", "T", "P"]:
+        if nbytes < factor:
+            return f"{nbytes:.2f}{unit}{suffix}"
+        nbytes /= factor
+    return f"{nbytes:.2f}E{suffix}"
+
+
+def get_code_ocean_cpu_limit():
+    """CPU budget: CO_CPUS env, AWS batch -> 1, cgroup quota, else physical
+    cores (reference utils.py:197-227)."""
+    co_cpus = os.environ.get("CO_CPUS")
+    if co_cpus:
+        return co_cpus
+    if os.environ.get("AWS_BATCH_JOB_ID"):
+        return 1
+    try:
+        with open("/sys/fs/cgroup/cpu/cpu.cfs_quota_us") as fp:
+            quota = int(fp.read())
+        with open("/sys/fs/cgroup/cpu/cpu.cfs_period_us") as fp:
+            period = int(fp.read())
+        container_cpus = quota // period
+    except FileNotFoundError:
+        container_cpus = 0
+    if container_cpus >= 1:
+        return container_cpus
+    if psutil is not None:
+        return psutil.cpu_count(logical=False) or os.cpu_count() or 1
+    return os.cpu_count() or 1  # pragma: no cover
+
+def create_folder(dest_dir, verbose: Optional[bool] = False) -> None:
+    """mkdir -p (reference utils.py:383-411)."""
+    if not os.path.exists(dest_dir):
+        if verbose:
+            print(f"Creating new directory: {dest_dir}")
+        os.makedirs(dest_dir, exist_ok=True)
+
+
+def read_json_as_dict(filepath) -> dict:
+    """Read a JSON file; {} when missing; tolerate broken encodings
+    (reference utils.py:414-444)."""
+    if not os.path.exists(filepath):
+        return {}
+    try:
+        with open(filepath) as f:
+            return json.load(f)
+    except UnicodeDecodeError:
+        with open(filepath, "rb") as f:
+            return json.loads(f.read().decode("utf-8", errors="ignore"))
 
 
 def print_system_information(logger: logging.Logger):

@@ -21,17 +21,10 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from aind_smartspim_destripe_tpu.io import ngff
-from aind_smartspim_destripe_tpu.io.readers import imread
-from aind_smartspim_destripe_tpu.io.zarr import (
-    BloscCodec,
-    ZarrArray,
-    ZarrGroup,
-    group,
-    open_zarr,
-)
-
+from .io import ngff
 from .io.codec import ensure_native_codec
+from .io.readers import imread
+from .io.zarr import BloscCodec, ZarrArray, ZarrGroup, group, open_zarr
 from .ops import flatfield as ffops
 from .ops.filter import FilterConfig, build_plan
 from .ops.multiscale import windowed_mean
@@ -247,10 +240,17 @@ def destripe_zarr(
     IO threads (0: auto); ``target_size_mb``, ``super_chunksize`` and
     ``batch_size`` are accepted for parameter parity. ``devices``: as in
     :func:`.runtime.pipeline.resolve_device` (None: the current CUDA
-    device). ``parameters["dual_band"]`` is not ported yet and raises."""
+    device).
+
+    ``parameters["dual_band"]`` (default False) switches from the per-plane
+    classifier to the dual-band per-pixel blend, with optional
+    ``crossover`` (sigmoid width, 100.0) and ``dual_threshold`` (centre;
+    < 0 = per-plane Otsu)."""
     no_cells_config = parameters["no_cells_config"]
     cells_config = parameters["cells_config"]
     dual_band = bool(parameters.get("dual_band", False))
+    dual_crossover = float(parameters.get("crossover", 100.0))
+    dual_threshold = float(parameters.get("dual_threshold", -1.0))
     device = resolve_device(devices)
 
     co_cpus = int(utils.get_code_ocean_cpu_limit())
@@ -373,6 +373,8 @@ def destripe_zarr(
             logger=logger,
             devices=[device],
             dual=dual_band,
+            crossover=dual_crossover,
+            dual_threshold=dual_threshold,
         )
         with device_trace(os.environ.get("DESTRIPE_TRACE_DIR")):
             stats = pipe.run()

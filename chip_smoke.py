@@ -15,17 +15,27 @@ Phases, each printing its lines:
    card, on the same inputs, at the step's shapes for a 64-plane batch of
    1600x2000 planes: the banded DWT passes K1-K4 at levels 0 and 1, and the
    Otsu histogram, masked row median and notch tail at every level (on the
-   real level-0 and level-1 bands): max error against the stated
-   tolerance, and the kernel's and the twin's time (CUDA events);
-4. the port's main path: a synthetic capsule (one channel, one tile of
+   real level-0 and level-1 bands); then the dual-band forms: the Otsu
+   histogram of the blend centres on the raw uint16 planes, the blend
+   kernel on uint16 planes and the stacked (128, 1600, 2000) band pair, K4
+   wrapped at level 0 (128 corrections, 64 planes), and the wrapped median
+   and notch at every level with 128 thresholds and operator choices (the
+   production caps per half): max error against the stated tolerance, the
+   kernel's, the twin's and (where one PyTorch call computes the same
+   function) that call's time (CUDA events), and the bound from the bytes
+   and operations of the call;
+4. the port's main paths: a synthetic capsule (one channel, one tile of
    128 x 1600 x 2000 uint16 planes with dark and flats, in the layout of
    tests/test_run_capsule_e2e.py) through ``run_capsule.run()`` on the card
-   with 64-plane device batches; every kernel must have launched in this
-   run, pyramid levels 1-2 must exist and agree with level 0, and one
-   stored chunk must decode to the data read back; then the device step
-   alone on one resident 64-plane batch (CUDA events);
-5. four sampled planes of level 0 against the port's plain path on the CPU,
-   within 1 LSB outside a stated flip budget and at PSNR >= 100 dB.
+   with 64-plane device batches, single band and then dual band
+   (``DESTRIPE_DUAL_BAND=1``), the launch counts reset just before each run
+   and read just after it; every kernel of the path must have launched,
+   pyramid levels 1-2 must exist and agree with level 0, and one stored
+   chunk must decode to the data read back; then each device step alone on
+   one resident 64-plane batch (CUDA events, peak device memory);
+5. four sampled planes of each run's level 0 against the port's plain path
+   on the CPU, within 1 LSB outside a stated flip budget and at
+   PSNR >= 100 dB.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
@@ -63,8 +73,14 @@ PSNR_MIN = 100.0
 SHAPE = (128, 1600, 2000)
 BATCH = 64
 SAMPLED = (0, 1, 64, 127)
+CROSSOVER = 100.0
+# The bound of a call: the larger of its bytes (each input read once, each
+# output written once) over the card's memory rate and its arithmetic over
+# the FP32 CUDA-core peak (NVIDIA H100 SXM data sheet, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 CSRC = "aind_smartspim_destripe_torch/csrc/"
-TPU = "aind_smartspim_destripe_tpu/ops/"
+TPU = "aind_smartspim_destripe_tpu/ops/"  # the JAX package's kernels
 SOURCE = {
     "an_x_lowpass_log1p": CSRC + "band.cu",
     "an_y_pass": CSRC + "band.cu",
@@ -73,6 +89,7 @@ SOURCE = {
     "histogram256_batch": CSRC + "hist.cu",
     "row_median_masked": CSRC + "notch.cu",
     "notch_delta": CSRC + "notch.cu",
+    "blend_smooth_mix": CSRC + "blend.cu",
 }
 REPLACES = {
     "an_x_lowpass_log1p": TPU + "pallas_band.py:178",
@@ -82,7 +99,12 @@ REPLACES = {
     "histogram256_batch": TPU + "pallas_hist.py:111",
     "row_median_masked": TPU + "pallas_median.py:163",
     "notch_delta": TPU + "pallas_notch.py:89",
+    "blend_smooth_mix": TPU + "pallas_blend.py:61",
 }
+SINGLE = tuple(REPLACES)[:7]  # the kernels of the single-band path
+# the wrapped forms, and the histogram of the blend centres (raw uint16)
+DUAL = ("syn_x_exp", "histogram256_batch", "row_median_masked",
+        "notch_delta")
 
 
 def _time_ms(fn, reps=10):
@@ -117,12 +139,36 @@ def _err(got, want, exact=False, scale=None):
     return err, F32_RTOL * max(1.0, scale)
 
 
-def _compare(rec, name, lvl, kern, plain, scale=None):
-    """Hold one kernel call against its twin, time both, print and record;
-    raises on a disagreement."""
+def _nbytes(*ts):
+    """Bytes of the tensors among ``ts`` (nested tuples walked)."""
+    import torch
+
+    n = 0
+    for t in ts:
+        if isinstance(t, (tuple, list)):
+            n += _nbytes(*t)
+        elif isinstance(t, torch.Tensor):
+            n += t.numel() * t.element_size()
+    return n
+
+
+def _bound(nbytes, ops):
+    """(ms, 'bytes' or 'operations'): the least time for the call."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _compare(rec, name, lvl, kern, plain, scale=None, ins=(), ops=0.0,
+             library=None):
+    """Hold one kernel call against its twin, time both (and ``library``,
+    one PyTorch call computing the same function, where there is one),
+    bound the call by the bytes of ``ins`` and of its outputs and by its
+    ``ops``, print and record; raises on a disagreement."""
     import torch
 
     got, want = kern(), plain()
+    bound_ms, bound_by = _bound(_nbytes(ins, got), ops)
     if name == "an_x_lowpass_log1p" and isinstance(got, tuple):
         (got, gs), (want, ws) = got, want
         if not torch.equal(gs, ws):
@@ -135,48 +181,64 @@ def _compare(rec, name, lvl, kern, plain, scale=None):
         got = torch.cat([got[0], got[1]], dim=1)
         want = torch.cat([want[0], want[1]], dim=1)
     err, tol = _err(got, want, name in EXACT, scale)
+    del want
     ms, plain_ms = _time_ms(kern), _time_ms(plain)
+    library_ms = None if library is None else _time_ms(library)
     ok = err <= tol
+    lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
     print(f"[kernels] {name} level {lvl} out {tuple(got.shape)} "
           f"{str(got.dtype).replace('torch.', '')}: max_abs_err "
           f"{err:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, "
+          f"bound {bound_ms:.3f} ms ({bound_by})")
     if not ok:
         raise AssertionError(f"{name} level {lvl}: {err} > {tol}")
     rec[name][lvl] = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                          shape=list(got.shape))
+                          library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, shape=list(got.shape))
 
 
-def _tail_calls(ch, notch_cat, thr_cap):
+def _tail_calls(ch, notch_cat, thr_cap, dual=False):
     """The histogram, median and notch calls of one level's tail on band
-    ``ch``, with the step's inputs: the Otsu bin range, the capped Otsu
-    threshold and the per-plane operator choice (alternating)."""
+    ``ch`` (B planes), with the step's inputs: the Otsu bin range, the
+    capped Otsu threshold and the per-plane operator choice; alternating
+    per plane, or, with ``dual``, 2B outputs whose first half takes the
+    cells cap and operator and whose second half the no-cells ones. Each
+    entry: (kernel, plain twin, inputs, operations)."""
     import torch
 
     from aind_smartspim_destripe_torch.ops import cuda_hist as th
     from aind_smartspim_destripe_torch.ops import cuda_notch as tn
     from aind_smartspim_destripe_torch.ops.otsu import threshold_otsu_batch
 
-    B = ch.shape[0]
+    B, h, w = ch.shape
     a = ch.abs()
     lo = a.amin(dim=(1, 2)) ** 2
     span = a.amax(dim=(1, 2)) ** 2 - lo
     span = torch.where(span > 0, span, torch.ones_like(span))
-    sel = (torch.arange(B, device=ch.device) % 2).to(torch.int32)
-    thr = torch.minimum(
-        torch.where(sel == 0, thr_cap[0], thr_cap[1]),
-        torch.sqrt(threshold_otsu_batch(ch, square=True)))
-    return {
-        "histogram256_batch": (
-            lambda: th.histogram256_batch(ch, lo, span, square=True),
-            lambda: th.histogram256_batch_plain(ch, lo, span, square=True)),
+    del a
+    otsu = torch.sqrt(threshold_otsu_batch(ch, square=True))
+    n_out = 2 * B if dual else B
+    idx = torch.arange(n_out, device=ch.device)
+    sel = ((idx >= B) if dual else (idx % 2 == 1)).to(torch.int32)
+    thr = torch.minimum(torch.where(sel == 0, thr_cap[0], thr_cap[1]),
+                        otsu.repeat(n_out // B))
+    calls = {
         "row_median_masked": (
             lambda: tn.row_median_masked(ch, thr),
-            lambda: tn.row_median_masked_plain(ch, thr)),
+            lambda: tn.row_median_masked_plain(ch, thr),
+            (ch, thr), 4.0 * n_out * h * w),
         "notch_delta": (
             lambda: tn.notch_delta(ch, thr, sel, notch_cat),
-            lambda: tn.notch_delta_plain(ch, thr, sel, notch_cat)),
+            lambda: tn.notch_delta_plain(ch, thr, sel, notch_cat),
+            (ch, thr, sel, notch_cat), 2.0 * n_out * h * w * w),
     }
+    if not dual:
+        calls["histogram256_batch"] = (
+            lambda: th.histogram256_batch(ch, lo, span, square=True),
+            lambda: th.histogram256_batch_plain(ch, lo, span, square=True),
+            (ch, lo, span), 5.0 * ch.numel())
+    return calls
 
 
 def phase_kernels(plan, consts, dev, seed):
@@ -204,47 +266,146 @@ def phase_kernels(plan, consts, dev, seed):
         s_y, s_x = consts["syn_y"][n - 1 - lvl], consts["syn_x_lo"][n - 1 - lvl]
         log1p = lvl == 0
         kcut = cut if lvl == 0 else None
+        K1 = bd["k1_coef"].shape[1]
+        n_k1 = src.shape[0] * src.shape[1] * a_x.shape[0]
         _compare(rec, "an_x_lowpass_log1p", lvl,
                  lambda: cb.an_x_lowpass_log1p(src, a_x, bd["k1_start"],
                                                bd["k1_coef"], log1p, kcut),
-                 lambda: cb.an_x_lowpass_log1p_plain(src, a_x, log1p, kcut))
+                 lambda: cb.an_x_lowpass_log1p_plain(src, a_x, log1p, kcut),
+                 ins=(src, bd["k1_start"], bd["k1_coef"]),
+                 ops=2.0 * K1 * n_k1 + (3.0 if log1p else 0.0) * src.numel(),
+                 library=None if log1p else (
+                     lambda: torch.matmul(src, a_x.t())))
         k1 = cb.an_x_lowpass_log1p(src, a_x, bd["k1_start"], bd["k1_coef"],
                                    log1p)
+        K2 = bd["k2_lo"].shape[1]
         _compare(rec, "an_y_pass", lvl,
                  lambda: cb.an_y_pass(k1, a_y, bd["k2_start"], bd["k2_lo"],
                                       bd["k2_hi"]),
-                 lambda: cb.an_y_pass_plain(k1, a_y))
+                 lambda: cb.an_y_pass_plain(k1, a_y),
+                 ins=(k1, bd["k2_start"], bd["k2_lo"], bd["k2_hi"]),
+                 ops=4.0 * K2 * k1.shape[0] * (a_y.shape[0] // 2) * k1.shape[2],
+                 library=lambda: torch.matmul(a_y, k1))
         ca, ch, _ = cb.an_y_pass(k1, a_y, bd["k2_start"], bd["k2_lo"],
                                  bd["k2_hi"])
         del k1
-        for name, (kern, plain) in _tail_calls(
+        for name, (kern, plain, ins, ops) in _tail_calls(
                 ch, consts["notch_cat"][n - 1 - lvl], thr_cap).items():
             _compare(rec, name, lvl, kern, plain,
-                     scale=ch.abs().max().item())
+                     scale=ch.abs().max().item(), ins=ins, ops=ops)
         corr = torch.randn(ch.shape, generator=g, device=dev) * 0.01
         delta = torch.randn(ch.shape, generator=g, device=dev) * 0.01
         del ch
+        up = torch.cat([corr, delta], dim=1)
+        K3 = bd["k3_hi"].shape[1]
         _compare(rec, "syn_y_pass", lvl,
                  lambda: cb.syn_y_pass(corr, delta, s_y, bd["k3_start"],
                                        bd["k3_lo"], bd["k3_hi"]),
-                 lambda: cb.syn_y_pass_plain(corr, delta, s_y))
+                 lambda: cb.syn_y_pass_plain(corr, delta, s_y),
+                 ins=(corr, delta, bd["k3_start"], bd["k3_lo"], bd["k3_hi"]),
+                 ops=4.0 * K3 * B * s_y.shape[0] * corr.shape[2],
+                 library=lambda: torch.matmul(s_y, up))
+        del up
         st = cb.syn_y_pass(corr, delta, s_y, bd["k3_start"], bd["k3_lo"],
                            bd["k3_hi"])
         epi = dict(flat=flat, dark=dark) if lvl == 0 else {}
         img = x if lvl == 0 else None
+        K4 = bd["k4_coef"].shape[1]
+        n_k4 = B * st.shape[1] * s_x.shape[0]
         _compare(rec, "syn_x_exp", lvl,
                  lambda: cb.syn_x_exp(st, img, s_x, bd["k4_start"],
                                       bd["k4_coef"], **epi),
-                 lambda: cb.syn_x_exp_plain(st, img, s_x, **epi))
+                 lambda: cb.syn_x_exp_plain(st, img, s_x, **epi),
+                 ins=(st, img, bd["k4_start"], bd["k4_coef"], *epi.values()),
+                 ops=(2.0 * K4 + (8.0 if img is not None else 0.0)) * n_k4,
+                 library=None if img is not None else (
+                     lambda: torch.matmul(st, s_x.t())))
         src = ca
         del corr, delta, st
     # the tail at the deeper (dense) levels, on bands of their shapes
     for lvl in range(2, n):
         h, w = plan.ladder[n - 1 - lvl]
         ch = torch.randn((B, h, w), generator=g, device=dev) * 0.5
-        for name, (kern, plain) in _tail_calls(
+        for name, (kern, plain, ins, ops) in _tail_calls(
                 ch, consts["notch_cat"][n - 1 - lvl], thr_cap).items():
-            _compare(rec, name, lvl, kern, plain, scale=ch.abs().max().item())
+            _compare(rec, name, lvl, kern, plain, scale=ch.abs().max().item(),
+                     ins=ins, ops=ops)
+    torch.cuda.synchronize()
+    return rec
+
+
+def phase_dual_kernels(plan, consts, dev, seed):
+    """The dual-band forms vs their twins at the dual step's shapes (B=64):
+    the centres' histogram of the raw uint16 planes, the blend on those
+    planes and the stacked (2B, H, W) pair, K4 wrapped
+    at level 0 (2B corrections, B raw planes), and the wrapped median and
+    notch at every level (2B thresholds and operator choices with the
+    production caps per half; the real level-0 and level-1 bands)."""
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import cuda_band as cb
+    from aind_smartspim_destripe_torch.ops import cuda_blend as tbl
+    from aind_smartspim_destripe_torch.ops import cuda_hist as th
+    from aind_smartspim_destripe_torch.ops.otsu import threshold_otsu_batch
+
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    n = plan.n_levels
+    thr_cap = (plan.cells.max_threshold, plan.no_cells.max_threshold)
+    rec = {name: {} for name in REPLACES}
+    B, H, W = BATCH, plan.height, plan.width
+    x = torch.randint(0, 4000, (B, H, W), generator=g, device=dev,
+                      dtype=torch.int32).to(torch.uint16)
+    both = torch.randn((2 * B, H, W), generator=g, device=dev) * 300 + 500
+    centers = threshold_otsu_batch(x)
+    # the blend centres' histogram: raw uint16 planes, binned as read
+    xi = x.to(torch.int32)  # CUDA reduces no uint16
+    lo = xi.amin(dim=(1, 2)).to(torch.float32)
+    span = xi.amax(dim=(1, 2)).to(torch.float32) - lo
+    del xi
+    _compare(rec, "histogram256_batch", 0,
+             lambda: th.histogram256_batch(x, lo, span),
+             lambda: th.histogram256_batch_plain(x, lo, span),
+             ins=(x, lo, span), ops=4.0 * x.numel())
+    _compare(rec, "blend_smooth_mix", 0,
+             lambda: tbl.blend_smooth_mix(x, both, None, centers, CROSSOVER),
+             lambda: tbl.blend_bands(x, both[:B], both[B:], centers,
+                                     CROSSOVER),
+             scale=both.abs().max().item(), ins=(x, both, centers),
+             ops=45.0 * x.numel())
+    del both
+    torch.cuda.empty_cache()
+
+    bd = consts["band0"]
+    s_x = consts["syn_x_lo"][n - 1]
+    st = torch.randn((2 * B, H, s_x.shape[1]), generator=g, device=dev) * 0.01
+    K4 = bd["k4_coef"].shape[1]
+    _compare(rec, "syn_x_exp", 0,
+             lambda: cb.syn_x_exp(st, x, s_x, bd["k4_start"], bd["k4_coef"]),
+             lambda: cb.syn_x_exp_plain(st, x, s_x),
+             ins=(st, x, bd["k4_start"], bd["k4_coef"]),
+             ops=(2.0 * K4 + 8.0) * 2 * B * H * W)
+    del st
+    torch.cuda.empty_cache()
+
+    src = x
+    for lvl in range(n):
+        if lvl < 2:  # the real bands of the banded levels
+            bd = consts[f"band{lvl}"]
+            k1 = cb.an_x_lowpass_log1p(src, consts["an_x_lo"][lvl],
+                                       bd["k1_start"], bd["k1_coef"],
+                                       log1p=lvl == 0)
+            src, ch, _ = cb.an_y_pass(k1, consts["an_y"][lvl], bd["k2_start"],
+                                      bd["k2_lo"], bd["k2_hi"])
+            del k1
+        else:
+            h, w = plan.ladder[n - 1 - lvl]
+            ch = torch.randn((B, h, w), generator=g, device=dev) * 0.5
+        for name, (kern, plain, ins, ops) in _tail_calls(
+                ch, consts["notch_cat"][n - 1 - lvl], thr_cap,
+                dual=True).items():
+            _compare(rec, name, lvl, kern, plain, scale=ch.abs().max().item(),
+                     ins=ins, ops=ops)
+        del ch
     torch.cuda.synchronize()
     return rec
 
@@ -287,14 +448,10 @@ def main(argv=None):
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
 
-    from aind_smartspim_destripe_torch import ops, run_capsule
-    from aind_smartspim_destripe_torch.io import ensure_native_codec, open_zarr
+    from aind_smartspim_destripe_torch import run_capsule
+    from aind_smartspim_destripe_torch.io import ensure_native_codec
     from aind_smartspim_destripe_torch.ops import cuda_build
     from aind_smartspim_destripe_torch.ops import filter as tf
-    from aind_smartspim_destripe_torch.ops.multiscale import windowed_mean
-    from aind_smartspim_destripe_torch.runtime.pipeline import (
-        make_device_step,
-    )
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -316,12 +473,24 @@ def main(argv=None):
     # -- 2. kernel build --------------------------------------------------
     t0 = time.perf_counter()
     cuda_build.kernel_library()
-    regs = sorted(set(re.findall(r"Used (\d+) registers",
-                                 cuda_build.kernel_library.build_log)), key=int)
+    # most registers per thread (and spilled bytes) of each kernel template
+    regs = {}
+    for part in cuda_build.kernel_library.build_log.split(
+            "Compiling entry function")[1:]:
+        fn = re.search(r"(k[1-4]|hist|row_median|notch|blend)_kernel"
+                       r"(ILb([01]))?", part)  # notch: <false> / <true>
+        n = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        if fn and n:
+            name = fn.group(1) + (f"<{fn.group(3)}>" if fn.group(3) else "")
+            r = regs.get(name, (0, 0))
+            regs[name] = (max(r[0], int(n.group(1))), max(
+                r[1], int(spill.group(1)) if spill else 0))
     print(f"[build] {', '.join(sorted(set(SOURCE.values())))} -> sm_90a in "
           f"{time.perf_counter() - t0:.2f} s (nvcc "
           f"{cuda_build.kernel_library.build_seconds:.2f} s; registers per "
-          f"thread {'/'.join(regs) or 'n/a'})")
+          f"thread, spilled bytes: "
+          f"{' '.join(f'{k}={r}/{s}' for k, (r, s) in regs.items()) or 'n/a'})")
 
     # -- 3. kernels vs plain twins ----------------------------------------
     cfg = run_capsule.PRODUCTION_PARAMETERS
@@ -330,10 +499,12 @@ def main(argv=None):
                          tf.FilterConfig.from_dict(cfg["no_cells_config"]))
     consts = tf.constants_from_numpy(plan.constants(), dev)
     rec = phase_kernels(plan, consts, dev, args.seed)
+    torch.cuda.empty_cache()
+    drec = phase_dual_kernels(plan, consts, dev, args.seed)
     del consts
     torch.cuda.empty_cache()
 
-    # -- 4. the main path: run_capsule.run on the card ---------------------
+    # -- 4. the main paths: run_capsule.run on the card --------------------
     work = ROOT / "build" / "smoke_capsule"
     shutil.rmtree(work, ignore_errors=True)
     g = torch.Generator(device=dev).manual_seed(args.seed + 1)
@@ -353,23 +524,92 @@ def main(argv=None):
     print(f"[capsule] synthetic tile {SHAPE} uint16 written in "
           f"{time.perf_counter() - t0:.1f} s")
 
+    launches = run_path("slice", data, results, SINGLE)
+    lvl0 = check_store(results, tile)
+    step_ms("step", plan, vol, flats[0], dark, dev)
+
+    results_dual = work / "results_dual"
+    results_dual.mkdir()
+    os.environ["DESTRIPE_DUAL_BAND"] = "1"
+    try:
+        launches_dual = run_path("slice-dual", data, results_dual,
+                                 tuple(REPLACES))
+    finally:
+        del os.environ["DESTRIPE_DUAL_BAND"]
+    lvl0_dual = check_store(results_dual, tile)
+    step_ms("step-dual", plan, vol, flats[0], dark, dev, dual=True)
+
+    # -- 5. sampled planes vs the plain path on the CPU --------------------
+    check_planes("check", plan, lvl0, vol, flats[0], dark)
+    check_planes("check-dual", plan, lvl0_dual, vol, flats[0], dark,
+                 dual=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err", "shape")
+    kernels = []
+    for name in REPLACES:
+        main = rec[name] or drec[name]
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": SOURCE[name],
+            "replaces": REPLACES[name],
+            "launches": (launches if name in SINGLE else launches_dual)[name],
+            "launches_dual": launches_dual[name],
+            "max_abs_err": max(r["max_abs_err"] for r in
+                               list(rec[name].values())
+                               + list(drec[name].values())),
+            **{k: main[0][k] for k in keys if k != "max_abs_err"},
+        }
+        if 1 in rec[name]:
+            entry["level1"] = {k: rec[name][1][k] for k in keys}
+        if name in DUAL:
+            entry["dual"] = {k: drec[name][0][k] for k in keys}
+        kernels.append(entry)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_path(tag, data, results, path_kernels):
+    """One run_capsule.run on the card, launch counts reset just before it
+    and read just after; raises unless every kernel of the path launched."""
+    import torch
+
+    from aind_smartspim_destripe_torch import ops, run_capsule
+
+    Z, H, W = SHAPE
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run_capsule.run(data_folder=str(data), results_folder=str(results),
-                    scratch_folder=str(work / "scratch"))
+                    scratch_folder=str(results.parent / "scratch"))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in ops.kernels()}
     log = "".join(p.read_text() for p in results.glob("destripe_log_*.log"))
     piped = re.findall(r"pipeline done: .*", log)
-    print(f"[slice] run_capsule.run: {Z * H * W / 1e6:.1f} MPix in "
+    print(f"[{tag}] run_capsule.run: {Z * H * W / 1e6:.1f} MPix in "
           f"{secs:.2f} s = {Z * H * W / 1e6 / secs:.1f} MPix/s end to end "
           f"(pyramid and stores included); {piped[-1] if piped else ''}")
-    print(f"[slice] kernel launches in the run: {launches}")
-    if set(launches) != set(REPLACES) or not all(launches.values()):
+    print(f"[{tag}] kernel launches in the run: {launches}")
+    if not all(launches[k] for k in path_kernels):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    return launches
 
+
+def check_store(results, tile):
+    """Levels 0-2 of the output tile, level 1 against level 0, and one
+    stored chunk decoded by the store's own codec; returns level 0."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch.io import open_zarr
+    from aind_smartspim_destripe_torch.ops.multiscale import windowed_mean
+
+    Z, H, W = SHAPE
     tile_group = open_zarr(str(results / "destriped_data" / "Ex_488_Em_525"
                                / f"{tile}.zarr"))
     if set(tile_group.keys()) != {"0", "1", "2"}:
@@ -383,8 +623,8 @@ def main(argv=None):
         raise AssertionError("level 1 is not the windowed mean of level 0")
     if tuple(tile_group["2"].shape) != (1, 1, Z // 4, H // 4, W // 4):
         raise AssertionError(f"level 2 shape {tile_group['2'].shape}")
-    print(f"[slice] levels 0-2 present, level 1 agrees with level 0; "
-          f"level-0 mean {head.mean():.1f}")
+    print(f"[store] {results.name}: levels 0-2 present, level 1 agrees with "
+          f"level 0; level-0 mean {head.mean():.1f}")
     # one stored chunk, decoded by the store's own blosc-zstd codec
     key = lvl0.separator.join("0" * len(lvl0.shape))
     frame = (Path(lvl0.path) / key).read_bytes()
@@ -395,65 +635,78 @@ def main(argv=None):
         lvl0.chunks)
     if not np.array_equal(chunk, np.asarray(lvl0[region])):
         raise AssertionError(f"chunk {key} decodes to other data")
-    print(f"[slice] chunk {key} {tuple(lvl0.chunks)}: blosc-zstd frame of "
+    print(f"[store] chunk {key} {tuple(lvl0.chunks)}: blosc-zstd frame of "
           f"{len(frame)} bytes ({chunk.nbytes / len(frame):.2f}x) decodes "
           f"to the data read back")
+    return lvl0
 
-    # the device step alone: one resident 64-plane uint16 batch, repeated
-    step = make_device_step(plan, 2500.0, True, devices=[dev])
+
+def step_ms(tag, plan, vol, flat, dark, dev, dual=False):
+    """The device step alone: one resident 64-plane uint16 batch, repeated
+    (CUDA events), and its peak device memory."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch.runtime.pipeline import (
+        make_device_step,
+    )
+
+    _, H, W = SHAPE
+    step = make_device_step(plan, 2500.0, True, devices=[dev], dual=dual,
+                            crossover=CROSSOVER)
     imgs = step.put(vol[:BATCH])
-    flat_d = step.put_const(flats[0])
+    flat_d = step.put_const(flat)
     dark_d = step.put_const(dark.astype(np.float32))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     ms = _time_ms(lambda: step(imgs, flat_d, dark_d), reps=5)
-    print(f"[step] device step ({BATCH}, {H}, {W}) uint16 -> uint16, "
-          f"flat-field epilogue: {ms:.2f} ms = {BATCH * H * W / 1e3 / ms:.1f} "
-          f"MPix/s; "
-          f"peak device memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print(f"[{tag}] device step ({BATCH}, {H}, {W}) uint16 -> uint16, "
+          f"{'dual-band blend, ' if dual else ''}flat-field epilogue: "
+          f"{ms:.2f} ms = {BATCH * H * W / 1e3 / ms:.1f} MPix/s; peak device "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     del step, imgs
+    torch.cuda.empty_cache()
 
-    # -- 5. sampled planes vs the plain path on the CPU --------------------
+
+def check_planes(tag, plan, lvl0, vol, flat, dark, dual=False):
+    """Four sampled planes of a run's level 0 against the port's plain path
+    on the CPU: within 1 LSB outside the flip budget, PSNR >= 100 dB."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import filter as tf
+    from aind_smartspim_destripe_torch.ops.dual_band import (
+        dual_band_destripe_batch,
+    )
+    from aind_smartspim_destripe_torch.ops.flatfield import (
+        flatfield_correction,
+    )
+
     planes = np.stack([np.asarray(lvl0[0, 0, i]) for i in SAMPLED])
+    x = torch.from_numpy(vol[list(SAMPLED)])
     t0 = time.perf_counter()
     with torch.inference_mode():
-        ref = tf.destripe_batch(
-            plan, torch.from_numpy(vol[list(SAMPLED)]), 2500.0,
-            flat=flats[0], dark=dark.astype(np.float32)).numpy()
+        if dual:
+            ref = flatfield_correction(
+                dual_band_destripe_batch(plan, x, CROSSOVER, -1.0),
+                torch.from_numpy(flat),
+                torch.from_numpy(dark.astype(np.float32))).numpy()
+        else:
+            ref = tf.destripe_batch(plan, x, 2500.0, flat=flat,
+                                    dark=dark.astype(np.float32)).numpy()
     d = np.abs(planes.astype(np.int64) - ref.astype(np.int64))
     flips = int((d > 1).sum())
     mse = float((d.astype(np.float64) ** 2).mean())
     psnr = 10 * np.log10(65535.0**2 / mse) if mse else float("inf")
-    print(f"[check] planes {SAMPLED} vs the plain path on the CPU "
+    print(f"[{tag}] planes {SAMPLED} vs the plain path on the CPU "
           f"({time.perf_counter() - t0:.1f} s): max {int(d.max())} LSB, "
           f"{flips} pixels > 1 LSB ({flips / d.size:.2e}, budget "
           f"{FLIP_BUDGET}), PSNR {psnr:.1f} dB (min {PSNR_MIN})")
     if flips > FLIP_BUDGET * d.size:
-        raise AssertionError("sampled planes exceed the flip budget")
+        raise AssertionError(f"{tag}: sampled planes exceed the flip budget")
     if psnr < PSNR_MIN:
-        raise AssertionError(f"sampled planes at {psnr:.1f} dB")
-    shutil.rmtree(work, ignore_errors=True)
-
-    kernels = [
-        {
-            "name": name,
-            "route": "cuda",
-            "source": SOURCE[name],
-            "replaces": REPLACES[name],
-            "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rec[name].values()),
-            "ms": rec[name][0]["ms"],
-            "plain_ms": rec[name][0]["plain_ms"],
-            "shape": rec[name][0]["shape"],
-            "level1": {k: rec[name][1][k] for k in ("ms", "plain_ms",
-                                                    "max_abs_err", "shape")},
-        }
-        for name in REPLACES
-    ]
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
-    return 0
+        raise AssertionError(f"{tag}: sampled planes at {psnr:.1f} dB")
 
 
 if __name__ == "__main__":

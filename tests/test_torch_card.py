@@ -10,7 +10,9 @@ Tolerances. f32 outputs: kernel and twin sum the same products in f32 in
 another order (the twin's GEMM adds exact zeros besides), so they agree to
 a few ulps of the operands: 1e-5 of the largest operand magnitude. uint16
 outputs: 1 LSB (a value on a rounding boundary). Classifier sums, histogram
-counts and row medians: exact.
+counts and row medians: exact. The blend: 1e-5 of the bands' magnitude
+(the kernel and its twin round the same operations; expf may differ by an
+ulp).
 """
 
 import numpy as np
@@ -20,8 +22,10 @@ torch = pytest.importorskip("torch")
 
 from aind_smartspim_destripe_torch import ops as tops  # noqa: E402
 from aind_smartspim_destripe_torch.ops import cuda_band as cb  # noqa: E402
+from aind_smartspim_destripe_torch.ops import cuda_blend as tbl  # noqa: E402
 from aind_smartspim_destripe_torch.ops import cuda_hist as th  # noqa: E402
 from aind_smartspim_destripe_torch.ops import cuda_notch as tn  # noqa: E402
+from aind_smartspim_destripe_torch.ops import dual_band as tdb  # noqa: E402
 from aind_smartspim_destripe_torch.ops import filter as tf  # noqa: E402
 
 F32_RTOL = 1e-5
@@ -169,7 +173,76 @@ def test_card_destripe_batch_matches_cpu(card, epilogue):
     tops.reset_launches()
     got = tf.destripe_batch(plan, torch.from_numpy(x).to(card), 2500.0,
                             **kw).cpu().numpy()
-    assert all(k.launches > 0 for k in tops.kernels())
+    single = [k for k in tops.kernels() if k is not tbl.blend_smooth_mix]
+    assert all(k.launches > 0 for k in single)
     want = tf.destripe_batch(plan, torch.from_numpy(x), 2500.0, **kw).numpy()
     d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    assert (d > 1).mean() <= 1e-4, f"{(d > 1).mean():.2%} flipped"
+
+
+@pytest.mark.parametrize("shape,dtype", [((3, 1600, 2000), torch.uint16),
+                                         ((2, 37, 203), torch.float32),
+                                         ((2, 200, 260), torch.uint16)])
+def test_card_blend_matches_twin(card, shape, dtype):
+    """The blend kernel against its twin, both bands read from the stacked
+    pair in place; ragged tiles on both axes."""
+    g = torch.Generator(device="cpu").manual_seed(shape[1])
+    B = shape[0]
+    x = torch.randint(0, 4000, shape, generator=g).to(dtype).to(card)
+    both = (torch.randn((2 * B,) + shape[1:], generator=g) * 300
+            + 500).to(card)
+    centers = (torch.rand(B, generator=g) * 300 + 100).to(card)
+    got = tbl.blend_smooth_mix(x, both, None, centers, 100.0)
+    want = tbl.blend_bands(x, both[:B], both[B:], centers, 100.0)
+    _close(got, want, scale=both.abs().max().item())
+    with pytest.raises(ValueError, match="radius"):
+        tbl.blend_smooth_mix(x, both, None, centers, 100.0, smooth_radius=4)
+
+
+def test_card_wrapped_forms_match_twins(card):
+    """K4, the masked median and the notch tail in their dual forms (2B
+    outputs from B planes) against their twins, at level 0 of 1600x2000."""
+    ops = _ops((1600, 2000), 0, card)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    B = 2
+    L = ops["an_x_lo"].shape[0]
+    x = torch.randint(0, 4000, (B, 1600, 2000), generator=g).to(
+        torch.uint16).to(card)
+    st = (torch.randn((2 * B, 1600, L), generator=g) * 0.01).to(card)
+    _close(cb.syn_x_exp(st, x, ops["syn_x_lo"], ops["k4_start"],
+                        ops["k4_coef"]),
+           cb.syn_x_exp_plain(st, x, ops["syn_x_lo"]))
+    ch = (torch.randn((B, 802, 1002), generator=g) * 0.3).to(card)
+    thr = torch.tensor([0.2, 0.35, 0.5, 0.9], device=card)
+    sel = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=card)
+    assert torch.equal(tn.row_median_masked(ch, thr),
+                       tn.row_median_masked_plain(ch, thr))
+    cat = (torch.randn((1002, 2004), generator=g) / 1002**0.5).to(card)
+    got = tn.notch_delta(ch, thr, sel, cat)
+    assert got.shape == (2 * B, 802, 1002)
+    _close(got, tn.notch_delta_plain(ch, thr, sel, cat),
+           scale=ch.abs().max().item())
+
+
+def test_card_dual_band_matches_cpu(card):
+    """The dual-band step on the card (every kernel, the blend and the
+    wrapped forms included) against the plain path on the CPU: within 1
+    LSB apart from threshold flips (budget 1e-4 of the pixels)."""
+    h, w = 640, 768
+    plan = tf.build_plan(h, w, tf.FilterConfig(wavelet="db3", sigma=64,
+                                               max_threshold=3),
+                         tf.FilterConfig(wavelet="db3", sigma=128,
+                                         max_threshold=12))
+    rng = np.random.default_rng(22)
+    x = np.clip(300 + rng.normal(size=(3, h, 1)) * 50
+                + rng.normal(size=(3, h, w)) * 10
+                + np.array([0, 2800, 0])[:, None, None],
+                0, 65535).astype(np.uint16)
+    tops.reset_launches()
+    got = tdb.dual_band_destripe_batch(plan, torch.from_numpy(x).to(card),
+                                       100.0, -1.0).cpu().numpy()
+    assert all(k.launches > 0 for k in tops.kernels())
+    want = tdb.dual_band_destripe_batch(plan, torch.from_numpy(x), 100.0,
+                                        -1.0).numpy()
+    d = np.abs(got.astype(np.float64) - want)
     assert (d > 1).mean() <= 1e-4, f"{(d > 1).mean():.2%} flipped"

@@ -288,8 +288,3 @@ def test_float_output_and_single_config_entry_point():
     assert a.shape == plane.shape
     _gate_vs_jax(a, np.asarray(b))
 
-
-def test_dual_mode_not_ported():
-    _, tp = _plans(96, 128)
-    with pytest.raises(NotImplementedError):
-        tf.destripe_batch(tp, torch.zeros((1, 96, 128)), dual=True)

@@ -124,7 +124,7 @@ def test_registry_lists_every_kernel():
     names = [k.__name__ for k in tops.kernels()]
     assert names == ["an_x_lowpass_log1p", "an_y_pass", "syn_y_pass",
                      "syn_x_exp", "histogram256_batch", "row_median_masked",
-                     "notch_delta"]
+                     "notch_delta", "blend_smooth_mix"]
     tops.reset_launches()
     assert all(k.launches == 0 for k in tops.kernels())
 

@@ -4,8 +4,9 @@
 tests/test_run_capsule_e2e.py (two 16x96x128 tiles): level 0 against the
 JAX ``destripe_batch`` with the flat-field epilogue on the same tile,
 levels 1-2 against ``windowed_mean_np`` of the port's own level 0, the
-OME-NGFF metadata and provenance, resume through the journal, and a
-subprocess run in which jax is never imported.
+OME-NGFF metadata and provenance, resume through the journal, a subprocess
+run in which neither jax nor the JAX package is imported, and the port's
+own blosc codec against the JAX package's encoder.
 """
 
 import json
@@ -102,19 +103,30 @@ def test_second_run_resumes_through_journal(capsule, monkeypatch):
 
 
 def test_subprocess_run_never_imports_jax(tmp_path):
+    """Every module of the port imported, and the CPU capsule run, in a
+    fresh interpreter: neither jax nor any module of the JAX package is
+    loaded."""
     data, results = build_capsule(tmp_path)
     code = (
-        "import sys, torch\n"
+        "import importlib, pkgutil, sys, torch\n"
+        "import aind_smartspim_destripe_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "from aind_smartspim_destripe_torch import run_capsule\n"
         f"run_capsule.run({str(data)!r}, {str(results)!r}, "
         f"{str(tmp_path / 'scratch')!r}, devices=[torch.device('cpu')])\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
-        "print('NO_JAX_OK')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'jaxlib', 'aind_smartspim_destripe_tpu'))]\n"
+        "assert not bad, bad\n"
+        "print('NO_JAX_OK', len(names))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "NO_JAX_OK" in res.stdout
+    assert int(res.stdout.split("NO_JAX_OK")[1].split()[0]) >= 20
     assert set(_tile(results, "471320_461360").keys()) == {"0", "1", "2"}
 
 
@@ -127,33 +139,21 @@ def test_device_resolution(monkeypatch):
         pipeline.resolve_device(None)
 
 
-def test_dual_band_not_ported(tmp_path, monkeypatch):
-    data, results = build_capsule(tmp_path)
-    monkeypatch.setenv("DESTRIPE_DUAL_BAND", "1")
-    with pytest.raises(NotImplementedError, match="dual-band"):
-        run_capsule.run(data_folder=str(data), results_folder=str(results),
-                        scratch_folder=str(tmp_path / "scratch"), devices=CPU)
-
-
 def test_codec_build_with_zstd_shim(tmp_path, monkeypatch):
-    """Where the reference codec has no native library, ensure_native_codec
-    builds the blosc runtime against libzstd.so.1 with the package's zstd
-    declarations, into the port's build directory, and installs it; its
-    frames equal the reference native codec's byte for byte."""
+    """The port's codec builds its own copy of the blosc runtime source
+    against libzstd.so.1 with the package's zstd declarations, into the
+    port's build directory, and binds it to the port's own io/blosc; the
+    JAX package's codec module is never touched."""
     import shutil
 
-    from aind_smartspim_destripe_torch.io import codec
-    from aind_smartspim_destripe_tpu.io import blosc
+    from aind_smartspim_destripe_torch.io import blosc, codec
 
-    if shutil.which("g++") is None or blosc._load_native() is False:
-        pytest.skip("needs g++ and the reference native codec")
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
     data = (np.random.default_rng(0).normal(size=200_000) * 40 + 500).astype(
         np.uint16)
-    want = blosc.compress(data, 2)
-    ref = blosc._load_native()
     monkeypatch.setattr(codec, "build_dir", lambda: tmp_path)
-    monkeypatch.setattr(blosc, "_native", False)  # as on a host without it
-    monkeypatch.setattr(codec, "_shim", None)
+    monkeypatch.setattr(blosc, "_native", None)
     assert codec.ensure_native_codec() == "native-shim"
     assert codec.ensure_native_codec() == "native-shim"
     assert [p.suffix for p in tmp_path.iterdir()] == [".so"]
@@ -161,8 +161,43 @@ def test_codec_build_with_zstd_shim(tmp_path, monkeypatch):
     for name in ("blosc1_compress", "blosc1_decompress",
                  "blosc1_compress_batch", "blosc1_decompress_batch",
                  "blosc1_compress_slab", "blosc1_decompress_slab"):
-        mine, theirs = getattr(blosc._native, name), getattr(ref, name)
-        assert (mine.restype, mine.argtypes) == (theirs.restype,
-                                                 theirs.argtypes), name
-    assert blosc.compress(data, 2) == want
-    assert blosc.decompress(want) == data.tobytes()
+        assert getattr(blosc._native, name).argtypes, name
+    frame = blosc.compress(data, 2)
+    assert blosc.decompress(frame) == data.tobytes()
+    from aind_smartspim_destripe_tpu.io import blosc as jb
+
+    assert jb._native is not blosc._native
+    monkeypatch.setattr(blosc, "_native", None)
+    monkeypatch.setattr(codec.shutil, "which", lambda _: None)
+    assert codec.ensure_native_codec() == "zstandard"
+    assert blosc.decompress(blosc.compress(data, 2)) == data.tobytes()
+
+
+@pytest.mark.parametrize("dtype,shuffle", [(np.uint16, 1), (np.uint16, 2),
+                                           (np.float32, 1), (np.uint8, 0)])
+def test_port_blosc_frames_match_jax_encoder(dtype, shuffle):
+    """The port's own io/blosc encodes the same bytes as the JAX package's
+    encoder (its native build where there is one), frame by frame, batch by
+    batch and slab by slab, and decodes them back."""
+    from aind_smartspim_destripe_torch.io import blosc as tb
+    from aind_smartspim_destripe_tpu.io import blosc as jb
+
+    rng = np.random.default_rng(int(np.dtype(dtype).itemsize) + shuffle)
+    vol = (rng.normal(size=(12, 40, 70)) * 30 + 400).astype(dtype)
+    ts = vol.itemsize
+    assert tb.compress(vol, ts, shuffle=shuffle) == jb.compress(
+        vol, ts, shuffle=shuffle)
+    chunks = [vol[i] for i in range(4)]
+    mine = [bytes(f) for f in tb.compress_batch(chunks, ts, shuffle=shuffle)]
+    theirs = [bytes(f) for f in jb.compress_batch(chunks, ts,
+                                                  shuffle=shuffle)]
+    assert mine == theirs
+    assert [tb.decompress(f) for f in mine] == [c.tobytes() for c in chunks]
+    if shuffle == 1 and jb._load_native():
+        cs = (4, 16, 32)
+        mine = tb.compress_slab(vol, cs)
+        theirs = jb.compress_slab(vol, cs)
+        assert [bytes(f) for f in mine] == [bytes(f) for f in theirs]
+        out = np.empty_like(vol)
+        assert tb.decompress_slab([bytes(f) for f in mine], out, cs)
+        np.testing.assert_array_equal(out, vol)
