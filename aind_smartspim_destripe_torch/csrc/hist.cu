@@ -17,6 +17,12 @@
 // [0, nbins - 1], with x squared first when `square` is set. NaN inputs
 // count nowhere (the TPU kernel's self-masking). The caller zeroes `counts`.
 //
+// A row bound (the TPU kernel's dynamic `row_bound`) limits each plane to its
+// first `rows_valid` rows of `row_len` values: the row-sharded route passes
+// a shard's own rows and excludes the rows that pad it to the mesh multiple.
+// The plane stride stays `n`; only the first n_valid = rows_valid * row_len
+// values of each plane are read.
+//
 // The entry point launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
 
@@ -35,7 +41,7 @@ __global__ void hist_kernel(const T* __restrict__ x,
                             const float* __restrict__ lo,
                             const float* __restrict__ span,
                             unsigned int* __restrict__ counts, long long n,
-                            int nbins) {
+                            long long n_valid, int nbins) {
   extern __shared__ unsigned int hist_smem[];  // (warps, nbins)
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
@@ -47,7 +53,7 @@ __global__ void hist_kernel(const T* __restrict__ x,
   const float l = lo[b], s = span[b], fb = static_cast<float>(nbins);
   const T* plane = x + (size_t)b * n;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + tid; i < n;
+  for (long long i = (long long)blockIdx.x * blockDim.x + tid; i < n_valid;
        i += stride) {
     float v = hist_load(plane + i);
     if (kSquare) v = __fmul_rn(v, v);
@@ -68,14 +74,15 @@ __global__ void hist_kernel(const T* __restrict__ x,
 template <typename T>
 void launch_hist(dim3 grid, dim3 block, size_t smem, cudaStream_t s,
                  const void* x, const float* lo, const float* span,
-                 unsigned int* counts, long long n, int nbins, bool square) {
+                 unsigned int* counts, long long n, long long n_valid,
+                 int nbins, bool square) {
   const T* xt = static_cast<const T*>(x);
   if (square) {
     hist_kernel<T, true><<<grid, block, smem, s>>>(xt, lo, span, counts, n,
-                                                   nbins);
+                                                   n_valid, nbins);
   } else {
     hist_kernel<T, false><<<grid, block, smem, s>>>(xt, lo, span, counts, n,
-                                                    nbins);
+                                                    n_valid, nbins);
   }
 }
 
@@ -84,19 +91,23 @@ void launch_hist(dim3 grid, dim3 block, size_t smem, cudaStream_t s,
 extern "C" {
 
 // x (B, n) uint16 (x_u16=1) or f32; lo, span (B,) f32 (span > 0); counts
-// (B, nbins) uint32, zeroed. threads a multiple of 32; blocks per plane >= 1.
+// (B, nbins) uint32, zeroed. Each plane counts its first rows_valid rows of
+// row_len values (rows_valid * row_len <= n). threads a multiple of 32;
+// blocks per plane >= 1.
 int destripe_hist(const void* x, int x_u16, const float* lo, const float* span,
-                  unsigned int* counts, int B, long long n, int nbins,
-                  int square, int threads, int blocks, void* stream) {
+                  unsigned int* counts, int B, long long n, int rows_valid,
+                  long long row_len, int nbins, int square, int threads,
+                  int blocks, void* stream) {
+  const long long n_valid = (long long)rows_valid * row_len;
   const dim3 grid(blocks, B);
   const size_t smem = (size_t)(threads / 32) * nbins * sizeof(unsigned int);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_u16) {
     launch_hist<unsigned short>(grid, dim3(threads), smem, s, x, lo, span,
-                                counts, n, nbins, square != 0);
+                                counts, n, n_valid, nbins, square != 0);
   } else {
     launch_hist<float>(grid, dim3(threads), smem, s, x, lo, span, counts, n,
-                       nbins, square != 0);
+                       n_valid, nbins, square != 0);
   }
   return static_cast<int>(cudaGetLastError());
 }

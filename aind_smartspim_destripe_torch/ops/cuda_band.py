@@ -18,7 +18,11 @@ two. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 - :func:`syn_x_exp` (K4): ``stacked @ S_x_lo^T``, optionally fused with
   ``exp(log(1 + x) + corr) + 1`` and the flat-field or wrap epilogue; with
   fewer image planes than corrections (dual band: 2B corrections, B planes)
-  correction ``b`` reads image plane ``b mod B``.
+  correction ``b`` reads image plane ``b mod B``;
+- :func:`an_x_lowpass_chunked` and :func:`syn_x_exp_chunked`: K1 without
+  its classifier sums and K4, on the row shards of the row-sharded route.
+  They take the band form alone: that route never puts the dense x
+  operator of a K1/K4 level on the card (the CPU twin rebuilds it).
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ __all__ = [
     "an_y_pass",
     "syn_y_pass",
     "syn_x_exp",
+    "an_x_lowpass_chunked",
+    "syn_x_exp_chunked",
     "an_x_lowpass_log1p_plain",
     "an_y_pass_plain",
     "syn_y_pass_plain",
@@ -169,7 +175,15 @@ def an_x_lowpass_log1p(
     (exact for uint16 input) and rounded once."""
     if not on_cuda(x):
         return an_x_lowpass_log1p_plain(x, a_lo, log1p, cls_cut)
+    out, partials = _k1(x, start, coef, log1p, cls_cut)
+    an_x_lowpass_log1p.launches += 1
+    if partials is None:
+        return out
+    return out, partials.sum(dim=1).to(torch.float32)
 
+
+def _k1(x, start, coef, log1p, cls_cut):
+    """Launch K1 over the full width: (out, per-block partials or None)."""
     B, H, W = x.shape
     L, K = coef.shape
     dev = x.device
@@ -187,10 +201,7 @@ def an_x_lowpass_log1p(
         out.data_ptr(), _ptr(partials), start.data_ptr(), coef.data_ptr(),
         K, B, H, W, L, int(log1p), float(cls_cut or 0.0), _ROW_THREADS,
     )
-    an_x_lowpass_log1p.launches += 1
-    if partials is None:
-        return out
-    return out, partials.sum(dim=1).to(torch.float32)
+    return out, partials
 
 
 # ---------------------------------------------------------------------------
@@ -330,13 +341,16 @@ def syn_x_exp(
     as float32, or as uint16 through the flat-field correction
     (``flat``/``dark``) or the modulo-2^16 wrap cast (``wrap``). Output
     plane ``b`` reads image plane ``b mod Bi``."""
-    if flat is not None and wrap:
-        raise ValueError("flat-field and wrap epilogues are exclusive")
-    if (flat is not None or wrap) and images is None:
-        raise ValueError("epilogues need the original images")
+    _check_epilogue(images, flat, wrap)
     if not on_cuda(stacked):
         return syn_x_exp_plain(stacked, images, s_x_lo, flat, dark, wrap)
+    out = _k4(stacked, images, start, coef, flat, dark, wrap)
+    syn_x_exp.launches += 1
+    return out
 
+
+def _k4(stacked, images, start, coef, flat, dark, wrap):
+    """Launch K4 over the full width with the epilogue the inputs ask for."""
     B, H, L = stacked.shape
     W, K = coef.shape
     Bi = _image_planes(stacked, images)
@@ -360,10 +374,76 @@ def syn_x_exp(
         _ptr(flat), _ptr(dark), out.data_ptr(), start.data_ptr(),
         coef.data_ptr(), K, B, Bi, H, L, W, mode, _ROW_THREADS,
     )
-    syn_x_exp.launches += 1
     return out
 
 
-KERNELS = (an_x_lowpass_log1p, an_y_pass, syn_y_pass, syn_x_exp)
+def _check_epilogue(images, flat, wrap):
+    if flat is not None and wrap:
+        raise ValueError("flat-field and wrap epilogues are exclusive")
+    if (flat is not None or wrap) and images is None:
+        raise ValueError("epilogues need the original images")
+
+
+# ---------------------------------------------------------------------------
+# K1 and K4 on the row shards of the row-sharded route
+# ---------------------------------------------------------------------------
+
+
+def _dense(op: Optional[torch.Tensor]) -> torch.Tensor:
+    if op is None:
+        raise ValueError("the plain twin needs the dense operator")
+    return op
+
+
+def an_x_lowpass_chunked(
+    x: torch.Tensor,  # (B, h, W) uint16 or float32: one row shard
+    a_lo: Optional[torch.Tensor],  # (L, W) dense operator, or None
+    start: torch.Tensor,  # (L,) int32 band form of a_lo
+    coef: torch.Tensor,  # (L, K) float32
+    log1p: bool = True,
+) -> torch.Tensor:
+    """``f(x) @ a_lo^T`` on one row shard, without the classifier sums:
+    (B, h, L) float32 (``f`` as in :func:`an_x_lowpass_log1p`).
+
+    The TPU kernel tiles its operator over output-column chunks so that it
+    fits the 16 MiB of scoped VMEM at halo widths. The card has no such
+    limit: K1 reads its K taps per output from the band form, so one launch
+    covers the shard's full width and there is nothing to chunk. The
+    kernel reads the band form only (``a_lo`` may be None); the plain twin
+    reads the dense operator."""
+    if not on_cuda(x):
+        return an_x_lowpass_log1p_plain(x, _dense(a_lo), log1p)
+    out, _ = _k1(x, start, coef, log1p, None)
+    an_x_lowpass_chunked.launches += 1
+    return out
+
+
+def syn_x_exp_chunked(
+    stacked: torch.Tensor,  # (B, h, L) float32: one row shard
+    images: Optional[torch.Tensor],  # (Bi, h, W) uint16/float32 or None
+    s_x_lo: Optional[torch.Tensor],  # (W, L) dense operator, or None
+    start: torch.Tensor,  # (W,) int32
+    coef: torch.Tensor,  # (W, K) float32
+    flat: Optional[torch.Tensor] = None,  # (h, W) float32
+    dark: Optional[torch.Tensor] = None,  # (h, W) float32
+    wrap: bool = False,
+) -> torch.Tensor:
+    """:func:`syn_x_exp` on one row shard, with its epilogue on the shard's
+    own rows (``flat``/``dark`` are the shard's rows of the fields). One
+    launch over the full width, as for :func:`an_x_lowpass_chunked`: the
+    TPU kernel's output-column chunks exist only to fit scoped VMEM. The
+    kernel reads the band form only (``s_x_lo`` may be None); the plain
+    twin reads the dense operator."""
+    _check_epilogue(images, flat, wrap)
+    if not on_cuda(stacked):
+        return syn_x_exp_plain(stacked, images, _dense(s_x_lo), flat, dark,
+                               wrap)
+    out = _k4(stacked, images, start, coef, flat, dark, wrap)
+    syn_x_exp_chunked.launches += 1
+    return out
+
+
+KERNELS = (an_x_lowpass_log1p, an_y_pass, syn_y_pass, syn_x_exp,
+           an_x_lowpass_chunked, syn_x_exp_chunked)
 for _k in KERNELS:
     _k.launches = 0

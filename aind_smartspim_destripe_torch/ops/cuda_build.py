@@ -2,10 +2,11 @@
 Build, load and launch the port's CUDA kernels.
 
 The CUDA sources in ``csrc/`` of this package (``band.cu``: K1-K4,
-``hist.cu``: the Otsu histogram, ``notch.cu``: row medians and the notch
-tail, ``blend.cu``: the dual-band blend) are compiled with ``nvcc`` for
-``sm_90a``, one ``nvcc`` per source, all started together, and linked into
-one shared library with a plain C interface, loaded with ``ctypes``. The
+``hist.cu``: the Otsu histogram, ``notch.cu``: row medians, the notch
+tail and the per-plane notch product, ``blend.cu``: the dual-band blend)
+are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all
+started together, and linked into one shared library with a plain C
+interface, loaded with ``ctypes``. The
 build happens at first use, into ``build/torch_kernels/`` at the root of
 the checkout (listed in ``.gitignore``), under a name keyed by the sources'
 content, so an edited source never loads a stale library. Nothing here runs
@@ -65,11 +66,13 @@ _SIGNATURES = {
     "destripe_k4": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
     + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "destripe_hist": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-    + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
-    + [ctypes.c_void_p],
+    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "destripe_row_median": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
     "destripe_notch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p],
+    "destripe_notch_select": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
     "destripe_blend": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],

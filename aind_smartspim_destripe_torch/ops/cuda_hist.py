@@ -12,6 +12,8 @@ kernel or raises. It counts its kernel launches in
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .cuda_build import check, launch, on_cuda
@@ -36,9 +38,21 @@ def bin_index(x, lo, span, nbins):
     return idx.clamp_(0, nbins - 1)
 
 
-def histogram256_batch_plain(x, lo, span, square=False, nbins=256):
+def _rows(x, row_bound):
+    """The planes' first ``row_bound`` rows (all of them for None)."""
+    if row_bound is None:
+        return x
+    if x.ndim != 3 or not 0 <= row_bound <= x.shape[1]:
+        raise ValueError(f"row_bound {row_bound} needs (B, H, W) planes with "
+                         f"0 <= row_bound <= H, got {tuple(x.shape)}")
+    return x[:, :row_bound]
+
+
+def histogram256_batch_plain(x, lo, span, square=False, nbins=256,
+                             row_bound=None):
     """Plain twin of :func:`histogram256_batch`, on any device."""
     B = x.shape[0]
+    x = _rows(x, row_bound)
     xs = x if torch.is_floating_point(x) else x.to(torch.float32)
     xs = xs.reshape(B, -1)
     if square:
@@ -46,7 +60,7 @@ def histogram256_batch_plain(x, lo, span, square=False, nbins=256):
     idx = bin_index(xs, lo[:, None], span[:, None], nbins)
     idx += torch.arange(B, device=x.device)[:, None] * nbins
     counts = torch.bincount(idx.reshape(-1), minlength=B * nbins)
-    return counts.reshape(B, nbins).to(torch.float32)
+    return counts.reshape(B, nbins).to(torch.int32)
 
 
 def histogram256_batch(
@@ -55,13 +69,21 @@ def histogram256_batch(
     span: torch.Tensor,  # (B,) float32 bin range width per plane, > 0
     square: bool = False,
     nbins: int = 256,
+    row_bound: Optional[int] = None,
 ) -> torch.Tensor:
-    """Exact per-plane counts (B, nbins) float32 of ``x`` (or of ``x**2``,
+    """Exact per-plane counts (B, nbins) int32 of ``x`` (or of ``x**2``,
     squared in the kernel, with ``square``) over ``nbins`` equal bins from
     ``lo`` over ``span``; values outside fall in the end bins. Input values
-    must be finite."""
+    must be finite.
+
+    ``row_bound``: count only the first ``row_bound`` rows of each (B, H, W)
+    plane (a row shard's own rows, without the rows that pad it to the mesh
+    multiple). The counts stay integers, so that the partial histograms of
+    a plane's row shards add up exactly; a caller converts them to float32
+    once (the JAX kernel returns float32, exact only below 2**24 per bin)."""
     if not on_cuda(x):
-        return histogram256_batch_plain(x, lo, span, square, nbins)
+        return histogram256_batch_plain(x, lo, span, square, nbins,
+                                        row_bound)
 
     B = x.shape[0]
     n = x.numel() // max(B, 1)
@@ -71,15 +93,19 @@ def histogram256_batch(
     check("x", x, (torch.float32, torch.uint16), dev)
     check("lo", lo, (torch.float32,), dev, (B,))
     check("span", span, (torch.float32,), dev, (B,))
+    rows = 1 if row_bound is None else _rows(x, row_bound).shape[1]
+    row_len = n if row_bound is None else n // max(x.shape[1], 1)
+    n_valid = rows * row_len
     counts = torch.zeros((B, nbins), dtype=torch.int32, device=dev)
-    blocks = max(1, min(_MAX_BLOCKS, -(-n // (_THREADS * _ELEMS_PER_THREAD))))
+    blocks = max(1, min(_MAX_BLOCKS,
+                        -(-n_valid // (_THREADS * _ELEMS_PER_THREAD))))
     launch(
         "destripe_hist", dev, x.data_ptr(), int(x.dtype == torch.uint16),
-        lo.data_ptr(), span.data_ptr(), counts.data_ptr(), B, n, nbins,
-        int(square), _THREADS, blocks,
+        lo.data_ptr(), span.data_ptr(), counts.data_ptr(), B, n, rows,
+        row_len, nbins, int(square), _THREADS, blocks,
     )
     histogram256_batch.launches += 1
-    return counts.to(torch.float32)
+    return counts
 
 
 KERNELS = (histogram256_batch,)

@@ -4,7 +4,8 @@ wrappers of the Hopper kernels in ``csrc/notch.cu`` and their plain PyTorch
 twins.
 
 Counterpart of ``aind_smartspim_destripe_tpu/ops/pallas_notch.py``
-(``notch_delta``) and ``ops/pallas_median.py`` (``row_median_masked``).
+(``notch_delta``, ``notch_select_chunked``) and ``ops/pallas_median.py``
+(``row_median_masked``).
 Each wrapper dispatches on the device of its input: a CPU tensor takes the
 plain twin (also callable directly as ``<wrapper>_plain`` on any device), a
 CUDA tensor launches the kernel or raises. Each wrapper counts its kernel
@@ -13,7 +14,10 @@ launches in ``<wrapper>.launches``.
 - :func:`row_median_masked`: the median of each row of
   ``where(sqrt(x*x) > thr[b], 0, x)``;
 - :func:`notch_delta`: stripe mask -> row-median inpaint -> the plane's
-  notch operator -> the synthesis delta ``filtered - ch``.
+  notch operator -> the synthesis delta ``filtered - ch``;
+- :func:`notch_select`: the product ``x[b] @ op[sel[b]]`` alone, for the
+  row-sharded route, with the operator bank of
+  :func:`stacked_notch_operators`.
 
 Both take per-plane ``thr`` (and ``sel``) of k x B entries for a band of B
 planes: output plane ``b`` reads band plane ``b mod B`` with its own
@@ -23,6 +27,7 @@ copy of the band.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .cuda_build import check, launch, on_cuda
@@ -31,8 +36,11 @@ __all__ = [
     "row_median",
     "row_median_masked",
     "notch_delta",
+    "notch_select",
+    "stacked_notch_operators",
     "row_median_masked_plain",
     "notch_delta_plain",
+    "notch_select_plain",
     "KERNELS",
 ]
 
@@ -159,6 +167,55 @@ def notch_delta(
     return out
 
 
-KERNELS = (row_median_masked, notch_delta)
+# ---------------------------------------------------------------------------
+# The per-plane notch product of the row-sharded route
+# ---------------------------------------------------------------------------
+
+
+def stacked_notch_operators(bc: np.ndarray, bn: np.ndarray) -> np.ndarray:
+    """The cells / no-cells notch operators (w, w) as one f32 bank (w, 2w)
+    oriented for ``x @ op``: ``[bc.T | bn.T]``, the notch tail's
+    ``notch_cat`` layout. The JAX package's bank is a lane-padded bf16 hi/lo
+    pair (2, wp, wp); the port keeps f32 and no padding."""
+    return np.ascontiguousarray(
+        np.concatenate([np.asarray(bc).T, np.asarray(bn).T], axis=1),
+        dtype=np.float32)
+
+
+def notch_select_plain(x, sel, bank):
+    """Plain twin of :func:`notch_select`, on any device: one
+    ``torch.matmul`` per plane with its selected operator."""
+    w = x.shape[-1]
+    return torch.stack([
+        torch.matmul(x[b], bank[:, s * w:(s + 1) * w])
+        for b, s in enumerate(sel.tolist())
+    ])
+
+
+def notch_select(
+    x: torch.Tensor,  # (B, h, w) float32 inpainted band
+    sel: torch.Tensor,  # (B,) int32: 0 = cells operator, 1 = no-cells
+    bank: torch.Tensor,  # (w, 2w) float32 [cells | no-cells] operators
+) -> torch.Tensor:
+    """``out[b] = x[b] @ bank[:, sel[b]*w : (sel[b]+1)*w]`` -> (B, h, w)
+    float32: each plane multiplies only its own operator. The TPU kernel
+    streams its bank in output-column chunks to fit scoped VMEM; the card's
+    kernel reads the operator tile by tile from device memory, so it needs
+    no chunking and runs in one launch over the full width."""
+    if not on_cuda(x):
+        return notch_select_plain(x, sel, bank)
+    B, h, w = x.shape
+    dev = x.device
+    check("x", x, (torch.float32,), dev)
+    check("sel", sel, (torch.int32,), dev, (B,))
+    check("bank", bank, (torch.float32,), dev, (w, 2 * w))
+    out = torch.empty((B, h, w), dtype=torch.float32, device=dev)
+    launch("destripe_notch_select", dev, x.data_ptr(), sel.data_ptr(),
+           bank.data_ptr(), out.data_ptr(), B, h, w)
+    notch_select.launches += 1
+    return out
+
+
+KERNELS = (row_median_masked, notch_delta, notch_select)
 for _k in KERNELS:
     _k.launches = 0

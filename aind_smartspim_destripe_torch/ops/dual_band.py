@@ -103,7 +103,7 @@ def _run_host(plan, img, crossover, threshold, device):
     CUDA device; raises when there is none)."""
     from ..runtime.pipeline import resolve_device
 
-    dev = resolve_device(None if device is None else [device])
+    dev = resolve_device(None if device is None else [device])[0]
     f32_matmul()
     if img.dtype != np.uint16:  # uint16 ships raw; the kernels read it
         img = img.astype(np.float32, copy=False)

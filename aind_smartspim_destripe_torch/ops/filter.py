@@ -55,10 +55,12 @@ __all__ = [
     "DestripePlan",
     "build_plan",
     "band_gate",
+    "require_dense_x",
     "constants_from_numpy",
     "destripe_batch",
     "classify_planes",
     "classify_from_sums",
+    "classifier_sums",
     "log_space_fft_filtering",
     "normalize_flat_dark",
     "wrap_cast",
@@ -69,6 +71,10 @@ __all__ = [
 # banded kernels when its input has at least this many pixels and sides.
 _BAND_MIN_PX = 400_000
 _BAND_MIN_SIDE = 560
+# The JAX package's kernel pay-off gate (ops/filter.py _PALLAS_MIN_PX): the
+# row-sharded route runs a cH band of at least this many pixels through the
+# sharded histogram, median and notch kernels, smaller ones whole.
+_PALLAS_MIN_PX = 32 * 1024
 
 
 def f32_matmul() -> None:
@@ -121,17 +127,19 @@ class DestripePlan:
     cells: FilterConfig
     no_cells: FilterConfig
 
-    def notch_matrices(self, dtype=np.float32):
+    def notch_matrices(self, dtype=np.float32, skip=None):
         """Per-level (cells, no_cells) notch operators, coarsest first, with
-        sigma_effective = rows(level) * sigma / min(H, W)."""
+        sigma_effective = rows(level) * sigma / min(H, W). ``skip``:
+        coarsest-first booleans; levels marked True get None instead of a
+        pair, and their matrices are never built."""
         min_side = min(self.height, self.width)
         return tuple(
-            tuple(
+            None if skip is not None and skip[i] else tuple(
                 fft_notch.packed_notch_matrix(
                     w, float(h * cfg.sigma / min_side)).astype(dtype)
                 for cfg in (self.cells, self.no_cells)
             )
-            for (h, w) in self.ladder
+            for i, (h, w) in enumerate(self.ladder)
         )
 
     def notch_sigmas(self):
@@ -188,6 +196,20 @@ def _band_constants(consts: dict) -> dict:
             np.asarray(consts["syn_x_lo"][n - 1 - lvl]),
         )
     return out
+
+
+def require_dense_x(plan: "DestripePlan", gate: int) -> None:
+    """Raise NotImplementedError for a plan whose width reaches ``gate``,
+    the JAX package's dense-x memory gate (``parallel/halo.py
+    banded_x_min_w_default``): levels that wide run the banded/spectral x
+    tier there (``wavelets.an_lo_pass_last``, ``syn_lo_pass_last``,
+    ``fft_notch.apply_notch_fft``), which this package does not have."""
+    if plan.width >= gate:
+        raise NotImplementedError(
+            f"plane width {plan.width} is at or above the dense-x gate "
+            f"{gate}: the banded/spectral x tier (wavelets.an_lo_pass_last, "
+            f"syn_lo_pass_last, fft_notch.apply_notch_fft) is not ported"
+        )
 
 
 def constants_from_numpy(consts: dict, device) -> dict:
@@ -311,6 +333,15 @@ def classify_planes(images: torch.Tensor, microscope_high_int: float,
     foreground classifier and the fore/back mean comparison; the sums run
     in float64 (exact for uint16 planes) and round once to float32, as the
     K1 side channel does."""
+    sums = classifier_sums(images, threshold_mask)
+    return classify_from_sums(
+        *(s.to(torch.float32) for s in sums), microscope_high_int)
+
+
+def classifier_sums(images: torch.Tensor, threshold_mask: float = 0.3):
+    """The classifier's four per-plane float64 sums ``(fg_cnt, bg_cnt,
+    fg_sum, bg_sum)``, each (B,): exact for uint16 planes, so the sums of
+    row shards add up to the plane's."""
     x16 = images.to(torch.float16)
     cut = _classifier_cut(400.0, 20.0, float(threshold_mask))
     if cut is not None:
@@ -320,14 +351,12 @@ def classify_planes(images: torch.Tensor, microscope_high_int: float,
         cell = 1 / (1 + torch.exp(-z)) > threshold_mask
     xd = images.to(torch.float64)
     dims = tuple(range(1, images.ndim))
-    sums = [
+    return (
         cell.sum(dims, dtype=torch.float64),
         (~cell).sum(dims, dtype=torch.float64),
         torch.where(cell, xd, 0.0).sum(dims),
         torch.where(cell, 0.0, xd).sum(dims),
-    ]
-    return classify_from_sums(
-        *(s.to(torch.float32) for s in sums), microscope_high_int)
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -349,11 +378,9 @@ def _filter_level_delta(
     :func:`.cuda_notch.notch_delta` (mask -> row-median inpaint -> notch ->
     recombine). ``is_cells`` (and ``otsu_sqrt``) may hold k x B entries for
     B band planes: k deltas per plane (dual band, k = 2)."""
-    max_thr = torch.where(
-        is_cells,
-        torch.tensor(thr_cells, dtype=torch.float32, device=ch.device),
-        torch.tensor(thr_no_cells, dtype=torch.float32, device=ch.device),
-    )
+    # scalars, not tensors made from them: a tensor made on the card from a
+    # host value is a blocking copy, and the step must not wait on the host
+    max_thr = torch.where(is_cells, float(thr_cells), float(thr_no_cells))
     if otsu_sqrt is None:
         otsu_sqrt = torch.sqrt(threshold_otsu_batch(
             ch, square=True, abs_range=abs_range))
@@ -576,7 +603,7 @@ def log_space_fft_filtering(
     squeeze = img.ndim == 2
     if squeeze:
         img = img[None]
-    dev = resolve_device(None if device is None else [device])
+    dev = resolve_device(None if device is None else [device])[0]
     f32_matmul()
     cfg = FilterConfig(wavelet=wavelet, level=level, sigma=float(sigma),
                        max_threshold=float(max_threshold))

@@ -63,7 +63,7 @@ def histogram_fixed_bins(x: torch.Tensor, nbins: int = 256):
     hi = flat.max()
     span = hi - lo
     counts = histogram256_batch(flat[None], lo[None], _safe(span)[None],
-                                nbins=nbins)[0]
+                                nbins=nbins)[0].to(torch.float32)
     edges = lo + span * torch.arange(
         nbins + 1, dtype=x.dtype, device=x.device) / nbins
     centers = (edges[:-1] + edges[1:]) / 2.0
@@ -109,7 +109,7 @@ def threshold_otsu_batch(
         hi = xs.amax(dim=dims)
     span = hi - lo
     counts = histogram256_batch(xs, lo, _safe(span), square=square,
-                                nbins=nbins)
+                                nbins=nbins).to(torch.float32)
     steps = torch.arange(nbins + 1, dtype=lo.dtype, device=xs.device)
     # edges = lo + span * i / nbins, in the JAX package's order of operations
     edges = lo[:, None] + span[:, None] * steps[None, :] / nbins

@@ -89,8 +89,10 @@ def run(
     scratch_folder: str = "../scratch",
     devices=None,
 ):
-    """Validate inputs and destripe every channel on ``devices`` (None: the
-    current CUDA device; ``[torch.device("cpu")]`` runs on the CPU).
+    """Validate inputs and destripe every channel on the mesh ``devices``
+    (None: every visible CUDA device; ``[torch.device("cpu")]`` runs on the
+    CPU; several entries shard each batch over them, by planes or, above
+    ``DESTRIPE_HALO_THRESHOLD_BYTES`` of f32 plane, by rows).
     ``scratch_folder`` is accepted for parity: the pipeline streams through
     memory. ``DESTRIPE_DUAL_BAND=1`` runs the dual-band mode, with
     ``DESTRIPE_DUAL_CROSSOVER`` and ``DESTRIPE_DUAL_THRESHOLD`` as its

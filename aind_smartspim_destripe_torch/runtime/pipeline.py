@@ -1,17 +1,24 @@
 """
 Streaming destripe pipeline: Zarr slabs -> device batches -> Zarr.
 
-Counterpart of ``aind_smartspim_destripe_tpu/runtime/pipeline.py`` for one
-CUDA device (or, explicitly, the CPU). One process, three stages:
+Counterpart of ``aind_smartspim_destripe_tpu/runtime/pipeline.py``. One
+process, three stages:
 
   [reader threads]  decode input Zarr chunks for slab k+1..k+prefetch
-  [device]          destripe + flat-field on fixed-size uint16 batches
+  [devices]         destripe + flat-field on fixed-size uint16 batches
                     (uint16 in and out, so host<->device traffic is halved)
   [writer threads]  encode and write level-0 chunks of slab k-1
 
-Each batch goes host -> device -> step -> host in order; at most two
-dispatches are in flight. A per-slab commit journal in the output store
-lets an interrupted run resume instead of recomputing the tile.
+The device stage runs on a mesh (a list of devices, :func:`resolve_device`):
+one entry runs the whole batch; several split each batch over their planes,
+or, for planes above ``DESTRIPE_HALO_THRESHOLD_BYTES`` of float32, over
+their rows (the row-sharded route, :mod:`..parallel.halo`). Each batch goes
+host -> device -> step -> host in order; at most two dispatches are in
+flight. A plane-sharded batch is launched on every device without a host
+wait, so the devices run their shares at the same time, and each device's
+copies in and out run on a host thread of their own. A per-slab commit
+journal in the output store lets an interrupted run resume instead of
+recomputing the tile.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import warnings
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -39,6 +46,15 @@ from ..ops.filter import (
     f32_matmul,
 )
 from ..ops.flatfield import flatfield_correction, wrap_cast
+from ..parallel.halo import (
+    destripe_y_sharded,
+    dual_band_destripe_y_sharded,
+    halo_batch_bytes,
+    halo_device_constants,
+    halo_threshold_bytes,
+    shard_rows,
+)
+from ..parallel.mesh import make_mesh
 
 __all__ = [
     "PipelineStats",
@@ -48,25 +64,21 @@ __all__ = [
 ]
 
 
-def resolve_device(devices=None) -> torch.device:
-    """The one device a step runs on. ``None``: the current CUDA device
-    (raises when CUDA is absent; there is no CPU fallback). A one-element
-    list names the device, ``[torch.device("cpu")]`` included. More than
-    one device is not supported yet."""
-    if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device; pass devices=[torch.device('cpu')] to run "
-                "on the CPU"
-            )
-        return torch.device("cuda", torch.cuda.current_device())
-    devices = list(devices)
-    if len(devices) > 1:
-        raise NotImplementedError(
-            "more than one device is not supported by the torch package yet")
-    if not devices:
-        raise ValueError("devices is empty")
-    return torch.device(devices[0])
+def resolve_device(devices=None) -> List[torch.device]:
+    """The mesh a step runs on (:func:`..parallel.mesh.make_mesh`): None
+    means every visible CUDA device (raises when CUDA is absent; there is
+    no CPU fallback); a list names the entries, ``[torch.device("cpu")]``
+    included, and may repeat a device."""
+    return make_mesh(devices)
+
+
+def _host_tensor(chunk: np.ndarray) -> torch.Tensor:
+    chunk = np.ascontiguousarray(chunk)
+    with warnings.catch_warnings():
+        # slabs decoded from a store can be read-only; the step only reads
+        # its input, so no copy is needed on the host
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(chunk)
 
 
 @dataclass
@@ -79,6 +91,9 @@ class PipelineStats:
     write_s: float = 0.0
     wall_s: float = 0.0
     pixels: int = 0
+    # True when the step sharded ROWS over the mesh (the row-sharded route
+    # above DESTRIPE_HALO_THRESHOLD_BYTES) instead of planes
+    halo: bool = False
     # per-slab records [(z0, z1, read_wait_s, compute_s)]: read_wait is the
     # time the loop blocked on the prefetched read
     slab_records: list = None
@@ -97,8 +112,8 @@ def make_device_step(plan: DestripePlan, microscope_high_int: float,
                      crossover: float = 100.0, dual_threshold: float = -1.0):
     """(B, H, W) uint16 -> uint16 device step: destripe, then the
     flat-field correction (``with_flatfield``) or the zarr-store wrap cast.
-    The operator matrices are moved to the device once. Matrix products run
-    in full float32 (TF32 off).
+    The operator matrices are moved to the devices once. Matrix products
+    run in full float32 (TF32 off).
 
     ``dual=True`` replaces the classifier dispatch with the dual-band blend
     (:func:`..ops.dual_band.dual_band_destripe_batch`: both of the plan's
@@ -107,40 +122,154 @@ def make_device_step(plan: DestripePlan, microscope_high_int: float,
     ``dual_threshold``, < 0 for the per-plane Otsu); the flat-field or wrap
     epilogue then applies to the blended float32 plane.
 
+    ``devices``: the mesh (:func:`resolve_device`). With more than one
+    entry the batch is split over the entries' planes (each entry runs the
+    whole step on its planes; constants once per device), or, when one
+    plane's float32 bytes pass ``DESTRIPE_HALO_THRESHOLD_BYTES`` (default
+    1 GiB), over their rows (:func:`_make_halo_step`). ``None`` takes every
+    visible CUDA device for the row split, but runs planes under the
+    threshold on the first device alone: on four H100s the plane split of
+    a 64-plane batch of 1600 x 2000 planes ran slower than one card (the
+    host needs longer to launch a share than the card needs to run it;
+    ``scripts/mesh_capsule.py``). A list of devices splits them.
+
     The returned callable ``step(images, flat, dark)`` carries ``.put``
-    (numpy batch -> device tensor), ``.put_const`` and ``.n_devices``."""
+    (numpy batch -> device input), ``.put_const``, ``.to_host`` (its output
+    -> numpy) and ``.n_devices``. The plane-sharded step's input is a list
+    of per-entry futures (``.put``) and its output a list of per-entry
+    tensors; read it through ``.to_host``."""
     if dual:
         check_crossover(crossover)
-    device = resolve_device(devices)
+    mesh = resolve_device(devices)
     f32_matmul()
-    consts = constants_from_numpy(plan.constants(), device)
+    if (len(mesh) > 1
+            and plan.height * plan.width * 4 > halo_threshold_bytes()):
+        return _make_halo_step(plan, microscope_high_int, with_flatfield,
+                               mesh, dual, crossover, dual_threshold)
+    if devices is None:
+        mesh = mesh[:1]
+    host = plan.constants()
+    consts = {dev: constants_from_numpy(host, dev)
+              for dev in dict.fromkeys(mesh)}
 
+    def one(images, flat, dark):
+        c = consts[images.device]
+        if dual:
+            blended = dual_band_destripe_batch(
+                plan, images, crossover, dual_threshold, consts=c)
+            if with_flatfield:
+                return flatfield_correction(blended, flat, dark)
+            return wrap_cast(blended)
+        if with_flatfield:
+            return destripe_batch(plan, images, microscope_high_int, c,
+                                  flat=flat, dark=dark)
+        return destripe_batch(plan, images, microscope_high_int, c,
+                              wrap=True)
+
+    if len(mesh) == 1:
+        def step(images, flat, dark):
+            with torch.inference_mode():
+                return one(images, flat, dark)
+
+        step.put = lambda chunk: _host_tensor(chunk).to(mesh[0])
+        step.put_const = step.put
+        step.to_host = lambda res: res.cpu().numpy()
+        step.n_devices = 1
+        return step
+
+    # plane-sharded: entry d takes planes [d b, (d + 1) b) of the batch. The
+    # step launches every entry's share from this thread and never waits on
+    # a device (the plane step makes no host sync), so the devices run their
+    # shares at the same time. The pageable copies in and out hold the host
+    # for their whole length: they run on a copy thread per device (the
+    # step's input is a list of futures of them).
     def step(images, flat, dark):
         with torch.inference_mode():
-            if dual:
-                blended = dual_band_destripe_batch(
-                    plan, images, crossover, dual_threshold, consts=consts)
-                if with_flatfield:
-                    return flatfield_correction(blended, flat, dark)
-                return wrap_cast(blended)
-            if with_flatfield:
-                return destripe_batch(plan, images, microscope_high_int,
-                                      consts, flat=flat, dark=dark)
-            return destripe_batch(plan, images, microscope_high_int, consts,
-                                  wrap=True)
+            return [one(x.result(), f, k)
+                    for x, f, k in zip(images, flat, dark)]
 
     def put(chunk):
-        chunk = np.ascontiguousarray(chunk)
-        with warnings.catch_warnings():
-            # slabs decoded from a store can be read-only; the step only
-            # reads its input, so no copy is needed on the host
-            warnings.simplefilter("ignore", UserWarning)
-            t = torch.from_numpy(chunk)
-        return t.to(device)
+        n = chunk.shape[0]
+        if n % len(mesh):
+            raise ValueError(f"batch {n} is not a multiple of the mesh's "
+                             f"{len(mesh)} entries")
+        b = n // len(mesh)
+        return [_copier(dev).submit(_host_tensor(chunk[d * b:(d + 1) * b]).to,
+                                    dev)
+                for d, dev in enumerate(mesh)]
 
-    step.n_devices = 1
+    def put_const(c):
+        per_dev = {dev: _host_tensor(c).to(dev) for dev in dict.fromkeys(mesh)}
+        return [per_dev[dev] for dev in mesh]
+
+    def to_host(res):
+        host = [_copier(r.device).submit(lambda r=r: r.cpu().numpy())
+                for r in res]
+        return np.concatenate([h.result() for h in host])
+
     step.put = put
-    step.put_const = put
+    step.put_const = put_const
+    step.to_host = to_host
+    step.n_devices = len(mesh)
+    return step
+
+
+_COPIERS: dict = {}
+_COPIERS_LOCK = threading.Lock()
+
+
+def _copier(dev: torch.device) -> ThreadPoolExecutor:
+    """The host thread that copies batches to and from ``dev`` for the
+    plane-sharded step, one per device for the life of the process, so the
+    devices' pageable copies overlap; one device's copies run in the order
+    they were submitted. (Only copies: a thread per device that also
+    launched the step's many small kernels would pass the interpreter lock
+    back and forth at every launch.)"""
+    with _COPIERS_LOCK:
+        pool = _COPIERS.get(dev)
+        if pool is None:
+            init = (dict(initializer=torch.cuda.set_device, initargs=(dev,))
+                    if dev.type == "cuda" else {})
+            pool = _COPIERS[dev] = ThreadPoolExecutor(
+                1, thread_name_prefix=f"destripe-copy-{dev}", **init)
+        return pool
+
+
+def _make_halo_step(plan, microscope_high_int, with_flatfield, mesh,
+                    dual=False, crossover=100.0, dual_threshold=-1.0):
+    """Device step for planes too large for one device: ROWS sharded over
+    the mesh by the row-sharded route (:mod:`..parallel.halo`). Same uint16
+    -> uint16 contract as the plane-sharded step. ``put`` splits each
+    plane's rows evenly over the entries and pads them with zero rows to
+    the mesh multiple; the step reads only the plane's own rows, and
+    ``to_host`` gathers them. ``dual=True`` runs the row-sharded dual-band
+    form (epilogue on the blended rows)."""
+    H, W = plan.height, plan.width
+    consts = halo_device_constants(plan, mesh, notch_blocks=not dual)
+
+    def step(images, flat, dark):
+        epi = (dict(flat=flat, dark=dark) if with_flatfield
+               else dict(wrap=True))
+        with torch.inference_mode():
+            if dual:
+                return dual_band_destripe_y_sharded(
+                    images, mesh, plan, consts, crossover=crossover,
+                    threshold=dual_threshold, **epi)
+            return destripe_y_sharded(
+                images, mesh, plan, consts,
+                microscope_high_int=microscope_high_int, **epi)
+
+    def put_const(c):
+        c = _host_tensor(np.asarray(c, np.float32))
+        if tuple(c.shape[-2:]) == (H, W):  # a field: sharded like the rows
+            return shard_rows(c, mesh, value=1.0)
+        return c.to(mesh[0])
+
+    step.put = lambda chunk: shard_rows(_host_tensor(chunk), mesh)
+    step.put_const = put_const
+    step.to_host = lambda res: res.gather("cpu").numpy()
+    step.n_devices = len(mesh)
+    step.shards_rows = True  # the batch need not divide the mesh; rows do
     return step
 
 
@@ -178,7 +307,7 @@ class _Journal:
 class StreamingDestriper:
     """Drive one tile (3-D or 5-D Zarr array) through the device step.
     ``slab`` is the streamed Z extent, ``prefetch`` the read-ahead depth,
-    ``device_batch`` the planes per dispatch, ``devices`` as in
+    ``device_batch`` the planes per dispatch, ``devices`` the mesh as in
     :func:`resolve_device`."""
 
     def __init__(
@@ -250,7 +379,17 @@ class StreamingDestriper:
             plan, microscope_high_int, self.with_flat, devices=devices,
             dual=dual, crossover=crossover, dual_threshold=dual_threshold,
         )
-        self.device_batch = device_batch
+        # Plane-sharded steps: the batch rounds up to a multiple of the
+        # mesh. The row-sharded step's batch is capped instead, so that one
+        # dispatch's per-device working set stays under
+        # DESTRIPE_HALO_BATCH_BYTES (~8 f32 planes' worth of intermediates
+        # per plane, as the JAX package counts it).
+        n_dev = self._step.n_devices
+        if getattr(self._step, "shards_rows", False):
+            cap = max(1, int(halo_batch_bytes() / (8.0 * h * w * 4 / n_dev)))
+            self.device_batch = max(1, min(device_batch, cap))
+        else:
+            self.device_batch = -(-device_batch // n_dev) * n_dev
         self._flat = self._step.put_const(flat)
         self._dark = self._step.put_const(dark)
         self.io = ThreadPoolExecutor(
@@ -338,16 +477,16 @@ class StreamingDestriper:
             # at most 2 dispatches in flight
             while len(pending) > 2:
                 j, k, res = pending.popleft()
-                outs.append((j, res[:k].cpu().numpy()))
+                outs.append((j, self._step.to_host(res)[:k]))
         while pending:
             j, k, res = pending.popleft()
-            outs.append((j, res[:k].cpu().numpy()))
+            outs.append((j, self._step.to_host(res)[:k]))
         return np.concatenate([o for _, o in outs], axis=0)
 
     # -- main loop ---------------------------------------------------------
 
     def run(self) -> PipelineStats:
-        stats = PipelineStats()
+        stats = PipelineStats(halo=getattr(self._step, "shards_rows", False))
         t_start = time.time()
         Z, H, W = self.zyx
         slabs = [(z0, min(z0 + self.slab, Z)) for z0 in range(0, Z, self.slab)]

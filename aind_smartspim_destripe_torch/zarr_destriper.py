@@ -104,7 +104,7 @@ def compute_pyramid(data, n_lvls: int, scale_axis, chunks="auto",
     """Successive windowed-mean reductions of an in-memory array on
     ``device`` (as in :func:`.runtime.pipeline.resolve_device`). Returns the
     levels, level 0 first. ``chunks`` is accepted for signature parity."""
-    dev = resolve_device(None if device is None else [device])
+    dev = resolve_device(None if device is None else [device])[0]
     levels = [np.asarray(data)]
     factors = tuple(int(s) for s in scale_axis)
     for _ in range(max(0, n_lvls - 1)):
@@ -159,7 +159,7 @@ def compute_multiscale(
     :func:`.runtime.pipeline.resolve_device`). ``n_workers`` and
     ``threads_per_worker`` are accepted for signature parity."""
     logger = logger or logging.getLogger(__name__)
-    dev = resolve_device(None if device is None else [device])
+    dev = resolve_device(None if device is None else [device])[0]
     start_time = time()
 
     # channel metadata follows TCZYX: pad the logical shape to 5-D first
@@ -238,9 +238,14 @@ def destripe_zarr(
 
     ``prediction_chunksize[0]`` sets the streamed Z slab; ``n_workers`` caps
     IO threads (0: auto); ``target_size_mb``, ``super_chunksize`` and
-    ``batch_size`` are accepted for parameter parity. ``devices``: as in
-    :func:`.runtime.pipeline.resolve_device` (None: the current CUDA
-    device).
+    ``batch_size`` are accepted for parameter parity. ``devices``: the
+    mesh, as in :func:`.runtime.pipeline.resolve_device` (None: every
+    visible CUDA device). With more than one entry each batch is sharded
+    over them: planes at or under ``DESTRIPE_HALO_THRESHOLD_BYTES`` over
+    the plane axis, larger planes over the row axis (the row-sharded
+    route, :mod:`.parallel.halo`). With None, planes under the threshold
+    run on the first device alone (:func:`.runtime.pipeline.
+    make_device_step`).
 
     ``parameters["dual_band"]`` (default False) switches from the per-plane
     classifier to the dual-band per-pixel blend, with optional
@@ -251,7 +256,8 @@ def destripe_zarr(
     dual_band = bool(parameters.get("dual_band", False))
     dual_crossover = float(parameters.get("crossover", 100.0))
     dual_threshold = float(parameters.get("dual_threshold", -1.0))
-    device = resolve_device(devices)
+    mesh = resolve_device(devices)
+    device = mesh[0]
 
     co_cpus = int(utils.get_code_ocean_cpu_limit())
     if n_workers > co_cpus:
@@ -259,7 +265,7 @@ def destripe_zarr(
 
     logger = utils.create_logger(output_log_path=str(results_folder))
     logger.info(f"{20 * '='} GPU Large-Scale Zarr Destriping {20 * '='}")
-    logger.info(f"Processing dataset {dataset_path} on {device}")
+    logger.info(f"Processing dataset {dataset_path} on {mesh}")
     logger.info(f"blosc-zstd codec backend: {ensure_native_codec()}")
 
     profiler = ResourceProfiler(interval=20).start()
@@ -371,7 +377,7 @@ def destripe_zarr(
             slab=int(prediction_chunksize[0]) if prediction_chunksize else 64,
             io_threads=n_workers or 0,
             logger=logger,
-            devices=[device],
+            devices=devices,
             dual=dual_band,
             crossover=dual_crossover,
             dual_threshold=dual_threshold,

@@ -9,7 +9,8 @@ Run from the root of a checkout, on a machine with one card:
 Phases, each printing its lines:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
-   the TF32 flags and the blosc-zstd codec backend;
+   the TF32 flags, the blosc-zstd codec backend, and the time to make
+   every visible card's context (once, so the timed runs below start warm);
 2. the build of the CUDA kernels from ``aind_smartspim_destripe_torch/csrc``;
 3. each kernel of the destripe step against its plain PyTorch twin on the
    card, on the same inputs, at the step's shapes for a 64-plane batch of
@@ -31,16 +32,38 @@ Phases, each printing its lines:
    (``DESTRIPE_DUAL_BAND=1``), the launch counts reset just before each run
    and read just after it; every kernel of the path must have launched,
    pyramid levels 1-2 must exist and agree with level 0, and one stored
-   chunk must decode to the data read back; then each device step alone on
-   one resident 64-plane batch (CUDA events, peak device memory);
+   chunk must decode to the data read back (the runs take
+   ``devices=None``: planes this size run on one card;
+   ``scripts/mesh_capsule.py`` holds that against a split over every
+   card); then each device step alone on one resident 64-plane batch
+   (CUDA events, peak device memory);
 5. four sampled planes of each run's level 0 against the port's plain path
    on the CPU, within 1 LSB outside a stated flip budget and at
-   PSNR >= 100 dB.
+   PSNR >= 100 dB;
+6. the multi-device routes on the mesh (every visible card when there are
+   two or more, else two entries on ``cuda:0``; printed on the ``[halo]``
+   line): ``[zmesh]`` the plane-sharded step at 64 x 1600 x 2000 against
+   the single-device step (bit-equal on the entries' own batches, and
+   within the flip budget on the whole batch; both against the CPU plain
+   path on four sampled planes); ``[halo-kernels]`` the
+   row-sharded route's
+   kernel calls against their twins at the route's level-0 and level-1
+   shard shapes of a 16384 x 18000 plane (K1 and K4 on row shards, the
+   per-plane notch product, the histogram with a row bound); ``[slice-halo]``
+   ``run_capsule.run`` on a tile of 4 x 16384 x 18000 uint16 planes with
+   flats and dark, on the mesh, through the row-sharded route (the plane
+   alone passes ``DESTRIPE_HALO_THRESHOLD_BYTES``); ``[step-halo]`` /
+   ``[step-dual-halo]`` the row-sharded step alone on one resident plane,
+   and ``[check-halo]`` / ``[check-dual-halo]`` its output against the
+   single-device plane path on the card, within 1 LSB outside the flip
+   budget at PSNR >= 100 dB.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero; so does a host without CUDA, before any result is printed.
-Z is cut to 128 planes (two slabs) only to keep the run short.
+Z is cut to 128 planes (two slabs) only to keep the run short, and to 4
+planes for the row-sharded tile (the fewest that give pyramid level 2 a
+plane).
 """
 
 import argparse
@@ -51,6 +74,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -71,8 +95,12 @@ EXACT = ("histogram256_batch", "row_median_masked")
 FLIP_BUDGET = 1e-4
 PSNR_MIN = 100.0
 SHAPE = (128, 1600, 2000)
+# The smallest production-routed row-sharded plane: above 1 GiB of f32 (so
+# the row route is taken) and under the dense-x gate of 20067 columns.
+HALO_SHAPE = (4, 16384, 18000)
 BATCH = 64
 SAMPLED = (0, 1, 64, 127)
+ZSAMPLED = (0, 1, 17, 50)  # of the [zmesh] batch: planes of both classes
 CROSSOVER = 100.0
 # The bound of a call: the larger of its bytes (each input read once, each
 # output written once) over the card's memory rate and its arithmetic over
@@ -90,6 +118,9 @@ SOURCE = {
     "row_median_masked": CSRC + "notch.cu",
     "notch_delta": CSRC + "notch.cu",
     "blend_smooth_mix": CSRC + "blend.cu",
+    "an_x_lowpass_chunked": CSRC + "band.cu",
+    "syn_x_exp_chunked": CSRC + "band.cu",
+    "notch_select_chunked": CSRC + "notch.cu",
 }
 REPLACES = {
     "an_x_lowpass_log1p": TPU + "pallas_band.py:178",
@@ -100,8 +131,17 @@ REPLACES = {
     "row_median_masked": TPU + "pallas_median.py:163",
     "notch_delta": TPU + "pallas_notch.py:89",
     "blend_smooth_mix": TPU + "pallas_blend.py:61",
+    "an_x_lowpass_chunked": TPU + "pallas_band.py:727",
+    "syn_x_exp_chunked": TPU + "pallas_band.py:771",
+    "notch_select_chunked": TPU + "pallas_notch.py:244",
 }
+# the wrapper that launches each kernel, where its name differs
+WRAPPER = {"notch_select_chunked": "notch_select"}
 SINGLE = tuple(REPLACES)[:7]  # the kernels of the single-band path
+PLANE = tuple(REPLACES)[:8]  # the kernels of the plane paths
+# the kernels of the row-sharded route (the small bands' tail included)
+HALO = ("an_x_lowpass_chunked", "syn_x_exp_chunked", "notch_select_chunked",
+        "histogram256_batch", "row_median_masked")
 # the wrapped forms, and the histogram of the blend centres (raw uint16)
 DUAL = ("syn_x_exp", "histogram256_batch", "row_median_masked",
         "notch_delta")
@@ -160,7 +200,7 @@ def _bound(nbytes, ops):
 
 
 def _compare(rec, name, lvl, kern, plain, scale=None, ins=(), ops=0.0,
-             library=None):
+             library=None, tag="kernels"):
     """Hold one kernel call against its twin, time both (and ``library``,
     one PyTorch call computing the same function, where there is one),
     bound the call by the bytes of ``ins`` and of its outputs and by its
@@ -186,7 +226,7 @@ def _compare(rec, name, lvl, kern, plain, scale=None, ins=(), ops=0.0,
     library_ms = None if library is None else _time_ms(library)
     ok = err <= tol
     lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
-    print(f"[kernels] {name} level {lvl} out {tuple(got.shape)} "
+    print(f"[{tag}] {name} level {lvl} out {tuple(got.shape)} "
           f"{str(got.dtype).replace('torch.', '')}: max_abs_err "
           f"{err:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'}; "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, "
@@ -410,6 +450,325 @@ def phase_dual_kernels(plan, consts, dev, seed):
     return rec
 
 
+def _sync(mesh):
+    import torch
+
+    for d in dict.fromkeys(mesh):
+        torch.cuda.synchronize(d)
+
+
+
+
+def _gate(got, want):
+    """(max LSB, pixels > 1 LSB, PSNR dB) of uint16 planes against a
+    reference, and whether they pass the flip budget and PSNR floor."""
+    import numpy as np
+
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    flips = int((d > 1).sum())
+    mse = float((d.astype(np.float64) ** 2).mean())
+    psnr = 10 * np.log10(65535.0**2 / mse) if mse else float("inf")
+    ok = flips <= FLIP_BUDGET * d.size and psnr >= PSNR_MIN
+    return int(d.max()), flips, d.size, psnr, ok
+
+
+def phase_zmesh(plan, vol, flat, dark, dev, mesh):
+    """The plane-sharded step on the mesh against the single-device step:
+    bit-equal to one device run on each entry's planes as separate batches
+    (the split itself moves no bit), and against one device on the whole
+    64-plane batch within 1 LSB outside the flip budget at PSNR >= 100 dB
+    (a dense level's folded product rounds by its row count, so batches of
+    other sizes may round otherwise: scripts/batch_stages.py). Both results
+    are held, on the sampled planes, against the plain path on the CPU, a
+    witness independent of the card's GEMMs."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import filter as tf
+    from aind_smartspim_destripe_torch.runtime.pipeline import (
+        make_device_step,
+    )
+
+    b = BATCH // len(mesh)
+    outs, times, syncs = {}, {}, {}
+    for key, devices in (("one", [dev]), ("mesh", mesh)):
+        step = make_device_step(plan, 2500.0, True, devices=devices)
+        if getattr(step, "shards_rows", False) or step.n_devices != len(
+                devices):
+            raise AssertionError("the plane-sharded step was not selected")
+        fields = (step.put_const(flat), step.put_const(dark.astype(
+            np.float32)))
+        images = step.put(vol[:BATCH])
+        step(images, *fields)
+        _sync(devices)
+        # the step must launch every entry's share without waiting on the
+        # host, or the devices would take their turns instead of working at
+        # once: count the synchronising calls made while it launches
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    res = step(images, *fields)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        _sync(devices)
+        times[key] = (time.perf_counter() - t0) * 1e3 / 3
+        syncs[key] = sum("called a synchronizing CUDA operation"
+                         in str(w.message) for w in caught)
+        outs[key] = step.to_host(res)
+        if key == "one":
+            outs["split"] = np.concatenate([
+                step.to_host(step(step.put(vol[d * b:(d + 1) * b]), *fields))
+                for d in range(len(mesh))])
+        del step, fields, images, res
+    same = np.array_equal(outs["mesh"], outs["split"])
+    lsb, flips, n, psnr, ok = _gate(outs["mesh"], outs["one"])
+    print(f"[zmesh] plane-sharded step ({BATCH}, {SHAPE[1]}, {SHAPE[2]}) on "
+          f"{len(mesh)} entries ({b} planes each): "
+          f"{'bit-equal' if same else 'NOT bit-equal'} to one device on "
+          f"{b}-plane batches; against one {BATCH}-plane batch max "
+          f"{lsb} LSB, {flips} pixels > 1 LSB ({flips / n:.2e}, budget "
+          f"{FLIP_BUDGET}), PSNR {psnr:.1f} dB; {times['mesh']:.2f} ms vs "
+          f"{times['one']:.2f} ms (mean of 3 calls, host clock); host "
+          f"syncs while launching: {syncs['mesh']} (one device "
+          f"{syncs['one']})")
+    if not same or not ok:
+        raise AssertionError("[zmesh] the plane-sharded step differs")
+    if syncs["mesh"]:
+        raise AssertionError("[zmesh] the plane-sharded step waits on the "
+                             "host, so its devices take turns")
+    x = torch.from_numpy(vol[list(ZSAMPLED)])
+    with torch.inference_mode():
+        ref = tf.destripe_batch(plan, x, 2500.0, flat=flat,
+                                dark=dark.astype(np.float32)).numpy()
+    for key in ("mesh", "one"):
+        lsb, flips, n, psnr, ok = _gate(outs[key][list(ZSAMPLED)], ref)
+        print(f"[zmesh] {key} planes {ZSAMPLED} vs the plain path on the CPU:"
+              f" max {lsb} LSB, {flips} pixels > 1 LSB ({flips / n:.2e}, "
+              f"budget {FLIP_BUDGET}), PSNR {psnr:.1f} dB (min {PSNR_MIN})")
+        if not ok:
+            raise AssertionError(f"[zmesh] {key} differs from the CPU path")
+
+
+def _shard_rows_max(m, n_dev):
+    """(rows of the largest proportional block, fewest valid rows of a
+    block) when m rows are split over n_dev entries."""
+    r0 = [m * d // n_dev for d in range(n_dev + 1)]
+    sizes = [r0[d + 1] - r0[d] for d in range(n_dev)]
+    return max(sizes), min(sizes)
+
+
+def phase_halo_kernels(hplan, dense, dev, seed, n_dev):
+    """The row-sharded route's kernel calls against their twins at its
+    level-0 and level-1 shard shapes (one plane): K1 and K4 from the band
+    form alone (u16 with log1p at level 0, f32 at level 1; K4 with the
+    flat-field epilogue at level 0, bare at level 1), the per-plane notch
+    product on the cH band shard, and the histogram of that shard with the
+    row bound the route gives it."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import cuda_band as cb
+    from aind_smartspim_destripe_torch.ops import cuda_hist as th
+    from aind_smartspim_destripe_torch.ops import cuda_notch as tn
+    from aind_smartspim_destripe_torch.parallel.halo import _plan_x_blocks
+
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    n = hplan.n_levels
+    H, W = hplan.height, hplan.width
+    (k1, k4), _ = _plan_x_blocks(hplan, dense)
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    def compare(*args, **kwargs):
+        _compare(*args, tag="halo-kernels", **kwargs)
+
+    rec = {name: {} for name in HALO}
+    for lvl in (0, 1):
+        i = n - 1 - lvl
+        # the level's input rows on the largest shard: H split evenly at
+        # level 0, the finest cA band's proportional blocks at level 1
+        rows = (-(-H // n_dev) if lvl == 0
+                else _shard_rows_max(hplan.ladder[n - 1][0], n_dev)[0])
+        a_lo, s_x = put(dense["an_x_lo"][lvl]), put(dense["syn_x_lo"][i])
+        L, w_in = a_lo.shape
+        # K1: level 0 reads the raw planes, level 1 the cA shard
+        if lvl == 0:
+            src = torch.randint(0, 4000, (1, rows, w_in), generator=g,
+                                device=dev, dtype=torch.int32).to(
+                                    torch.uint16)
+        else:
+            src = torch.rand((1, rows, w_in), generator=g,
+                             device=dev) * 3 + 5
+        st1, cf1 = put(k1[lvl]["start"]), put(k1[lvl]["coef"])
+        log1p = lvl == 0
+        compare(rec, "an_x_lowpass_chunked", lvl,
+                lambda: cb.an_x_lowpass_chunked(src, None, st1, cf1, log1p),
+                lambda: cb.an_x_lowpass_log1p_plain(src, a_lo, log1p),
+                ins=(src, st1, cf1),
+                ops=2.0 * cf1.shape[1] * src.shape[1] * L
+                + (3.0 * src.numel() if log1p else 0.0),
+                library=None if log1p else (
+                    lambda: torch.matmul(src, a_lo.t())))
+        # K4: the y-synthesised correction shard of this level
+        st4, cf4 = put(k4[i]["start"]), put(k4[i]["coef"])
+        stacked = torch.randn((1, rows, L), generator=g,
+                              device=dev) * 0.01
+        img = epi = None
+        kw = {}
+        if lvl == 0:
+            img = src
+            flat = 1.0 + 0.2 * torch.rand((rows, w_in), generator=g,
+                                          device=dev)
+            kw = dict(flat=flat, dark=torch.full_like(flat, 3.0))
+            epi = tuple(kw.values())
+        compare(rec, "syn_x_exp_chunked", lvl,
+                lambda: cb.syn_x_exp_chunked(stacked, img, None, st4, cf4,
+                                             **kw),
+                lambda: cb.syn_x_exp_plain(stacked, img, s_x, **kw),
+                ins=(stacked, img, st4, cf4, epi),
+                ops=(2.0 * cf4.shape[1] + (8.0 if img is not None else 0.0))
+                * rows * w_in,
+                library=None if img is not None else (
+                    lambda: torch.matmul(stacked, s_x.t())))
+        del src, stacked, img, epi, kw, a_lo, s_x
+        # the cH band shard of this level: the notch product, the histogram
+        h_b, w_b = hplan.ladder[i]
+        rows_b, bound = _shard_rows_max(h_b, n_dev)
+        ch = torch.randn((1, rows_b, w_b), generator=g, device=dev) * 0.5
+        bank = put(dense["notch_cat"][i])
+        sel = torch.ones(1, dtype=torch.int32, device=dev)
+        compare(rec, "notch_select_chunked", lvl,
+                lambda: tn.notch_select(ch, sel, bank),
+                lambda: tn.notch_select_plain(ch, sel, bank),
+                scale=ch.abs().max().item(), ins=(ch, sel, bank[:, w_b:]),
+                ops=2.0 * rows_b * w_b * w_b,
+                library=lambda: torch.matmul(ch, bank[:, w_b:]))
+        a = ch[:, :bound].abs()
+        lo = a.amin(dim=(1, 2)) ** 2
+        span = a.amax(dim=(1, 2)) ** 2 - lo
+        del a
+        compare(rec, "histogram256_batch", lvl,
+                lambda: th.histogram256_batch(ch, lo, span, square=True,
+                                              row_bound=bound),
+                lambda: th.histogram256_batch_plain(ch, lo, span,
+                                                    square=True,
+                                                    row_bound=bound),
+                ins=(ch[:, :bound], lo, span), ops=5.0 * bound * w_b)
+        rec["histogram256_batch"][lvl]["row_bound"] = [bound, rows_b]
+        del ch, bank
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return rec
+
+
+def halo_capsule(work, dev, seed):
+    """A synthetic capsule of one tile of HALO_SHAPE uint16 planes with
+    flats and dark (every other plane bright, as the cells branch)."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    Z, H, W = HALO_SHAPE
+    z = torch.arange(Z, device=dev)[:, None, None]
+    vol = torch.where(z % 2 == 1, 3000.0, 280.0) + torch.randn(
+        (Z, H, 1), generator=g, device=dev) * 50
+    vol = vol + torch.randn((Z, H, W), generator=g, device=dev) * 8
+    vol = vol.clamp_(0, 65535).to(torch.int32).cpu().numpy().astype(np.uint16)
+    yy = np.linspace(-1, 1, H, dtype=np.float32)[:, None]
+    xx = np.linspace(-1, 1, W, dtype=np.float32)[None, :]
+    flats = [(1.0 + 0.25 * side + 0.3 * (xx * xx + yy * yy) / 2).astype(
+        np.float32) for side in (0, 1)]
+    dark = (3 + (np.arange(W) % 3)[None, :] * np.ones((H, 1))).astype(
+        np.uint16)
+    t0 = time.perf_counter()
+    data, results, tile = build_capsule(work, vol, flats, dark)
+    print(f"[capsule] synthetic tile {HALO_SHAPE} uint16 written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return vol, flats[0], dark, data, results, tile
+
+
+def step_check_halo(tag, plan, vol, flat, dark, dev, mesh, dual=False):
+    """The row-sharded step alone on one resident plane (host clock around
+    synchronised calls, peak device memory), then its output against the
+    single-device plane path on the card: within 1 LSB outside the flip
+    budget, PSNR >= 100 dB."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch.runtime.pipeline import (
+        make_device_step,
+    )
+
+    _, H, W = HALO_SHAPE
+    outs = []
+    for devices in (mesh, [dev]):
+        step = make_device_step(plan, 2500.0, True, devices=devices,
+                                dual=dual, crossover=CROSSOVER)
+        if getattr(step, "shards_rows", False) != (len(devices) > 1):
+            raise AssertionError(f"{tag}: the wrong route was selected")
+        args = (step.put(vol[:1]), step.put_const(flat),
+                step.put_const(dark.astype(np.float32)))
+        res = step(*args)
+        _sync(devices)
+        if len(devices) > 1:
+            del res
+            torch.cuda.empty_cache()
+            for d in dict.fromkeys(devices):
+                torch.cuda.reset_peak_memory_stats(d)
+            reps = 3
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                res = step(*args)
+            _sync(devices)
+            ms = (time.perf_counter() - t0) * 1e3 / reps
+            peak = max(torch.cuda.max_memory_allocated(d)
+                       for d in dict.fromkeys(devices))
+            mode = "dual-band blend, " if dual else ""
+            print(f"[step-{tag}] row-sharded step (1, {H}, {W}) uint16 -> "
+                  f"uint16 on {len(devices)} entries, {mode}flat-field "
+                  f"epilogue: {ms:.1f} ms per plane = {H * W / 1e3 / ms:.1f} "
+                  f"MPix/s; peak device memory {peak / 2**30:.2f} GiB")
+        outs.append(step.to_host(res))
+        del step, args, res
+        torch.cuda.empty_cache()
+    d = np.abs(outs[0].astype(np.int64) - outs[1].astype(np.int64))
+    flips = int((d > 1).sum())
+    mse = float((d.astype(np.float64) ** 2).mean())
+    psnr = 10 * np.log10(65535.0**2 / mse) if mse else float("inf")
+    print(f"[check-{tag}] row-sharded step vs the single-device plane path "
+          f"on the card: max {int(d.max())} LSB, {flips} pixels > 1 LSB "
+          f"({flips / d.size:.2e}, budget {FLIP_BUDGET}), PSNR {psnr:.1f} dB "
+          f"(min {PSNR_MIN})")
+    if flips > FLIP_BUDGET * d.size or psnr < PSNR_MIN:
+        raise AssertionError(f"check-{tag}: the row-sharded step disagrees")
+
+
+def synthetic_tile(dev, seed):
+    """The plane paths' tile: SHAPE uint16 planes (every 4th one bright
+    with cells, each with a random row profile and pixel noise), the two
+    sides' flat-fields and the dark frame, made on the card from ``seed``."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    Z, H, W = SHAPE
+    z = torch.arange(Z, device=dev)[:, None, None]
+    base = torch.where(z % 4 == 1, 3000.0, 280.0)  # every 4th plane: cells
+    vol = base + torch.randn((Z, H, 1), generator=g, device=dev) * 50
+    vol = vol + torch.randn((Z, H, W), generator=g, device=dev) * 8
+    vol = vol.clamp_(0, 65535).to(torch.int32).cpu().numpy().astype(np.uint16)
+    yy = np.linspace(-1, 1, H, dtype=np.float32)[:, None]
+    xx = np.linspace(-1, 1, W, dtype=np.float32)[None, :]
+    flats = [(1.0 + 0.25 * side + 0.3 * (xx * xx + yy * yy) / 2).astype(
+        np.float32) for side in (0, 1)]
+    dark = (3 + (np.arange(W) % 3)[None, :] * np.ones((H, 1))).astype(np.uint16)
+    return vol, flats, dark
+
+
 def build_capsule(base: Path, vol, flat_sides, dark):
     """The capsule input layout of tests/test_run_capsule_e2e.py."""
     from aind_smartspim_destripe_torch.io import group, imsave
@@ -441,7 +800,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -469,6 +827,15 @@ def main(argv=None):
           f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
     print(f"[env] blosc-zstd codec backend: {ensure_native_codec()}")
+    # each card's context and GEMM handle, made once per process here, so
+    # that the runs below time the same warm work on one card and on many
+    t0 = time.perf_counter()
+    for d in range(torch.cuda.device_count()):
+        a = torch.ones((64, 64), device=f"cuda:{d}")
+        torch.matmul(a, a)
+        torch.cuda.synchronize(d)
+    print(f"[env] {torch.cuda.device_count()} card(s) initialised in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     # -- 2. kernel build --------------------------------------------------
     t0 = time.perf_counter()
@@ -477,8 +844,8 @@ def main(argv=None):
     regs = {}
     for part in cuda_build.kernel_library.build_log.split(
             "Compiling entry function")[1:]:
-        fn = re.search(r"(k[1-4]|hist|row_median|notch|blend)_kernel"
-                       r"(ILb([01]))?", part)  # notch: <false> / <true>
+        fn = re.search(r"(k[1-4]|hist|row_median|notch|notch_select|blend)"
+                       r"_kernel(ILb([01]))?", part)  # notch: <false>/<true>
         n = re.search(r"Used (\d+) registers", part)
         spill = re.search(r"(\d+) bytes spill stores", part)
         if fn and n:
@@ -507,18 +874,7 @@ def main(argv=None):
     # -- 4. the main paths: run_capsule.run on the card --------------------
     work = ROOT / "build" / "smoke_capsule"
     shutil.rmtree(work, ignore_errors=True)
-    g = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    Z, H, W = SHAPE
-    z = torch.arange(Z, device=dev)[:, None, None]
-    base = torch.where(z % 4 == 1, 3000.0, 280.0)  # every 4th plane: cells
-    vol = base + torch.randn((Z, H, 1), generator=g, device=dev) * 50
-    vol = vol + torch.randn((Z, H, W), generator=g, device=dev) * 8
-    vol = vol.clamp_(0, 65535).to(torch.int32).cpu().numpy().astype(np.uint16)
-    yy = np.linspace(-1, 1, H, dtype=np.float32)[:, None]
-    xx = np.linspace(-1, 1, W, dtype=np.float32)[None, :]
-    flats = [(1.0 + 0.25 * side + 0.3 * (xx * xx + yy * yy) / 2).astype(
-        np.float32) for side in (0, 1)]
-    dark = (3 + (np.arange(W) % 3)[None, :] * np.ones((H, 1))).astype(np.uint16)
+    vol, flats, dark = synthetic_tile(dev, args.seed)
     t0 = time.perf_counter()
     data, results, tile = build_capsule(work, vol, flats, dark)
     print(f"[capsule] synthetic tile {SHAPE} uint16 written in "
@@ -532,8 +888,7 @@ def main(argv=None):
     results_dual.mkdir()
     os.environ["DESTRIPE_DUAL_BAND"] = "1"
     try:
-        launches_dual = run_path("slice-dual", data, results_dual,
-                                 tuple(REPLACES))
+        launches_dual = run_path("slice-dual", data, results_dual, PLANE)
     finally:
         del os.environ["DESTRIPE_DUAL_BAND"]
     lvl0_dual = check_store(results_dual, tile)
@@ -545,27 +900,64 @@ def main(argv=None):
                  dual=True)
     shutil.rmtree(work, ignore_errors=True)
 
+    # -- 6. the multi-device routes ----------------------------------------
+    n_cards = torch.cuda.device_count()
+    mesh = ([torch.device("cuda", i) for i in range(n_cards)]
+            if n_cards >= 2 else [dev, dev])
+    print(f"[halo] mesh {[str(d) for d in mesh]} ({n_cards} card(s) "
+          f"visible)")
+    phase_zmesh(plan, vol, flats[0], dark, dev, mesh)
+    del vol
+    hplan = tf.build_plan(HALO_SHAPE[1], HALO_SHAPE[2],
+                          tf.FilterConfig.from_dict(cfg["cells_config"]),
+                          tf.FilterConfig.from_dict(cfg["no_cells_config"]))
+    t0 = time.perf_counter()
+    hdense = hplan.constants(dense_only=True)
+    print(f"[halo] plan {HALO_SHAPE[1:]}: {hplan.n_levels} levels, dense "
+          f"operators built on the host in {time.perf_counter() - t0:.1f} s")
+    hrec = phase_halo_kernels(hplan, hdense, dev, args.seed, len(mesh))
+    del hdense
+    work_halo = ROOT / "build" / "smoke_capsule_halo"
+    shutil.rmtree(work_halo, ignore_errors=True)
+    try:
+        hvol, hflat, hdark, hdata, hresults, htile = halo_capsule(
+            work_halo, dev, args.seed)
+        launches_halo = run_path("slice-halo", hdata, hresults, HALO,
+                                 shape=HALO_SHAPE, devices=mesh)
+        check_store(hresults, htile, HALO_SHAPE)
+    finally:
+        shutil.rmtree(work_halo, ignore_errors=True)
+    step_check_halo("halo", hplan, hvol, hflat, hdark, dev, mesh)
+    step_check_halo("dual-halo", hplan, hvol, hflat, hdark, dev, mesh,
+                    dual=True)
+
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err", "shape")
     kernels = []
     for name in REPLACES:
-        main = rec[name] or drec[name]
+        recs = [r[name] for r in (rec, drec, hrec) if r.get(name)]
+        main = recs[0]
         entry = {
             "name": name,
             "route": "cuda",
             "source": SOURCE[name],
             "replaces": REPLACES[name],
-            "launches": (launches if name in SINGLE else launches_dual)[name],
+            "launches": (launches if name in SINGLE else launches_dual
+                         if name in PLANE else launches_halo)[name],
             "launches_dual": launches_dual[name],
-            "max_abs_err": max(r["max_abs_err"] for r in
-                               list(rec[name].values())
-                               + list(drec[name].values())),
+            "launches_halo": launches_halo[name],
+            "max_abs_err": max(v["max_abs_err"] for r in recs
+                               for v in r.values()),
             **{k: main[0][k] for k in keys if k != "max_abs_err"},
         }
-        if 1 in rec[name]:
-            entry["level1"] = {k: rec[name][1][k] for k in keys}
+        if 1 in main:
+            entry["level1"] = {k: main[1][k] for k in keys}
         if name in DUAL:
             entry["dual"] = {k: drec[name][0][k] for k in keys}
+        if name == "histogram256_batch":
+            entry["row_bound"] = {
+                f"level{lvl}": {k: r[k] for k in keys + ("row_bound",)}
+                for lvl, r in hrec[name].items()}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -573,22 +965,27 @@ def main(argv=None):
     return 0
 
 
-def run_path(tag, data, results, path_kernels):
-    """One run_capsule.run on the card, launch counts reset just before it
-    and read just after; raises unless every kernel of the path launched."""
+def run_path(tag, data, results, path_kernels, shape=SHAPE, devices=None):
+    """One run_capsule.run on ``devices`` (None: every visible card),
+    launch counts reset just before it and read just after; raises unless
+    every kernel of the path launched."""
     import torch
 
     from aind_smartspim_destripe_torch import ops, run_capsule
 
-    Z, H, W = SHAPE
+    Z, H, W = shape
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run_capsule.run(data_folder=str(data), results_folder=str(results),
-                    scratch_folder=str(results.parent / "scratch"))
-    torch.cuda.synchronize()
+                    scratch_folder=str(results.parent / "scratch"),
+                    devices=devices)
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
     secs = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in ops.kernels()}
+    by_wrapper = {k.__name__: k.launches for k in ops.kernels()}
+    launches = {name: by_wrapper[WRAPPER.get(name, name)]
+                for name in REPLACES}
     log = "".join(p.read_text() for p in results.glob("destripe_log_*.log"))
     piped = re.findall(r"pipeline done: .*", log)
     print(f"[{tag}] run_capsule.run: {Z * H * W / 1e6:.1f} MPix in "
@@ -600,7 +997,7 @@ def run_path(tag, data, results, path_kernels):
     return launches
 
 
-def check_store(results, tile):
+def check_store(results, tile, shape=SHAPE):
     """Levels 0-2 of the output tile, level 1 against level 0, and one
     stored chunk decoded by the store's own codec; returns level 0."""
     import numpy as np
@@ -609,13 +1006,13 @@ def check_store(results, tile):
     from aind_smartspim_destripe_torch.io import open_zarr
     from aind_smartspim_destripe_torch.ops.multiscale import windowed_mean
 
-    Z, H, W = SHAPE
+    Z, H, W = shape
     tile_group = open_zarr(str(results / "destriped_data" / "Ex_488_Em_525"
                                / f"{tile}.zarr"))
     if set(tile_group.keys()) != {"0", "1", "2"}:
         raise AssertionError(f"pyramid levels {sorted(tile_group.keys())}")
     lvl0 = tile_group["0"]
-    if tuple(lvl0.shape) != (1, 1) + SHAPE or lvl0.dtype != np.uint16:
+    if tuple(lvl0.shape) != (1, 1) + shape or lvl0.dtype != np.uint16:
         raise AssertionError(f"level 0 {lvl0.shape} {lvl0.dtype}")
     head = np.asarray(lvl0[0, 0, 0:4])
     want1 = windowed_mean(torch.from_numpy(head)).numpy()
@@ -630,10 +1027,12 @@ def check_store(results, tile):
     frame = (Path(lvl0.path) / key).read_bytes()
     if frame[2] >> 5 & 7 != 4:
         raise AssertionError(f"chunk {key} is not a blosc-zstd frame")
-    region = tuple(slice(0, c) for c in lvl0.chunks)
+    # the first chunk's region (an edge chunk is stored padded)
+    region = tuple(slice(0, min(c, n)) for c, n in zip(lvl0.chunks,
+                                                      lvl0.shape))
     chunk = np.frombuffer(lvl0.codec.decode(frame), np.uint16).reshape(
         lvl0.chunks)
-    if not np.array_equal(chunk, np.asarray(lvl0[region])):
+    if not np.array_equal(chunk[region], np.asarray(lvl0[region])):
         raise AssertionError(f"chunk {key} decodes to other data")
     print(f"[store] chunk {key} {tuple(lvl0.chunks)}: blosc-zstd frame of "
           f"{len(frame)} bytes ({chunk.nbytes / len(frame):.2f}x) decodes "

@@ -12,7 +12,9 @@ a few ulps of the operands: 1e-5 of the largest operand magnitude. uint16
 outputs: 1 LSB (a value on a rounding boundary). Classifier sums, histogram
 counts and row medians: exact. The blend: 1e-5 of the bands' magnitude
 (the kernel and its twin round the same operations; expf may differ by an
-ulp).
+ulp). The row-sharded step against the plane path: 1 LSB outside a 1e-4
+flip budget (the same Otsu and mask decisions on the same coefficients,
+summed in another order).
 """
 
 import numpy as np
@@ -31,6 +33,8 @@ from aind_smartspim_destripe_torch.ops import filter as tf  # noqa: E402
 F32_RTOL = 1e-5
 
 pytestmark = pytest.mark.cuda
+# the kernels only the row-sharded route launches
+HALO = (cb.an_x_lowpass_chunked, cb.syn_x_exp_chunked, tn.notch_select)
 
 
 @pytest.fixture(scope="module")
@@ -173,7 +177,8 @@ def test_card_destripe_batch_matches_cpu(card, epilogue):
     tops.reset_launches()
     got = tf.destripe_batch(plan, torch.from_numpy(x).to(card), 2500.0,
                             **kw).cpu().numpy()
-    single = [k for k in tops.kernels() if k is not tbl.blend_smooth_mix]
+    single = [k for k in tops.kernels()
+              if k is not tbl.blend_smooth_mix and k not in HALO]
     assert all(k.launches > 0 for k in single)
     want = tf.destripe_batch(plan, torch.from_numpy(x), 2500.0, **kw).numpy()
     d = np.abs(got.astype(np.int64) - want.astype(np.int64))
@@ -241,8 +246,119 @@ def test_card_dual_band_matches_cpu(card):
     tops.reset_launches()
     got = tdb.dual_band_destripe_batch(plan, torch.from_numpy(x).to(card),
                                        100.0, -1.0).cpu().numpy()
-    assert all(k.launches > 0 for k in tops.kernels())
+    assert all(k.launches > 0 for k in tops.kernels() if k not in HALO)
     want = tdb.dual_band_destripe_batch(plan, torch.from_numpy(x), 100.0,
                                         -1.0).numpy()
     d = np.abs(got.astype(np.float64) - want)
     assert (d > 1).mean() <= 1e-4, f"{(d > 1).mean():.2%} flipped"
+
+
+def test_card_halo_kernels_match_twins(card):
+    """The row-sharded route's kernel calls against their twins: K1 and K4
+    on a row shard from the band form alone (u16 with log1p, f32 without;
+    bare and flat-field), the per-plane notch product with mixed operator
+    choices, and the histogram with a row bound that cuts a shard's pad
+    rows (exact integer counts)."""
+    ops = _ops((1024, 2048), 0, card)
+    g = torch.Generator(device="cpu").manual_seed(31)
+    rows, w = 517, 2048
+    L = ops["an_x_lo"].shape[0]
+    x = torch.randint(0, 4000, (1, rows, w), generator=g).to(
+        torch.uint16).to(card)
+    for src, log1p in ((x, True), (x.to(torch.float32).log1p(), False)):
+        got = cb.an_x_lowpass_chunked(src, None, ops["k1_start"],
+                                      ops["k1_coef"], log1p=log1p)
+        _close(got, cb.an_x_lowpass_log1p_plain(src, ops["an_x_lo"], log1p))
+    st = (torch.randn((1, rows, L), generator=g) * 0.01).to(card)
+    flat = (1.0 + 0.2 * torch.rand((rows, w), generator=g)).to(card)
+    dark = torch.full((rows, w), 3.0, device=card)
+    for img, kw in ((None, {}), (x, dict(flat=flat, dark=dark))):
+        got = cb.syn_x_exp_chunked(st, img, None, ops["k4_start"],
+                                   ops["k4_coef"], **kw)
+        _close(got, cb.syn_x_exp_plain(st, img, ops["syn_x_lo"], **kw))
+    ch = (torch.randn((3, 259, 1026), generator=g) * 0.3).to(card)
+    bank = (torch.randn((1026, 2052), generator=g) / 1026**0.5).to(card)
+    sel = torch.tensor([1, 0, 1], dtype=torch.int32, device=card)
+    _close(tn.notch_select(ch, sel, bank), tn.notch_select_plain(ch, sel, bank),
+           scale=ch.abs().max().item())
+    a = ch.abs()[:, :200]
+    lo = a.amin(dim=(1, 2)) ** 2
+    span = a.amax(dim=(1, 2)) ** 2 - lo
+    got = th.histogram256_batch(ch, lo, span, square=True, row_bound=200)
+    want = th.histogram256_batch_plain(ch, lo, span, square=True,
+                                       row_bound=200)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert int(got.sum()) == 3 * 200 * 1026
+
+
+@pytest.mark.parametrize("dual", [False, True])
+def test_card_halo_step_matches_plane_path(card, dual, monkeypatch):
+    """The row-sharded step on a two-entry mesh of one card (the byte
+    threshold lowered so a 1024 x 2048 plane takes the route) against the
+    single-device plane path on the card: within 1 LSB apart from threshold
+    flips (budget 1e-4 of the pixels)."""
+    from aind_smartspim_destripe_torch.runtime.pipeline import (
+        make_device_step,
+    )
+
+    monkeypatch.setenv("DESTRIPE_HALO_THRESHOLD_BYTES", "1024")
+    h, w = 1024, 2048
+    plan = tf.build_plan(h, w, tf.FilterConfig(wavelet="db3", sigma=64,
+                                               max_threshold=3),
+                         tf.FilterConfig(wavelet="db3", sigma=128,
+                                         max_threshold=12))
+    rng = np.random.default_rng(23)
+    x = np.clip(300 + rng.normal(size=(2, h, 1)) * 50
+                + rng.normal(size=(2, h, w)) * 10
+                + np.array([0, 2800])[:, None, None], 0, 65535).astype(
+        np.uint16)
+    flat = (1.0 + 0.2 * rng.random((h, w))).astype(np.float32)
+    dark = np.full((h, w), 3.0, np.float32)
+    outs = []
+    for mesh in ([card, card], [card]):
+        step = make_device_step(plan, 2500.0, True, devices=mesh, dual=dual)
+        assert getattr(step, "shards_rows", False) == (len(mesh) == 2)
+        tops.reset_launches()
+        outs.append(step.to_host(step(step.put(x), step.put_const(flat),
+                                      step.put_const(dark))))
+        if len(mesh) == 2:
+            assert cb.an_x_lowpass_chunked.launches > 0
+            assert cb.syn_x_exp_chunked.launches > 0
+            assert tn.notch_select.launches > 0
+            assert th.histogram256_batch.launches > 0
+            assert tn.row_median_masked.launches > 0
+    d = np.abs(outs[0].astype(np.int64) - outs[1].astype(np.int64))
+    assert (d > 1).mean() <= 1e-4, f"{(d > 1).mean():.2%} flipped"
+
+
+@pytest.mark.parametrize("dual", [False, True])
+def test_card_plane_step_never_waits_on_host(card, dual):
+    """The plane step launches its whole batch without one synchronising
+    call, so a plane-sharded step's devices work at once rather than in
+    turn (torch's sync debug mode raises at any such call)."""
+    from aind_smartspim_destripe_torch.runtime.pipeline import (
+        make_device_step,
+    )
+
+    h, w = 1024, 2048
+    plan = tf.build_plan(h, w, tf.FilterConfig(wavelet="db3", sigma=64,
+                                               max_threshold=3),
+                         tf.FilterConfig(wavelet="db3", sigma=128,
+                                         max_threshold=12))
+    rng = np.random.default_rng(29)
+    x = np.clip(300 + rng.normal(size=(2, h, w)) * 10
+                + np.array([0, 2800])[:, None, None], 0, 65535).astype(
+        np.uint16)
+    flat = (1.0 + 0.2 * rng.random((h, w))).astype(np.float32)
+    step = make_device_step(plan, 2500.0, True, devices=[card, card],
+                            dual=dual)
+    imgs = step.put(x)
+    fields = (step.put_const(flat), step.put_const(np.ones_like(flat)))
+    step(imgs, *fields)  # first call: kernel build and GEMM handles
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = step(imgs, *fields)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert step.to_host(res).shape == x.shape

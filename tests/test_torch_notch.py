@@ -53,7 +53,7 @@ def test_histogram_matches_pallas(square, dtype, shape):
         interpret=True))
     got = th.histogram256_batch(torch.from_numpy(x), torch.from_numpy(lo),
                                 torch.from_numpy(span), square=square)
-    assert got.dtype == torch.float32 and got.shape == (shape[0], 256)
+    assert got.dtype == torch.int32 and got.shape == (shape[0], 256)
     np.testing.assert_array_equal(got.numpy(), want)
     assert np.all(got.numpy().sum(1) == np.prod(shape[1:]))
 
@@ -123,8 +123,9 @@ def test_filter_level_delta_goes_through_notch_delta(notch_case, monkeypatch):
 def test_registry_lists_every_kernel():
     names = [k.__name__ for k in tops.kernels()]
     assert names == ["an_x_lowpass_log1p", "an_y_pass", "syn_y_pass",
-                     "syn_x_exp", "histogram256_batch", "row_median_masked",
-                     "notch_delta", "blend_smooth_mix"]
+                     "syn_x_exp", "an_x_lowpass_chunked", "syn_x_exp_chunked",
+                     "histogram256_batch", "row_median_masked",
+                     "notch_delta", "notch_select", "blend_smooth_mix"]
     tops.reset_launches()
     assert all(k.launches == 0 for k in tops.kernels())
 
@@ -136,3 +137,5 @@ def test_wrappers_refuse_other_devices():
         th.histogram256_batch(x, t, t)
     with pytest.raises(ValueError, match="no kernel or plain route"):
         tn.row_median_masked(x, t)
+    with pytest.raises(ValueError, match="no kernel or plain route"):
+        tn.notch_select(x, t, t)

@@ -103,9 +103,9 @@ def test_second_run_resumes_through_journal(capsule, monkeypatch):
 
 
 def test_subprocess_run_never_imports_jax(tmp_path):
-    """Every module of the port imported, and the CPU capsule run, in a
-    fresh interpreter: neither jax nor any module of the JAX package is
-    loaded."""
+    """Every module of the port imported (``parallel.*`` included), and
+    the CPU capsule run, in a fresh interpreter: neither jax nor any module
+    of the JAX package is loaded."""
     data, results = build_capsule(tmp_path)
     code = (
         "import importlib, pkgutil, sys, torch\n"
@@ -114,6 +114,8 @@ def test_subprocess_run_never_imports_jax(tmp_path):
         "pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        "assert {'aind_smartspim_destripe_torch.parallel.halo', "
+        "'aind_smartspim_destripe_torch.parallel.mesh'} <= set(names)\n"
         "from aind_smartspim_destripe_torch import run_capsule\n"
         f"run_capsule.run({str(data)!r}, {str(results)!r}, "
         f"{str(tmp_path / 'scratch')!r}, devices=[torch.device('cpu')])\n"
@@ -131,9 +133,17 @@ def test_subprocess_run_never_imports_jax(tmp_path):
 
 
 def test_device_resolution(monkeypatch):
-    assert pipeline.resolve_device(CPU) == torch.device("cpu")
-    with pytest.raises(NotImplementedError):
-        pipeline.resolve_device(CPU * 2)
+    assert pipeline.resolve_device(CPU) == [torch.device("cpu")]
+    assert pipeline.resolve_device(CPU * 2) == [torch.device("cpu")] * 2
+    assert pipeline.resolve_device(["cpu", "cuda:1"]) == [
+        torch.device("cpu"), torch.device("cuda", 1)]
+    with pytest.raises(ValueError, match="no device"):
+        pipeline.resolve_device([])
+    # None: every visible CUDA device, as the JAX package takes every chip
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    assert pipeline.resolve_device(None) == [
+        torch.device("cuda", i) for i in range(3)]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pipeline.resolve_device(None)
