@@ -3,6 +3,8 @@
 //
 // Replaces the Pallas TPU kernels
 //   destripe_row_median   <- aind_smartspim_destripe_tpu/ops/pallas_median.py:row_median_masked
+//   destripe_row_median_batch
+//                         <- aind_smartspim_destripe_tpu/ops/pallas_median.py:row_median_batch
 //   destripe_notch        <- aind_smartspim_destripe_tpu/ops/pallas_notch.py:notch_delta
 //   destripe_notch_select <- aind_smartspim_destripe_tpu/ops/pallas_notch.py:notch_select_chunked
 //
@@ -41,6 +43,15 @@
 // of 8 bits, counts in a shared-memory histogram with integer atomics),
 // once for odd rows and twice for even rows, whose two middle values are
 // averaged as (v1 + v2) * 0.5 in f32, as the plain twin and numpy do.
+// The select is templated on the mask, as the TPU kernel's _make_kernel is:
+// destripe_row_median_batch runs its unmasked instance, which reads no
+// threshold and makes no stripe compare, one block per row of the flattened
+// (rows, n) input with the rows on grid.x (grid.y stops at 65535 blocks).
+// Keys are the float's bits in IEEE order, so NaN sorts above +inf and -0.0
+// below +0.0 (equal values, distinct keys). Both medians are bound by their
+// bytes (each value read once, one float written per row); the select reads
+// the row once per 8-bit pass (4 or 8 passes), from L2 for rows of this
+// size, which a later PR can keep in shared memory instead.
 //
 // Every entry point launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
@@ -65,8 +76,10 @@ __device__ __forceinline__ bool stripe(float v, float t) {
   return __fsqrt_rn(__fmul_rn(v, v)) > t;
 }
 
-// Key of the k-th smallest (0-based) of the row's w values, the masked ones
-// read as 0. Every thread of the block calls it and gets the result.
+// Key of the k-th smallest (0-based) of the row's w values, with kMasked
+// the ones over t read as 0. Every thread of the block calls it and gets the
+// result.
+template <bool kMasked>
 __device__ unsigned int select_kth(const float* __restrict__ row, int w,
                                    float t, unsigned int k,
                                    unsigned int* hist, unsigned int* pick) {
@@ -77,7 +90,9 @@ __device__ unsigned int select_kth(const float* __restrict__ row, int w,
     __syncthreads();
     for (int i = tid; i < w; i += blockDim.x) {
       float v = row[i];
-      if (stripe(v, t)) v = 0.0f;
+      if constexpr (kMasked) {
+        if (stripe(v, t)) v = 0.0f;
+      }
       const unsigned int key = sort_key(v);
       if ((key & pmask) == prefix) {
         atomicAdd(hist + ((key >> shift) & 255u), 1u);
@@ -129,14 +144,33 @@ __global__ void row_median_kernel(const float* __restrict__ x,
   const float* row = x + ((size_t)(b % n_in) * h + r) * w;
   const float t = thr[b];
   const unsigned int k1 = (w - 1) / 2, k2 = w / 2;
-  const float v1 = key_float(select_kth(row, w, t, k1, hist, pick));
+  const float v1 = key_float(select_kth<true>(row, w, t, k1, hist, pick));
   float m = v1;
   if (k2 != k1) {
     const float v2 =
-        key_float(select_kth(row, w, t, k2, hist, pick));
+        key_float(select_kth<true>(row, w, t, k2, hist, pick));
     m = __fmul_rn(__fadd_rn(v1, v2), 0.5f);
   }
   if (threadIdx.x == 0) med[(size_t)b * h + r] = m;
+}
+
+// med[r] = median of row r of the (rows, n) input, unmasked.
+__global__ void row_median_batch_kernel(const float* __restrict__ x,
+                                        float* __restrict__ med, int n) {
+  __shared__ unsigned int hist[256];
+  __shared__ unsigned int pick[2];
+  const size_t r = blockIdx.x;
+  const float* row = x + r * n;
+  const unsigned int k1 = (n - 1) / 2, k2 = n / 2;
+  const float v1 =
+      key_float(select_kth<false>(row, n, 0.0f, k1, hist, pick));
+  float m = v1;
+  if (k2 != k1) {
+    const float v2 =
+        key_float(select_kth<false>(row, n, 0.0f, k2, hist, pick));
+    m = __fmul_rn(__fadd_rn(v1, v2), 0.5f);
+  }
+  if (threadIdx.x == 0) med[r] = m;
 }
 
 // Tile shape of the notch GEMM: a block of 256 threads computes a 128 x 64
@@ -307,6 +341,15 @@ int destripe_row_median(const float* x, const float* thr, float* med,
   row_median_kernel<<<dim3(h, n_out), threads, 0,
                       static_cast<cudaStream_t>(stream)>>>(x, thr, med, n_in,
                                                            h, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (rows, n) f32 -> med (rows,) f32, the median of each row; rows >= 1,
+// n >= 1, threads a multiple of 32.
+int destripe_row_median_batch(const float* x, float* med, int rows, int n,
+                              int threads, void* stream) {
+  row_median_batch_kernel<<<rows, threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(x, med, n);
   return static_cast<int>(cudaGetLastError());
 }
 

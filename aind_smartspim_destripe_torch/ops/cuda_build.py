@@ -2,9 +2,9 @@
 Build, load and launch the port's CUDA kernels.
 
 The CUDA sources in ``csrc/`` of this package (``band.cu``: K1-K4,
-``hist.cu``: the Otsu histogram, ``notch.cu``: row medians, the notch
-tail and the per-plane notch product, ``blend.cu``: the dual-band blend)
-are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all
+``hist.cu``: the Otsu histogram, ``notch.cu``: row medians (masked and plain), the notch
+tail and the per-plane notch product, ``blend.cu``: the dual-band blend,
+``dense.cu``: the dense levels' fixed-order products) are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all
 started together, and linked into one shared library with a plain C
 interface, loaded with ``ctypes``. The
 build happens at first use, into ``build/torch_kernels/`` at the root of
@@ -12,8 +12,8 @@ the checkout (listed in ``.gitignore``), under a name keyed by the sources'
 content, so an edited source never loads a stale library. Nothing here runs
 at import time: the CPU tests import this module on hosts without ``nvcc``.
 
-The wrappers of ``cuda_band``, ``cuda_hist``, ``cuda_notch`` and
-``cuda_blend`` dispatch with :func:`on_cuda`, validate with :func:`check`
+The wrappers of ``cuda_band``, ``cuda_hist``, ``cuda_notch``,
+``cuda_blend`` and ``cuda_dense`` dispatch with :func:`on_cuda`, validate with :func:`check`
 and launch with :func:`launch`.
 """
 
@@ -36,7 +36,7 @@ __all__ = ["kernel_library", "build_dir", "find_nvcc", "SOURCES",
 
 SOURCES = tuple(
     Path(__file__).resolve().parents[1] / "csrc" / name
-    for name in ("band.cu", "hist.cu", "notch.cu", "blend.cu")
+    for name in ("band.cu", "hist.cu", "notch.cu", "blend.cu", "dense.cu")
 )
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 _FLAGS = (_ARCH, "-std=c++17", "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC")
@@ -70,12 +70,16 @@ _SIGNATURES = {
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "destripe_row_median": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
+    "destripe_row_median_batch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
     "destripe_notch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
     "destripe_notch_select": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
     "destripe_blend": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "destripe_dense_matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    + [ctypes.c_longlong] * 6 + [ctypes.c_void_p],
 }
 
 

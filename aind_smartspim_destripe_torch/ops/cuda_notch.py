@@ -5,12 +5,14 @@ twins.
 
 Counterpart of ``aind_smartspim_destripe_tpu/ops/pallas_notch.py``
 (``notch_delta``, ``notch_select_chunked``) and ``ops/pallas_median.py``
-(``row_median_masked``).
+(``row_median_batch``, ``row_median_masked``).
 Each wrapper dispatches on the device of its input: a CPU tensor takes the
 plain twin (also callable directly as ``<wrapper>_plain`` on any device), a
 CUDA tensor launches the kernel or raises. Each wrapper counts its kernel
 launches in ``<wrapper>.launches``.
 
+- :func:`row_median_batch`: the exact median over the last axis of an
+  f32 array of any rank;
 - :func:`row_median_masked`: the median of each row of
   ``where(sqrt(x*x) > thr[b], 0, x)``;
 - :func:`notch_delta`: stripe mask -> row-median inpaint -> the plane's
@@ -34,10 +36,12 @@ from .cuda_build import check, launch, on_cuda
 
 __all__ = [
     "row_median",
+    "row_median_batch",
     "row_median_masked",
     "notch_delta",
     "notch_select",
     "stacked_notch_operators",
+    "row_median_batch_plain",
     "row_median_masked_plain",
     "notch_delta_plain",
     "notch_select_plain",
@@ -60,6 +64,34 @@ def row_median(x):
     if n % 2:
         return s[..., n // 2 : n // 2 + 1]
     return (s[..., n // 2 - 1 : n // 2] + s[..., n // 2 : n // 2 + 1]) * 0.5
+
+
+# the plain twin of row_median_batch, callable on any device
+row_median_batch_plain = row_median
+
+
+def row_median_batch(x: torch.Tensor) -> torch.Tensor:
+    """Exact median over the last axis of f32 ``(..., n)`` -> ``(..., 1)``:
+    1-D, 2-D and N-D inputs of any layout run as the flattened ``(rows, n)``
+    view of a contiguous copy, one block per row. Even ``n`` averages the
+    k-th and (k+1)-th values as ``(v1 + v2) * 0.5``; NaN sorts above +inf,
+    and -0.0 and +0.0 are equal values, so a median may carry either sign
+    of zero."""
+    if not on_cuda(x):
+        return row_median_batch_plain(x)
+    n = x.shape[-1] if x.ndim else 0
+    if n == 0:
+        raise ValueError(f"row_median_batch needs n >= 1, got {tuple(x.shape)}")
+    x = x.contiguous()
+    dev = x.device
+    check("x", x, (torch.float32,), dev)
+    rows = x.numel() // n
+    med = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=dev)
+    if rows:
+        launch("destripe_row_median_batch", dev, x.data_ptr(), med.data_ptr(),
+               rows, n, _MEDIAN_THREADS)
+        row_median_batch.launches += 1
+    return med
 
 
 def _n_out(x, thr) -> int:
@@ -216,6 +248,6 @@ def notch_select(
     return out
 
 
-KERNELS = (row_median_masked, notch_delta, notch_select)
+KERNELS = (row_median_masked, row_median_batch, notch_delta, notch_select)
 for _k in KERNELS:
     _k.launches = 0

@@ -101,9 +101,9 @@ def _plan_from_config_items(h, w, cells_items, no_cells_items):
 def _run_host(plan, img, crossover, threshold, device):
     """numpy planes in, float32 numpy out, on ``device`` (None: the current
     CUDA device; raises when there is none)."""
-    from ..runtime.pipeline import resolve_device
+    from ..parallel.mesh import one_device
 
-    dev = resolve_device(None if device is None else [device])[0]
+    dev = one_device(device)
     f32_matmul()
     if img.dtype != np.uint16:  # uint16 ships raw; the kernels read it
         img = img.astype(np.float32, copy=False)

@@ -20,7 +20,10 @@ as the JAX package's) run their four passes through :mod:`.cuda_band`: the
 Hopper kernels K1-K4 for CUDA tensors, their plain twins for CPU tensors.
 K1 then takes the raw uint16 planes and emits the classifier's sums, K2 the
 Otsu bin range, and K4 applies the uint16 epilogue. The DWT of every other
-level is a ``torch.matmul`` in float32 with TF32 off. The tail of every
+level is a product of dense operators in float32,
+:func:`.cuda_dense.dense_matmul`: for CUDA tensors a kernel that sums in
+one order at any batch size, so a plane's output does not depend on the
+planes it came with; ``torch.matmul`` for CPU tensors. The tail of every
 level (Otsu histogram, row median, notch) runs the kernels of
 :mod:`.cuda_hist` and :mod:`.cuda_notch` for CUDA tensors and their plain
 twins, the JAX package's dense formulation, for CPU tensors.
@@ -45,7 +48,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import cuda_band, cuda_notch, fft_notch, wavelets
+from . import cuda_band, cuda_dense, cuda_notch, fft_notch, wavelets
 from .flatfield import flatfield_correction, wrap_cast
 from .otsu import threshold_otsu_batch
 from .wavelets import wavedec2_shapes, wavelet
@@ -359,6 +362,17 @@ def classifier_sums(images: torch.Tensor, threshold_mask: float = 0.3):
     )
 
 
+def _row_median(x: torch.Tensor, pallas: bool = True) -> torch.Tensor:
+    """Exact median over the last axis, keepdims. Float32 with ``pallas``
+    (the default) runs :func:`.cuda_notch.row_median_batch`: the Hopper
+    radix-select kernel for a CUDA tensor, its plain twin for a CPU one.
+    ``pallas=False`` or another dtype sorts, as the JAX package does there;
+    both are exact and average the two middle values of even rows."""
+    if pallas and x.dtype == torch.float32:
+        return cuda_notch.row_median_batch(x)
+    return cuda_notch.row_median(x)
+
+
 # ---------------------------------------------------------------------------
 # Per-level horizontal-band filtering (reference filtering.py:186-219)
 # ---------------------------------------------------------------------------
@@ -513,7 +527,8 @@ def destripe_batch(
             continue
         if a is None:
             a = xlog()
-        lox = torch.matmul(an_y, torch.matmul(a, an_x_lo.t()))
+        lox = cuda_dense.dense_matmul(
+            an_y, cuda_dense.dense_matmul(a, an_x_lo.t()))
         L_h = lox.shape[-2] // 2
         a = lox[..., :L_h, :]  # cA: lowpass-y, lowpass-x
         chs.append(lox[..., L_h:, :].contiguous())  # cH: highpass-y, lowpass-x
@@ -568,11 +583,11 @@ def destripe_batch(
             return out if wrap else epilogue(out)
         L_h = syn_y.shape[-1] // 2
         if corr is None:
-            stacked = torch.matmul(syn_y[:, L_h:], delta)
+            stacked = cuda_dense.dense_matmul(syn_y[:, L_h:], delta)
         else:
             up = torch.cat([corr[..., :L_h, :], delta], dim=-2)
-            stacked = torch.matmul(syn_y, up)
-        corr = torch.matmul(stacked, syn_x_lo.t())
+            stacked = cuda_dense.dense_matmul(syn_y, up)
+        corr = cuda_dense.dense_matmul(stacked, syn_x_lo.t())
 
     xl = xlog()
     if dual:  # both bands' corrections apply to the same log-space input
@@ -597,13 +612,13 @@ def log_space_fft_filtering(
     planes (numpy) in, float32 numpy out, filtered per plane with one
     configuration. ``device``: where to run (None: the current CUDA device;
     raises when there is none)."""
-    from ..runtime.pipeline import resolve_device
+    from ..parallel.mesh import one_device
 
     img = np.asarray(input_image)
     squeeze = img.ndim == 2
     if squeeze:
         img = img[None]
-    dev = resolve_device(None if device is None else [device])[0]
+    dev = one_device(device)
     f32_matmul()
     cfg = FilterConfig(wavelet=wavelet, level=level, sigma=float(sigma),
                        max_threshold=float(max_threshold))

@@ -16,7 +16,10 @@ import numpy as np
 import torch
 
 __all__ = [
+    "sigmoid",
+    "foreground_fraction",
     "normalize_image",
+    "invert_image",
     "get_hemisphere_flatfield",
     "flatfield_correction",
     "to_uint16",
@@ -37,13 +40,40 @@ def wrap_cast(y: torch.Tensor) -> torch.Tensor:
         torch.uint16)
 
 
+def sigmoid(data: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + e^-x)``."""
+    return 1 / (1 + torch.exp(-data))
+
+
+def foreground_fraction(img: torch.Tensor, center: float,
+                        crossover: float) -> torch.Tensor:
+    """Sigmoid foreground fraction ``sigmoid((img - center) / crossover)``."""
+    return sigmoid((img - center) / crossover)
+
+
+def _host_tensor(images) -> torch.Tensor:
+    """An array, or a list of arrays, as a CPU tensor; floats as float32
+    (the JAX package's default float)."""
+    t = torch.from_numpy(np.ascontiguousarray(np.asarray(images)))
+    return t.to(torch.float32) if torch.is_floating_point(t) else t
+
+
+def invert_image(image) -> torch.Tensor:
+    """``max - x`` in the input's dtype (integers subtract exactly)."""
+    t = _host_tensor(image)
+    if torch.is_floating_point(t):
+        return t.max() - t
+    wide = t.to(torch.int64)  # torch reduces no uint16
+    return (wide.max() - wide).to(t.dtype)
+
+
 def normalize_image(images) -> torch.Tensor:
     """Normalise image(s) into [1, 2] with a float16 rounding step. Accepts
     an array or a list of arrays; integer inputs subtract exactly and divide
     in float32, as the JAX package does."""
-    arr = np.asarray(images)
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    t = t.to(torch.float32) if torch.is_floating_point(t) else t.to(torch.int64)
+    t = _host_tensor(images)
+    if not torch.is_floating_point(t):
+        t = t.to(torch.int64)
     ratio = (t - t.min()) / (t.max() - t.min())
     return 1 + ratio.to(torch.float16)
 

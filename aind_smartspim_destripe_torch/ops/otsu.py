@@ -25,13 +25,23 @@ __all__ = [
 ]
 
 
+def _cumsum(x):
+    """Float32 running sums along dim 1, accumulated in float64 and rounded
+    per element: what torch's CPU cumsum does for float32, bit for bit. On
+    the card torch's scan runs in an order chosen by the tensor's shape, so
+    a float32 scan gave a plane another Otsu bin in a batch of one than in
+    a batch of 64; the float64 scan rounds to the same float32 values in
+    any order but for ties closer than ~1e-16 relative."""
+    return torch.cumsum(x.to(torch.float64), dim=1).to(torch.float32)
+
+
 def _otsu_tail(counts, centers, lo, hi):
     """Inter-class-variance argmax over per-plane histograms (B, nbins)."""
-    weight1 = torch.cumsum(counts, dim=1)
-    weight2 = torch.cumsum(counts.flip(1), dim=1).flip(1)
-    mean1 = torch.cumsum(counts * centers, dim=1) / weight1.clamp_min(1e-30)
+    weight1 = _cumsum(counts)
+    weight2 = _cumsum(counts.flip(1)).flip(1)
+    mean1 = _cumsum(counts * centers) / weight1.clamp_min(1e-30)
     mean2 = (
-        torch.cumsum((counts * centers).flip(1), dim=1)
+        _cumsum((counts * centers).flip(1))
         / weight2.flip(1).clamp_min(1e-30)
     ).flip(1)
     variance12 = (

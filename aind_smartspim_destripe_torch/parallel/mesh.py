@@ -17,7 +17,7 @@ from typing import List, Optional
 
 import torch
 
-__all__ = ["make_mesh"]
+__all__ = ["make_mesh", "one_device"]
 
 
 def make_mesh(devices=None, n_devices: Optional[int] = None
@@ -26,11 +26,7 @@ def make_mesh(devices=None, n_devices: Optional[int] = None
     visible CUDA device; raises when CUDA is absent, there is no CPU
     fallback), cut to its first ``n_devices`` entries when given."""
     if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device; pass devices=[torch.device('cpu')] to run "
-                "on the CPU"
-            )
+        _require_cuda()
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
     mesh = [_indexed(torch.device(d)) for d in devices]
@@ -41,9 +37,27 @@ def make_mesh(devices=None, n_devices: Optional[int] = None
     return mesh
 
 
+def _require_cuda() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device; pass devices=[torch.device('cpu')] to run on "
+            "the CPU"
+        )
+
+
 def _indexed(d: torch.device) -> torch.device:
     """``cuda`` names the current CUDA device: give it its index, so that
     an entry compares equal to the device of the tensors made on it."""
     if d.type == "cuda" and d.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return d
+
+
+def one_device(device=None) -> torch.device:
+    """The device a single-device entry point runs on: ``device`` (a
+    ``torch.device`` or its name), or None for the current CUDA device;
+    raises when CUDA is absent, there is no CPU fallback."""
+    if device is None:
+        _require_cuda()
+        device = "cuda"
+    return make_mesh([device])[0]

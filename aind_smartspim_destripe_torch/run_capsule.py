@@ -7,7 +7,11 @@ first tile's scale transform), channel folders ``Ex_*_Em_*``,
 ``laser_tiles.json`` (side -> tile list), per-channel estimated flats
 ``estimated_flat_laser_{channel}*.tif`` and
 ``derivatives/DarkMaster_cropped.tif``; the same hardcoded production filter
-parameters and ``processing.json`` provenance. Single process.
+parameters and ``processing.json`` provenance. Multi-host aware: with the
+``DESTRIPE_COORDINATOR_ADDRESS`` / ``DESTRIPE_NUM_PROCESSES`` /
+``DESTRIPE_PROCESS_ID`` variables set, the processes form a gloo process
+group, each destripes a disjoint share of the tiles, and process 0 alone
+writes the provenance.
 """
 
 from __future__ import annotations
@@ -97,6 +101,14 @@ def run(
     memory. ``DESTRIPE_DUAL_BAND=1`` runs the dual-band mode, with
     ``DESTRIPE_DUAL_CROSSOVER`` and ``DESTRIPE_DUAL_THRESHOLD`` as its
     sigmoid width and centre when set."""
+    from .parallel.distributed import initialize_distributed
+    from .parallel.mesh import make_mesh
+
+    make_mesh(devices)  # no card and no device named: raise before any IO
+    process_index, process_count = initialize_distributed()
+    if process_count > 1:
+        print(f"Multi-host run: process {process_index}/{process_count}")
+
     data_folder = Path(os.path.abspath(data_folder))
     results_folder = Path(os.path.abspath(results_folder))
     Path(os.path.abspath(scratch_folder))
@@ -175,14 +187,16 @@ def run(
         )
         destriping_end_time = time()
 
-        generate_data_processing(
-            channel_name=channel_name,
-            destripe_version=__version__,
-            destripe_config=parameters,
-            start_time=destriping_start_time,
-            end_time=destriping_end_time,
-            output_directory=str(results_folder),
-        )
+        if process_index == 0:
+            path = generate_data_processing(
+                channel_name=channel_name,
+                destripe_version=__version__,
+                destripe_config=parameters,
+                start_time=destriping_start_time,
+                end_time=destriping_end_time,
+                output_directory=str(results_folder),
+            )
+            print(f"Provenance written: {path}")
 
 
 if __name__ == "__main__":

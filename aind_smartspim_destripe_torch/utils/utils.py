@@ -12,9 +12,11 @@ import json
 import logging
 import os
 import platform
+import re
 import threading
 import time
 from datetime import datetime
+from pathlib import Path
 from typing import List, Optional
 
 import torch
@@ -31,6 +33,7 @@ __all__ = [
     "get_code_ocean_cpu_limit",
     "get_size",
     "read_json_as_dict",
+    "read_image_directory_structure",
     "print_system_information",
 ]
 
@@ -156,6 +159,54 @@ def get_code_ocean_cpu_limit():
     if psutil is not None:
         return psutil.cpu_count(logical=False) or os.cpu_count() or 1
     return os.cpu_count() or 1  # pragma: no cover
+
+
+def read_image_directory_structure(folder_dir, channel_regex: str) -> dict:
+    """{channel: {col: {col_row: [images]}}} map of a SmartSPIM file tree
+    (channel folders matched by ``channel_regex``; the columns, rows and
+    image names of the first channel's first column and row, in natural
+    order)."""
+    def _natkey(name):
+        # the reference natsorts every listing (natsort pinned in its
+        # Dockerfile); plain sorted() orders non-zero-padded plane names
+        # differently ("10.tiff" < "9.tiff") and would shift slide picks
+        return [int(t) if t.isdigit() else t for t in re.split(r"(\d+)", str(name))]
+
+    folder_dir = Path(folder_dir)
+    channel_paths = sorted(
+        (
+            p
+            for p in folder_dir.iterdir()
+            if p.is_dir() and re.search(channel_regex, str(p.name))
+        ),
+        key=lambda p: _natkey(p.name),
+    )
+    if not channel_paths:
+        raise ValueError(f"No channels found in path: {folder_dir}")
+
+    cols = sorted(
+        (p.name for p in channel_paths[0].iterdir() if p.is_dir()),
+        key=_natkey,
+    )
+    example_col = channel_paths[0] / cols[0]
+    rows = sorted(
+        (p.name for p in example_col.iterdir() if p.is_dir()), key=_natkey
+    )
+    images = sorted(
+        (p.name for p in (example_col / rows[0]).iterdir()), key=_natkey
+    )
+
+    structure: dict = {}
+    for channel in channel_paths:
+        structure[channel] = {}
+        for col in cols:
+            if (channel / col).is_dir():
+                structure[channel][col] = {}
+                for row in rows:
+                    if (channel / col / row).is_dir():
+                        structure[channel][col][row] = images
+    return structure
+
 
 def create_folder(dest_dir, verbose: Optional[bool] = False) -> None:
     """mkdir -p (reference utils.py:383-411)."""

@@ -5,7 +5,8 @@ Counterpart of ``aind_smartspim_destripe_tpu/zarr_destriper.py``: the same
 ``destripe_channel`` / ``destripe_zarr`` / multiscale and metadata surface,
 store layout and codecs (blosc-zstd, clevel 3), with the streaming device
 pipeline of :mod:`.runtime.pipeline` and the windowed-mean pyramid of
-:mod:`.ops.multiscale` on the same device. Single process.
+:mod:`.ops.multiscale` on the same device. A multi-host run splits a
+channel's tiles over its processes.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ from .io.zarr import BloscCodec, ZarrArray, ZarrGroup, group, open_zarr
 from .ops import flatfield as ffops
 from .ops.filter import FilterConfig, build_plan
 from .ops.multiscale import windowed_mean
+from .parallel import distributed
+from .parallel.mesh import one_device
 from .runtime.pipeline import StreamingDestriper, resolve_device
 from .runtime.tracing import device_trace
 from .utils import utils
@@ -102,9 +105,9 @@ def _windowed_mean_np(block: np.ndarray, factors, device) -> np.ndarray:
 def compute_pyramid(data, n_lvls: int, scale_axis, chunks="auto",
                     device=None):
     """Successive windowed-mean reductions of an in-memory array on
-    ``device`` (as in :func:`.runtime.pipeline.resolve_device`). Returns the
+    ``device`` (as in :func:`.parallel.mesh.one_device`). Returns the
     levels, level 0 first. ``chunks`` is accepted for signature parity."""
-    dev = resolve_device(None if device is None else [device])[0]
+    dev = one_device(device)
     levels = [np.asarray(data)]
     factors = tuple(int(s) for s in scale_axis)
     for _ in range(max(0, n_lvls - 1)):
@@ -156,10 +159,10 @@ def compute_multiscale(
 ):
     """Write levels 1..n_levels-1 plus OME-NGFF metadata, downsampling
     slab by slab on ``device`` (as in
-    :func:`.runtime.pipeline.resolve_device`). ``n_workers`` and
+    :func:`.parallel.mesh.one_device`). ``n_workers`` and
     ``threads_per_worker`` are accepted for signature parity."""
     logger = logger or logging.getLogger(__name__)
-    dev = resolve_device(None if device is None else [device])[0]
+    dev = one_device(device)
     start_time = time()
 
     # channel metadata follows TCZYX: pad the logical shape to 5-D first
@@ -430,7 +433,9 @@ def destripe_channel(
 ):
     """Destripe every tile of a channel: pick the estimated flat by laser
     side, then run :func:`destripe_zarr` per tile on ``devices``. Returns
-    {tile_name: PipelineStats}."""
+    {tile_name: PipelineStats} for the tiles this process owns: all of them
+    in a single-process run, a disjoint round-robin share in a multi-host
+    run (:func:`.parallel.distributed.assign_tiles`)."""
     zarr_dataset_path = Path(zarr_dataset_path)
     results_folder = Path(results_folder)
     channel_dataset = zarr_dataset_path.joinpath(channel_name)
@@ -438,8 +443,13 @@ def destripe_channel(
     destriped_data_folder = results_folder.joinpath("destriped_data")
     utils.create_folder(str(destriped_data_folder))
 
+    tiles = sorted(channel_dataset.glob("*.zarr"))
+    if distributed.world_size() > 1:
+        # each process streams only its own tiles' stores
+        tiles = distributed.assign_tiles(tiles)
+
     stats = {}
-    for tile_path in sorted(channel_dataset.glob("*.zarr")):
+    for tile_path in tiles:
         output_folder = destriped_data_folder.joinpath(
             f"{channel_name}/{tile_path.name}"
         )

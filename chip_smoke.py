@@ -24,7 +24,15 @@ Phases, each printing its lines:
    production caps per half): max error against the stated tolerance, the
    kernel's, the twin's and (where one PyTorch call computes the same
    function) that call's time (CUDA events), and the bound from the bytes
-   and operations of the call;
+   and operations of the call; then ``[kernels] row_median_batch``, the
+   unmasked median through ``ops.filter._row_median(x, pallas=True)`` at its
+   main path's shape (BaSiC's darkfield medians in flat estimation), the
+   plane path's level-0 (even n) and level-1 (odd n) band shapes, a 1-D row
+   and a 4-D stack past grid.y's 65535 rows, exactly against its twin, with
+   ``torch.kthvalue`` of the middle ranks as the library call; then
+   ``dense_matmul``, the dense levels' fixed-order product, on the four
+   products of dense level 2 against ``torch.matmul`` (its twin and the
+   library call), each also bit-equal for one plane alone and in the batch;
 4. the port's main paths: a synthetic capsule (one channel, one tile of
    128 x 1600 x 2000 uint16 planes with dark and flats, in the layout of
    tests/test_run_capsule_e2e.py) through ``run_capsule.run()`` on the card
@@ -58,6 +66,25 @@ Phases, each printing its lines:
    single-device plane path on the card, within 1 LSB outside the flip
    budget at PSNR >= 100 dB.
 
+Between 5 and 6, the other entry points, each with the launch counts reset
+just before it and read just after it: ``[facade]`` ``filtering.filter_stripes``
+on one plane at a time (production configurations, prospective hemisphere
+flats) on the card against the same call on the CPU, each plane within the
+budget of step 5; ``[batch]`` and ``[batch-dual]``
+the CLI's ``batch`` mode in-process on a tree of 40 uint16 TIFF planes
+(24 + 16 in two subdirectories, so the last 16-plane batch is a tail of 8)
+and a sidecar ``.txt``: the mirrored tree, the copied sidecar, two sampled
+planes against the CPU plain path, seconds and MPix/s; ``[flat-estimation]``
+``slide_flat_estimation`` on a 4 x 3 grid of tiles, 2 slides, with a known
+smooth flat and dark and the production BaSiC knobs (destripe and fit seconds, the
+fit's host syncs, the unified flat's correlation with the truth, the card's
+fit against the same fit on the CPU); ``[multihost]`` two
+``python -m aind_smartspim_destripe_torch capsule`` processes joined over
+gloo on this machine, both on the card, on a channel of four 16-plane tiles:
+disjoint ownership covering every tile, levels 0-2 of each tile, one
+provenance write, one sampled plane per tile against the CPU plain path,
+wall time.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero; so does a host without CUDA, before any result is printed.
@@ -86,7 +113,7 @@ ROOT = Path(__file__).resolve().parent
 # rounding boundary). Classifier sums, histogram counts and medians: exact.
 F32_RTOL = 1e-5
 U16_LSB = 1
-EXACT = ("histogram256_batch", "row_median_masked")
+EXACT = ("histogram256_batch", "row_median_masked", "row_median_batch")
 # Sampled planes against the plain path on the CPU: a coefficient on a
 # threshold can fall on the other side of it (Otsu bin or stripe mask), and
 # the pixels it reconstructs then move by more than 1 LSB. Budget: 1e-4 of
@@ -121,6 +148,8 @@ SOURCE = {
     "an_x_lowpass_chunked": CSRC + "band.cu",
     "syn_x_exp_chunked": CSRC + "band.cu",
     "notch_select_chunked": CSRC + "notch.cu",
+    "row_median_batch": CSRC + "notch.cu",
+    "dense_matmul": CSRC + "dense.cu",
 }
 REPLACES = {
     "an_x_lowpass_log1p": TPU + "pallas_band.py:178",
@@ -134,14 +163,37 @@ REPLACES = {
     "an_x_lowpass_chunked": TPU + "pallas_band.py:727",
     "syn_x_exp_chunked": TPU + "pallas_band.py:771",
     "notch_select_chunked": TPU + "pallas_notch.py:244",
+    "row_median_batch": TPU + "pallas_median.py:123",
+    # no Pallas kernel: the dense levels' einsums, which XLA runs
+    "dense_matmul": TPU + "filter.py:892",
 }
 # the wrapper that launches each kernel, where its name differs
 WRAPPER = {"notch_select_chunked": "notch_select"}
-SINGLE = tuple(REPLACES)[:7]  # the kernels of the single-band path
-PLANE = tuple(REPLACES)[:8]  # the kernels of the plane paths
+# the kernels of the single-band path, and of the plane paths (the blend)
+SINGLE = tuple(REPLACES)[:7] + ("dense_matmul",)
+PLANE = SINGLE + ("blend_smooth_mix",)
 # the kernels of the row-sharded route (the small bands' tail included)
 HALO = ("an_x_lowpass_chunked", "syn_x_exp_chunked", "notch_select_chunked",
         "histogram256_batch", "row_median_masked")
+# row_median_batch: its main path's shape (flat estimation: BaSiC's
+# darkfield medians over a slide's 12 tiles at working size 128, even n),
+# the plane path's level-0 (even n) and level-1 (odd n) band shapes, one
+# row, and 128 level-0 planes as a 4-D stack (102656 rows)
+MEDIAN_SHAPES = {"path": (128, 128, 12), 0: (64, 802, 1002),
+                 1: (64, 403, 503), "1d": (2000,), "4d": (2, 64, 802, 1002)}
+# the file-batch tree: planes per subdirectory, and the sampled planes
+BATCH_PLANES = (24, 16)
+BATCH_SAMPLED = (0, 1, 24, 39)  # both subdirectories, the tail batch
+# flat estimation: columns x rows of tiles, two slides; the production
+# BaSiC knobs (tests/test_basic_model.py:145-151) at working size 128
+FLAT_GRID = (4, 3)
+BASIC_KNOBS = dict(get_darkfield=True, smoothness_flatfield=1.0,
+                   smoothness_darkfield=20.0, sort_intensity=True,
+                   max_reweight_iterations=35)
+# the multi-host channel: four tiles of 16 planes, two per laser side
+MH_TILES = ("471300_461360", "471320_461360", "471340_461360",
+            "471360_461360")
+MH_Z = 16
 # the wrapped forms, and the histogram of the blend centres (raw uint16)
 DUAL = ("syn_x_exp", "histogram256_batch", "row_median_masked",
         "notch_delta")
@@ -446,6 +498,87 @@ def phase_dual_kernels(plan, consts, dev, seed):
             _compare(rec, name, lvl, kern, plain, scale=ch.abs().max().item(),
                      ins=ins, ops=ops)
         del ch
+    torch.cuda.synchronize()
+    return rec
+
+
+def phase_median(dev, seed):
+    """``row_median_batch`` through ``ops.filter._row_median(x, pallas=True)``
+    against its twin (the sort), exactly, at MEDIAN_SHAPES; the library
+    call is ``torch.kthvalue`` of the middle rank(s), averaged for even n."""
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import cuda_notch as tn
+    from aind_smartspim_destripe_torch.ops import filter as tf
+
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    rec = {"row_median_batch": {}}
+    for key, shape in MEDIAN_SHAPES.items():
+        x = torch.randn(shape, generator=g, device=dev) * 0.3
+        k1, k2 = (shape[-1] - 1) // 2, shape[-1] // 2
+
+        def kthvalue():
+            lo = torch.kthvalue(x, k1 + 1, -1, keepdim=True).values
+            if k1 == k2:
+                return lo
+            return (lo + torch.kthvalue(x, k2 + 1, -1,
+                                        keepdim=True).values) * 0.5
+
+        _compare(rec, "row_median_batch", key,
+                 lambda: tf._row_median(x, pallas=True),
+                 lambda: tn.row_median_batch_plain(x),
+                 ins=(x,), ops=float(x.numel()), library=kthvalue)
+        del x
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return rec
+
+
+def phase_dense(plan, consts, dev, seed):
+    """``dense_matmul`` against its twin (``torch.matmul``, also the
+    library call) on the four products of dense level 2 at B=64, in the
+    order the step runs them; each also bit-equal for the batch's first
+    plane alone (the fixed order), and whether it equals cuBLAS's bits."""
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import cuda_dense as td
+
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    n, lvl = plan.n_levels, 2
+    h, w = plan.ladder[n - lvl]  # level 2's input: level 1's cA band
+    L = consts["an_x_lo"][lvl].shape[0]
+    a = torch.randn((BATCH, h, w), generator=g, device=dev) * 0.3
+    an_y, syn_y = consts["an_y"][lvl], consts["syn_y"][n - 1 - lvl]
+    up = torch.randn((BATCH, syn_y.shape[1], L), generator=g,
+                     device=dev) * 0.01
+    st = torch.randn((BATCH, syn_y.shape[0], L), generator=g,
+                     device=dev) * 0.01
+    x_lo = torch.randn((BATCH, h, L), generator=g, device=dev) * 0.3
+    forms = {
+        "an_x": (a, consts["an_x_lo"][lvl].t()),
+        "an_y": (an_y, x_lo),
+        "syn_y": (syn_y, up),
+        "syn_x": (st, consts["syn_x_lo"][n - 1 - lvl].t()),
+    }
+    rec = {"dense_matmul": {}}
+    for key, (p, q) in forms.items():
+        _compare(rec, "dense_matmul", key, lambda: td.dense_matmul(p, q),
+                 lambda: td.dense_matmul_plain(p, q),
+                 scale=p.abs().max().item() * q.abs().max().item()
+                 * p.shape[-1], ins=(p, q),
+                 ops=2.0 * BATCH * p.shape[-2] * q.shape[-1] * p.shape[-1],
+                 library=lambda: torch.matmul(p, q))
+        got = td.dense_matmul(p, q)
+        one = td.dense_matmul(p[:1], q) if p.ndim == 3 else td.dense_matmul(
+            p, q[:1])
+        cublas = torch.equal(got, torch.matmul(p, q))
+        print(f"[kernels] dense_matmul level {lvl} {key}: {tuple(p.shape)} "
+              f"@ {tuple(q.shape)}; one plane alone bit-equal to it in the "
+              f"batch: {torch.equal(one, got[:1])}; bit-equal to cuBLAS at "
+              f"B={BATCH}: {cublas}")
+        if not torch.equal(one, got[:1]):
+            raise AssertionError("dense_matmul depends on the batch")
+        rec["dense_matmul"][key]["cublas_bit_equal"] = cublas
     torch.cuda.synchronize()
     return rec
 
@@ -769,18 +902,23 @@ def synthetic_tile(dev, seed):
     return vol, flats, dark
 
 
-def build_capsule(base: Path, vol, flat_sides, dark):
-    """The capsule input layout of tests/test_run_capsule_e2e.py."""
+def build_capsule(base: Path, vol, flat_sides, dark, tiles=None):
+    """The capsule input layout of tests/test_run_capsule_e2e.py: one tile
+    of ``vol`` on laser side 0, or ``tiles``, {name: (side, vol)}."""
     from aind_smartspim_destripe_torch.io import group, imsave
 
+    tile = "471320_461360"
+    tiles = tiles or {tile: (0, vol)}
     data, results = base / "data", base / "results"
     (data / "derivatives").mkdir(parents=True)
     results.mkdir()
     acq = {"tiles": [{"coordinate_transformations": [
         {"type": "scale", "scale": ["1.8", "1.8", "2.0"]}]}]}
     (data / "acquisition.json").write_text(json.dumps(acq))
-    tile = "471320_461360"
-    (data / "laser_tiles.json").write_text(json.dumps({"0": [tile], "1": []}))
+    sides = {str(side): [] for side in range(len(flat_sides))}
+    for name, (side, _) in tiles.items():
+        sides[str(side)].append(name)
+    (data / "laser_tiles.json").write_text(json.dumps(sides))
     for side, f in enumerate(flat_sides):
         imsave(str(data / f"flat_{side}.tiff"), f)
         os.replace(data / f"flat_{side}.tiff",
@@ -788,10 +926,11 @@ def build_capsule(base: Path, vol, flat_sides, dark):
     imsave(str(data / "derivatives" / "Dark.tiff"), dark)
     os.replace(data / "derivatives" / "Dark.tiff",
                data / "derivatives" / "DarkMaster_cropped.tif")
-    tg = group(str(data / "Ex_488_Em_525" / f"{tile}.zarr"))
-    lvl0 = tg.create_dataset(0, shape=(1, 1) + vol.shape,
-                             chunks=(1, 1, 64, 128, 128), dtype=vol.dtype)
-    lvl0[:] = vol[None, None]
+    for name, (_, v) in tiles.items():
+        tg = group(str(data / "Ex_488_Em_525" / f"{name}.zarr"))
+        lvl0 = tg.create_dataset(0, shape=(1, 1) + v.shape,
+                                 chunks=(1, 1, 64, 128, 128), dtype=v.dtype)
+        lvl0[:] = v[None, None]
     return data, results, tile
 
 
@@ -844,7 +983,8 @@ def main(argv=None):
     regs = {}
     for part in cuda_build.kernel_library.build_log.split(
             "Compiling entry function")[1:]:
-        fn = re.search(r"(k[1-4]|hist|row_median|notch|notch_select|blend)"
+        fn = re.search(r"(k[1-4]|hist|row_median_batch|row_median|notch|"
+                       r"notch_select|blend|dense_matmul)"
                        r"_kernel(ILb([01]))?", part)  # notch: <false>/<true>
         n = re.search(r"Used (\d+) registers", part)
         spill = re.search(r"(\d+) bytes spill stores", part)
@@ -868,6 +1008,11 @@ def main(argv=None):
     rec = phase_kernels(plan, consts, dev, args.seed)
     torch.cuda.empty_cache()
     drec = phase_dual_kernels(plan, consts, dev, args.seed)
+    del consts
+    torch.cuda.empty_cache()
+    mrec = phase_median(dev, args.seed)
+    consts = tf.constants_from_numpy(plan.constants(), dev)
+    mrec.update(phase_dense(plan, consts, dev, args.seed))
     del consts
     torch.cuda.empty_cache()
 
@@ -899,6 +1044,24 @@ def main(argv=None):
     check_planes("check-dual", plan, lvl0_dual, vol, flats[0], dark,
                  dual=True)
     shutil.rmtree(work, ignore_errors=True)
+
+    # -- the other entry points: facade, file batch, flats, multi-host ------
+    paths = {"capsule": launches, "capsule_dual": launches_dual,
+             "facade": phase_facade(vol, flats, dark)}
+    work_entry = ROOT / "build" / "smoke_entry"
+    shutil.rmtree(work_entry, ignore_errors=True)
+    try:
+        inp, names = batch_tree(work_entry, vol)
+        paths["batch"] = phase_batch("batch", plan, inp, names, vol,
+                                     work_entry / "out")
+        paths["batch_dual"] = phase_batch("batch-dual", plan, inp, names, vol,
+                                          work_entry / "out_dual", dual=True)
+        paths["flat_estimation"] = phase_flat_estimation(work_entry, dev,
+                                                         args.seed)
+        torch.cuda.empty_cache()  # the processes below share the card
+        phase_multihost(work_entry / "multihost", plan, vol, flats, dark)
+    finally:
+        shutil.rmtree(work_entry, ignore_errors=True)
 
     # -- 6. the multi-device routes ----------------------------------------
     n_cards = torch.cuda.device_count()
@@ -934,26 +1097,46 @@ def main(argv=None):
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err", "shape")
     kernels = []
+    paths["capsule_halo"] = launches_halo
     for name in REPLACES:
-        recs = [r[name] for r in (rec, drec, hrec) if r.get(name)]
+        recs = [r[name] for r in (rec, drec, hrec, mrec) if r.get(name)]
         main = recs[0]
+        first = main[0] if 0 in main else next(iter(main.values()))
+        # the main path's run: the single-band capsule for its kernels, the
+        # dual one for the blend, the halo capsule for the row-sharded
+        # route's, flat estimation (its darkfield medians) for the
+        # unmasked median, which no capsule path launches
+        if name == "row_median_batch":
+            path = paths["flat_estimation"]
+        else:
+            path = (launches if name in SINGLE else launches_dual
+                    if name in PLANE else launches_halo)
         entry = {
             "name": name,
             "route": "cuda",
             "source": SOURCE[name],
             "replaces": REPLACES[name],
-            "launches": (launches if name in SINGLE else launches_dual
-                         if name in PLANE else launches_halo)[name],
+            "launches": path[name],
             "launches_dual": launches_dual[name],
             "launches_halo": launches_halo[name],
+            "launches_by_path": {k: v[name] for k, v in paths.items()},
             "max_abs_err": max(v["max_abs_err"] for r in recs
                                for v in r.values()),
-            **{k: main[0][k] for k in keys if k != "max_abs_err"},
+            **{k: first[k] for k in keys if k != "max_abs_err"},
         }
-        if 1 in main:
+        if 1 in main and name != "row_median_batch":
             entry["level1"] = {k: main[1][k] for k in keys}
         if name in DUAL:
             entry["dual"] = {k: drec[name][0][k] for k in keys}
+        if name == "row_median_batch":
+            entry.update({k: main["path"][k] for k in keys
+                          if k != "max_abs_err"})
+            entry["shapes"] = {lvl: {k: main[lvl][k] for k in keys}
+                               for lvl in (0, 1, "1d", "4d")}
+        if name == "dense_matmul":
+            entry["forms"] = {k: {**{f: v[f] for f in keys},
+                                  "cublas_bit_equal": v["cublas_bit_equal"]}
+                              for k, v in main.items()}
         if name == "histogram256_batch":
             entry["row_bound"] = {
                 f"level{lvl}": {k: r[k] for k in keys + ("row_bound",)}
@@ -983,18 +1166,31 @@ def run_path(tag, data, results, path_kernels, shape=SHAPE, devices=None):
     for d in range(torch.cuda.device_count()):
         torch.cuda.synchronize(d)
     secs = time.perf_counter() - t0
-    by_wrapper = {k.__name__: k.launches for k in ops.kernels()}
-    launches = {name: by_wrapper[WRAPPER.get(name, name)]
-                for name in REPLACES}
+    launches = _launches()
     log = "".join(p.read_text() for p in results.glob("destripe_log_*.log"))
     piped = re.findall(r"pipeline done: .*", log)
     print(f"[{tag}] run_capsule.run: {Z * H * W / 1e6:.1f} MPix in "
           f"{secs:.2f} s = {Z * H * W / 1e6 / secs:.1f} MPix/s end to end "
           f"(pyramid and stores included); {piped[-1] if piped else ''}")
+    _require(tag, launches, path_kernels)
+    return launches
+
+
+def _launches():
+    """Each kernel's launches since the last ``ops.reset_launches()``."""
+    from aind_smartspim_destripe_torch import ops
+
+    by_wrapper = {k.__name__: k.launches for k in ops.kernels()}
+    return {name: by_wrapper[WRAPPER.get(name, name)] for name in REPLACES}
+
+
+def _require(tag, launches, path_kernels):
+    """Print a path's launch counts; raise unless each of its kernels
+    launched."""
     print(f"[{tag}] kernel launches in the run: {launches}")
     if not all(launches[k] for k in path_kernels):
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
-    return launches
+        raise AssertionError(f"[{tag}] a kernel of the path never launched: "
+                             f"{launches}")
 
 
 def check_store(results, tile, shape=SHAPE):
@@ -1106,6 +1302,305 @@ def check_planes(tag, plan, lvl0, vol, flat, dark, dual=False):
         raise AssertionError(f"{tag}: sampled planes exceed the flip budget")
     if psnr < PSNR_MIN:
         raise AssertionError(f"{tag}: sampled planes at {psnr:.1f} dB")
+
+
+def _gate_print(tag, what, got, want):
+    """Gate uint16 planes against a reference (``_gate``), print, raise on
+    a miss."""
+    lsb, flips, n, psnr, ok = _gate(got, want)
+    print(f"[{tag}] {what}: max {lsb} LSB, {flips} pixels > 1 LSB "
+          f"({flips / n:.2e}, budget {FLIP_BUDGET}), PSNR {psnr:.1f} dB "
+          f"(min {PSNR_MIN})")
+    if not ok:
+        raise AssertionError(f"[{tag}] {what} outside the budget")
+
+
+def phase_facade(vol, flats, dark):
+    """``filtering.filter_stripes`` with the production configurations and
+    prospective hemisphere flats, one call per plane on the [check] planes
+    SAMPLED (plane 1 bright, the cells branch), on the card (the default
+    device), against the same calls on the CPU: each plane on its own
+    within the [check] budget (a call is one plane)."""
+    import torch
+
+    from aind_smartspim_destripe_torch import filtering, ops, run_capsule
+
+    cfg = run_capsule.PRODUCTION_PARAMETERS
+    sc = {"retrospective": False, "flatfield": flats, "darkfield": dark,
+          "tile_config": {"471320": {"461360": 1}}}
+    kw = dict(input_tile_path="471320_461360",
+              no_cells_config=cfg["no_cells_config"],
+              cells_config=cfg["cells_config"], shadow_correction=sc)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [filtering.filter_stripes(vol[i], **kw) for i in SAMPLED]
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    t0 = time.perf_counter()
+    want = [filtering.filter_stripes(vol[i], **kw, device="cpu")
+            for i in SAMPLED]
+    print(f"[facade] filter_stripes on planes {SAMPLED} {vol.shape[1:]} "
+          f"uint16, hemisphere flat 1: {secs / len(SAMPLED):.3f} s per plane "
+          f"on the card (plan operators built on the host included), "
+          f"{(time.perf_counter() - t0) / len(SAMPLED):.3f} s on the CPU")
+    _require("facade", launches, SINGLE)
+    for i, g, w in zip(SAMPLED, got, want):
+        _gate_print("facade", f"plane {i} alone, card vs the CPU plain path",
+                    g, w)
+    return launches
+
+
+def batch_tree(work, vol):
+    """The file-batch input: BATCH_PLANES uint16 planes of ``vol`` as
+    uncompressed TIFFs in two subdirectories, and a sidecar ``.txt``;
+    returns the root and the planes' relative paths."""
+    from aind_smartspim_destripe_torch.io import imsave
+
+    inp = work / "batch_in"
+    names = []
+    for sub, count in zip(("c0/c0_r0", "c1/c1_r0"), BATCH_PLANES):
+        (inp / sub).mkdir(parents=True)
+        for _ in range(count):
+            names.append(f"{sub}/{len(names):03d}.tiff")
+            imsave(str(inp / names[-1]), vol[len(names) - 1], compression=0)
+    (inp / "notes.txt").write_text("sidecar")
+    return inp, names
+
+
+def phase_batch(tag, plan, inp, names, vol, out, dual=False):
+    """The CLI's ``batch`` mode in-process, 16-plane batches and 8 IO
+    threads, on the card: every kernel of the path launched, the tree
+    mirrored with its sidecar, four sampled planes against the CPU plain
+    path (microscope_high_int 2700, the cast to uint16 of the written
+    files) within the [check] budget."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch import ops
+    from aind_smartspim_destripe_torch.__main__ import main as cli
+    from aind_smartspim_destripe_torch.io import imread
+    from aind_smartspim_destripe_torch.ops import filter as tf
+    from aind_smartspim_destripe_torch.ops.dual_band import (
+        dual_band_destripe_batch,
+    )
+
+    out.mkdir()
+    argv = ["batch", "--input_path", str(inp), "--output_path", str(out),
+            "--chunks", "16", "--workers", "8"]
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli(argv + (["--dual_band"] if dual else []))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    if rc != 0:
+        raise AssertionError(f"[{tag}] the CLI returned {rc}")
+    _, H, W = vol.shape
+    mpix = len(names) * H * W / 1e6
+    print(f"[{tag}] CLI batch: {len(names)} planes {H}x{W} uint16 "
+          f"({mpix:.1f} MPix) in {secs:.2f} s = {mpix / secs:.1f} MPix/s "
+          f"(plan operators, TIFF reads and deflate writes included)")
+    _require(tag, launches, PLANE if dual else SINGLE)
+    tree = sorted(str(p.relative_to(out)) for p in out.rglob("*")
+                  if p.is_file())
+    if tree != sorted(names + ["notes.txt"]):
+        raise AssertionError(f"[{tag}] output tree {tree[:5]}...")
+    if (out / "notes.txt").read_text() != "sidecar":
+        raise AssertionError(f"[{tag}] sidecar not copied")
+    got = np.stack([imread(str(out / names[i])) for i in BATCH_SAMPLED])
+    x = torch.from_numpy(vol[list(BATCH_SAMPLED)])
+    with torch.inference_mode():
+        ref = (dual_band_destripe_batch(plan, x, CROSSOVER, -1.0) if dual
+               else tf.destripe_batch(plan, x, 2700.0))
+    _gate_print(tag, f"tree mirrored, sidecar copied; planes "
+                f"{BATCH_SAMPLED} vs the CPU plain path", got,
+                ref.numpy().astype(np.uint16))
+    return launches
+
+
+def phase_flat_estimation(work, dev, seed):
+    """``slide_flat_estimation`` on the card over a FLAT_GRID of tiles (two
+    slides) made from a known smooth flat and a dark ramp (so that the
+    darkfield, which BaSiC's medians feed, is not zero), with the
+    production BaSiC knobs; the unified flat against the truth
+    (correlation > 0.8, the bound of tests/test_flatfield_estimation_e2e.py)
+    and each slide's fit against the same fit on the CPU
+    (tests/test_torch_basic.py's tolerances: flatfield mean relative 1e-2,
+    darkfield mean absolute 2.5, baseline correlation 0.9999)."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch import ops, run_capsule
+    from aind_smartspim_destripe_torch.flatfield_estimation import (
+        slide_flat_estimation,
+        unify_fields,
+    )
+    from aind_smartspim_destripe_torch.io import imsave
+    from aind_smartspim_destripe_torch.models import BaSiC
+    from aind_smartspim_destripe_torch.utils.utils import (
+        read_image_directory_structure,
+    )
+
+    _, H, W = SHAPE
+    cols = [f"4713{2 * i}0" for i in range(FLAT_GRID[0])]
+    rows = [f"4613{2 * j}0" for j in range(FLAT_GRID[1])]
+    yy, xx = np.mgrid[0:H, 0:W]
+    flat_true = 1.0 + 0.3 * np.exp(-((yy - H / 2) ** 2 + (xx - W / 2) ** 2)
+                                   / (2 * (H / 3) ** 2))
+    dark_true = 100.0 * (1.0 + 0.5 * xx / W)
+    n = len(cols) * len(rows) * 2
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    base = torch.rand((n, 1, 1), generator=g, device=dev) * 300 + 300
+    tiles = (base * torch.as_tensor(flat_true, dtype=torch.float32,
+                                    device=dev)
+             + torch.as_tensor(dark_true, dtype=torch.float32, device=dev)
+             + torch.randn((n, H, 1), generator=g, device=dev) * 20
+             + torch.randn((n, H, W), generator=g, device=dev) * 10)
+    tiles = tiles.clamp_(0, 65535).to(torch.int32).cpu().numpy().astype(
+        np.uint16)
+    root = work / "flat"
+    i = 0
+    for col in cols:
+        for row in rows:
+            d = root / "Ex_488_Em_525" / col / f"{col}_{row}"
+            d.mkdir(parents=True)
+            for z in range(2):
+                imsave(str(d / f"{z}.tiff"), tiles[i], compression=0)
+                i += 1
+    struct = read_image_directory_structure(str(root), "Ex_.*")
+    channel = list(struct)[0]
+    cfg = run_capsule.PRODUCTION_PARAMETERS
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = slide_flat_estimation(struct, channel, [0, 1], BASIC_KNOBS,
+                                cfg["no_cells_config"], cfg["cells_config"])
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    for idx, r in res.items():
+        print(f"[flat-estimation] slide {idx}: {len(r['data'])} tiles "
+              f"{H}x{W} destriped in {r['seconds']['destripe']:.2f} s, "
+              f"BaSiC fit (working size 128, dark, sorted, 35 reweights) "
+              f"{r['seconds']['fit']:.2f} s with {r['host_syncs']} host "
+              f"syncs")
+    _require("flat-estimation", launches, SINGLE + ("row_median_batch",))
+    flat, _, _ = unify_fields(*([r[k] for r in res.values()]
+                                for k in ("flatfield", "darkfield",
+                                          "baseline")))
+    corr = np.corrcoef(flat.astype(np.float64).ravel(), flat_true.ravel())[0, 1]
+    print(f"[flat-estimation] {secs:.2f} s for 2 slides; unified flat vs "
+          f"the truth: correlation {corr:.4f} (min 0.8)")
+    if not corr > 0.8:
+        raise AssertionError("[flat-estimation] the flat was not recovered")
+    for idx, r in res.items():
+        t0 = time.perf_counter()
+        cpu = BaSiC(**BASIC_KNOBS, device="cpu").fit(np.stack(r["data"]))
+        rel = float(np.mean(np.abs(r["flatfield"] - cpu.flatfield)
+                            / cpu.flatfield))
+        dark = float(np.mean(np.abs(r["darkfield"] - cpu.darkfield)))
+        bcorr = float(np.corrcoef(r["baseline"], cpu.baseline)[0, 1])
+        print(f"[flat-estimation] slide {idx} card fit vs the CPU fit "
+              f"({time.perf_counter() - t0:.2f} s): flatfield mean relative "
+              f"{rel:.2e} (max 1e-2), darkfield mean abs {dark:.3f} (max "
+              f"2.5; darkfield mean {r['darkfield'].mean():.2f}, CPU "
+              f"{cpu.darkfield.mean():.2f}, truth {dark_true.mean():.2f}), "
+              f"baseline correlation {bcorr:.6f} (min 0.9999)")
+        if not (rel <= 1e-2 and dark <= 2.5 and bcorr > 0.9999):
+            raise AssertionError("[flat-estimation] the card's fit differs")
+    return launches
+
+
+def phase_multihost(work, plan, vol, flats, dark):
+    """Two ``python -m aind_smartspim_destripe_torch capsule`` processes
+    joined over gloo on a free localhost port, both on the card, on a
+    channel of MH_TILES tiles of MH_Z planes (two per laser side) with
+    flats and dark: disjoint ownership covering every tile, levels 0-2 of
+    each tile, one provenance write, one sampled plane per tile against the
+    CPU plain path; any failed process fails the phase."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch.io import open_zarr
+    from aind_smartspim_destripe_torch.ops import filter as tf
+
+    tiles = {name: (i // 2, vol[i * MH_Z:(i + 1) * MH_Z])
+             for i, name in enumerate(MH_TILES)}
+    t0 = time.perf_counter()
+    data, results, _ = build_capsule(work, None, flats, dark, tiles=tiles)
+    print(f"[multihost] channel of {len(tiles)} tiles ({MH_Z}, "
+          f"{vol.shape[1]}, {vol.shape[2]}) uint16 written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for pid in (0, 1):
+            env = dict(os.environ,
+                       DESTRIPE_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       DESTRIPE_NUM_PROCESSES="2",
+                       DESTRIPE_PROCESS_ID=str(pid))
+            log = open(work / f"process_{pid}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "aind_smartspim_destripe_torch",
+                 "capsule", "--data", str(data), "--results", str(results),
+                 "--scratch", str(work / "scratch")],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT),
+                log))
+        for p, _ in procs:
+            p.wait(timeout=600)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    wall = time.perf_counter() - t0
+    outs = [(work / f"process_{pid}.log").read_text() for pid in (0, 1)]
+    for (p, _), out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"[multihost] a process failed "
+                                 f"({p.returncode}):\n{out[-3000:]}")
+    owned = [{Path(t).name for t in re.findall(
+        r"Processing (\S+?\.zarr) - writing to", out)} for out in outs]
+    every = {f"{t}.zarr" for t in MH_TILES}
+    writes = [out.count("Provenance written:") for out in outs]
+    print(f"[multihost] 2 processes (gloo, 127.0.0.1:{port}), both on "
+          f"{torch.cuda.get_device_name(0)}: wall {wall:.2f} s for "
+          f"{len(tiles)} tiles = "
+          f"{len(tiles) * MH_Z * vol.shape[1] * vol.shape[2] / 1e6 / wall:.1f}"
+          f" MPix/s (process start-up included); process 0 owns "
+          f"{sorted(owned[0])}, process 1 {sorted(owned[1])}; provenance "
+          f"writes {writes}")
+    if owned[0] & owned[1] or owned[0] | owned[1] != every or not all(
+            "Multi-host run: process" in out for out in outs):
+        raise AssertionError("[multihost] tile ownership is not a partition")
+    if writes != [1, 0]:
+        raise AssertionError("[multihost] provenance not written once by "
+                             "process 0")
+    dark32 = dark.astype(np.float32)
+    got, ref = [], []
+    for i, (name, (side, v)) in enumerate(tiles.items()):
+        check_store(results, name, v.shape)
+        k = (5 * i) % MH_Z
+        got.append(np.asarray(open_zarr(str(
+            results / "destriped_data" / "Ex_488_Em_525"
+            / f"{name}.zarr"))["0"][0, 0, k]))
+        with torch.inference_mode():
+            ref.append(tf.destripe_batch(
+                plan, torch.from_numpy(v[k:k + 1]), 2500.0, flat=flats[side],
+                dark=dark32).numpy()[0])
+        lsb, flips, n, psnr, _ = _gate(got[-1], ref[-1])
+        print(f"[multihost] {name} plane {k} alone: max {lsb} LSB, {flips} "
+              f"pixels > 1 LSB ({flips / n:.2e}), PSNR {psnr:.1f} dB")
+    _gate_print("multihost", "one plane per tile vs the CPU plain path",
+                np.stack(got), np.stack(ref))
+    return wall
 
 
 if __name__ == "__main__":

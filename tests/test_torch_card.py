@@ -10,7 +10,9 @@ Tolerances. f32 outputs: kernel and twin sum the same products in f32 in
 another order (the twin's GEMM adds exact zeros besides), so they agree to
 a few ulps of the operands: 1e-5 of the largest operand magnitude. uint16
 outputs: 1 LSB (a value on a rounding boundary). Classifier sums, histogram
-counts and row medians: exact. The blend: 1e-5 of the bands' magnitude
+counts and row medians: exact. The dense levels' products: bit-equal to
+the same sums taken term by term in k order (the kernel's fixed order), and
+within 1e-5 of the operands' scale of ``torch.matmul``. The blend: 1e-5 of the bands' magnitude
 (the kernel and its twin round the same operations; expf may differ by an
 ulp). The row-sharded step against the plane path: 1 LSB outside a 1e-4
 flip budget (the same Otsu and mask decisions on the same coefficients,
@@ -25,6 +27,7 @@ torch = pytest.importorskip("torch")
 from aind_smartspim_destripe_torch import ops as tops  # noqa: E402
 from aind_smartspim_destripe_torch.ops import cuda_band as cb  # noqa: E402
 from aind_smartspim_destripe_torch.ops import cuda_blend as tbl  # noqa: E402
+from aind_smartspim_destripe_torch.ops import cuda_dense as td  # noqa: E402
 from aind_smartspim_destripe_torch.ops import cuda_hist as th  # noqa: E402
 from aind_smartspim_destripe_torch.ops import cuda_notch as tn  # noqa: E402
 from aind_smartspim_destripe_torch.ops import dual_band as tdb  # noqa: E402
@@ -35,6 +38,9 @@ F32_RTOL = 1e-5
 pytestmark = pytest.mark.cuda
 # the kernels only the row-sharded route launches
 HALO = (cb.an_x_lowpass_chunked, cb.syn_x_exp_chunked, tn.notch_select)
+# the kernels the plane step does not launch: the row-sharded route's, and
+# the unmasked median, reached through ops.filter._row_median alone
+OFF_PLANE = HALO + (tn.row_median_batch,)
 
 
 @pytest.fixture(scope="module")
@@ -156,6 +162,117 @@ def test_card_tail_kernels_match_twins(card, shape):
     assert bool((got[stripes] == 0).all())
 
 
+@pytest.mark.parametrize("shape", [(7,), (5, 8), (3, 17, 33), (2, 3, 9, 10),
+                                   (4, 1), (4, 2), (2, 10, 1002),
+                                   (64, 802, 1002), (128, 128, 12),
+                                   (8, 9000, 7)], ids=str)
+def test_card_row_median_batch_matches_twin(card, shape):
+    """The unmasked median kernel through ``ops.filter._row_median`` against
+    its twin (the sort), exactly, with ties, signed zeros and infinities
+    in the rows; (128, 128, 12) is BaSiC's darkfield median at working size
+    128 over 12 tiles; (8, 9000, 7) puts 72000 rows on the grid, past
+    grid.y's 65535."""
+    g = torch.Generator(device="cpu").manual_seed(shape[-1])
+    x = torch.randn(shape, generator=g) * 100
+    x = torch.where(torch.rand(shape, generator=g) < 0.2, x.round(), x)
+    flat = x.view(-1)
+    flat[::97] = 0.0
+    flat[1::97] = -0.0
+    flat[2::193] = float("inf")
+    flat[3::389] = -float("inf")
+    x = x.to(card)
+    tops.reset_launches()
+    got = tf._row_median(x, pallas=True)
+    assert tn.row_median_batch.launches == 1
+    want = tn.row_median_batch_plain(x)
+    assert got.shape == want.shape == shape[:-1] + (1,)
+    # exact, by value (-0.0 == +0.0), NaN (inf + -inf of an even row's
+    # middle pair) equal to NaN
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def test_card_row_median_batch_any_layout(card):
+    """A strided view (BaSiC's stack axis moved last) launches the kernel
+    on a contiguous copy and equals its twin exactly."""
+    g = torch.Generator(device="cpu").manual_seed(12)
+    x = (torch.randn((12, 64, 64), generator=g) * 100).to(card)
+    view = x.movedim(0, -1)
+    assert not view.is_contiguous()
+    tops.reset_launches()
+    got = tf._row_median(view, pallas=True)
+    assert tn.row_median_batch.launches == 1
+    assert torch.equal(got, tn.row_median_batch_plain(view))
+
+
+def _sequential(a, b):
+    """``a @ b`` as K sequential multiply-adds, one ``addcmul`` per term:
+    every entry sums its terms in k order from 0."""
+    K = a.shape[-1]
+    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-1] + (1,),
+                                             b.shape[:-2] + (1, 1))[:-1]
+                      + b.shape[-1:], device=a.device)
+    for k in range(K):
+        acc = torch.addcmul(acc, a[..., k:k + 1], b[..., k:k + 1, :])
+    return acc
+
+
+@pytest.mark.parametrize("form", ["planes @ operator^T", "operator @ planes",
+                                  "sliced operator @ planes",
+                                  "matrix @ matrix"])
+def test_card_dense_matmul_fixed_order(card, form):
+    """The dense-level product kernel on level 2 of a 1600x2000 plan's
+    operand forms (a transposed operator, a sliced one, planes on either
+    side): bit-equal to the term-by-term sum in k order, the same bits for
+    one plane alone as inside the batch, and close to ``torch.matmul``."""
+    g = torch.Generator(device="cpu").manual_seed(len(form))
+    x = (torch.randn((3, 403, 503), generator=g) * 0.3).to(card)
+    op_x = (torch.randn((254, 503), generator=g) / 503**0.5).to(card)
+    an_y = (torch.randn((408, 403), generator=g) / 403**0.5).to(card)
+    syn_y = (torch.randn((403, 408), generator=g) / 408**0.5).to(card)
+    y = (torch.randn((3, 204, 503), generator=g) * 0.3).to(card)
+    a, b = {
+        "planes @ operator^T": (x, op_x.t()),
+        "operator @ planes": (an_y, x),
+        "sliced operator @ planes": (syn_y[:, 204:], y),
+        "matrix @ matrix": (x[1], op_x.t()),
+    }[form]
+    tops.reset_launches()
+    got = td.dense_matmul(a, b)
+    assert td.dense_matmul.launches == 1
+    assert got.is_contiguous()
+    assert torch.equal(got, _sequential(a, b))
+    _close(got, torch.matmul(a, b),
+           scale=a.abs().max().item() * b.abs().max().item() * a.shape[-1])
+    if got.ndim == 3:
+        one = (td.dense_matmul(a[1:2], b) if a.ndim == 3
+               else td.dense_matmul(a, b[1:2]))
+        assert torch.equal(one, got[1:2])
+
+
+@pytest.mark.parametrize("hw", [(640, 768), (1600, 2000)], ids=str)
+def test_card_plane_output_independent_of_batch(card, hw):
+    """The step on the card gives a plane the same bits alone as in a
+    batch of four: every stage, the dense levels' products included, sums
+    in an order that does not depend on the batch."""
+    h, w = hw
+    plan = tf.build_plan(h, w, tf.FilterConfig(wavelet="db3", sigma=64,
+                                               max_threshold=3),
+                         tf.FilterConfig(wavelet="db3", sigma=128,
+                                         max_threshold=12))
+    rng = np.random.default_rng(23)
+    x = np.clip(300 + rng.normal(size=(4, h, 1)) * 50
+                + rng.normal(size=(4, h, w)) * 10
+                + np.array([0, 2800, 0, 2800])[:, None, None],
+                0, 65535).astype(np.uint16)
+    xs = torch.from_numpy(x).to(card)
+    tops.reset_launches()
+    whole = tf.destripe_batch(plan, xs, 2500.0, wrap=True)
+    assert td.dense_matmul.launches > 0
+    for p in range(4):
+        alone = tf.destripe_batch(plan, xs[p:p + 1], 2500.0, wrap=True)
+        assert torch.equal(alone, whole[p:p + 1]), p
+
+
 @pytest.mark.parametrize("epilogue", ["flat", "wrap"])
 def test_card_destripe_batch_matches_cpu(card, epilogue):
     """The whole step on the card (K1-K4 at level 0, the histogram and
@@ -178,7 +295,7 @@ def test_card_destripe_batch_matches_cpu(card, epilogue):
     got = tf.destripe_batch(plan, torch.from_numpy(x).to(card), 2500.0,
                             **kw).cpu().numpy()
     single = [k for k in tops.kernels()
-              if k is not tbl.blend_smooth_mix and k not in HALO]
+              if k is not tbl.blend_smooth_mix and k not in OFF_PLANE]
     assert all(k.launches > 0 for k in single)
     want = tf.destripe_batch(plan, torch.from_numpy(x), 2500.0, **kw).numpy()
     d = np.abs(got.astype(np.int64) - want.astype(np.int64))
@@ -246,7 +363,7 @@ def test_card_dual_band_matches_cpu(card):
     tops.reset_launches()
     got = tdb.dual_band_destripe_batch(plan, torch.from_numpy(x).to(card),
                                        100.0, -1.0).cpu().numpy()
-    assert all(k.launches > 0 for k in tops.kernels() if k not in HALO)
+    assert all(k.launches > 0 for k in tops.kernels() if k not in OFF_PLANE)
     want = tdb.dual_band_destripe_batch(plan, torch.from_numpy(x), 100.0,
                                         -1.0).numpy()
     d = np.abs(got.astype(np.float64) - want)

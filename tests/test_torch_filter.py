@@ -106,6 +106,22 @@ def test_otsu_batch_exact():
         jo.threshold_otsu(jnp.asarray(x[0])))
 
 
+def test_otsu_scan_is_the_cpu_cumsum():
+    """The Otsu tail scans in float64 and rounds per element, which is what
+    torch's CPU float32 cumsum does, bit for bit: the CPU path is unchanged
+    by it, and the card's scan no longer depends on the batch's shape."""
+    from aind_smartspim_destripe_torch.ops.otsu import _cumsum
+
+    rng = np.random.default_rng(12)
+    counts = rng.integers(0, 200_000, (5, 256)).astype(np.float32)
+    centers = (rng.random((5, 256)) * 1e3).astype(np.float32)
+    x = torch.from_numpy(counts * centers)
+    got = _cumsum(x)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, torch.cumsum(x, dim=1))
+    assert torch.equal(_cumsum(x[2:3]), got[2:3])
+
+
 def test_histogram_and_otsu_from_counts_exact():
     rng = np.random.default_rng(1)
     x = (rng.normal(size=(2, 30, 70)) ** 2).astype(np.float32)

@@ -1,0 +1,109 @@
+"""The port's exact row median against the JAX package on the CPU.
+
+``ops.filter._row_median(x, pallas=True)`` runs ``cuda_notch.row_median_batch``
+(on a CPU tensor: its plain twin, the sort) and ``pallas=False`` the sort;
+both are held exactly (``assert_array_equal``, which compares by value, so
+-0.0 equals +0.0 and NaN equals NaN) against the JAX
+``pallas_median.row_median_batch`` in interpret mode, the TPU kernel itself,
+and against JAX ``_row_median(x, pallas=False)``, on every shape the
+kernel's reshape handles (1-D, 2-D, N-D, n = 1 and 2, ragged n) and on
+rows with duplicates, signed zeros, infinities and NaN. Any other dtype
+takes the sort on both sides.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from aind_smartspim_destripe_tpu.ops import filter as jf  # noqa: E402
+from aind_smartspim_destripe_tpu.ops.pallas_median import (  # noqa: E402
+    row_median_batch as jax_row_median_batch,
+)
+from aind_smartspim_destripe_torch.ops import cuda_notch as tn  # noqa: E402
+from aind_smartspim_destripe_torch.ops import filter as tf  # noqa: E402
+
+SHAPES = [(7,), (5, 8), (3, 17, 33), (2, 3, 9, 10), (4, 1), (4, 2),
+          (2, 10, 1002)]
+
+
+def _jax_kernel(x):
+    return np.asarray(jax_row_median_batch(jnp.asarray(x), interpret=True))
+
+
+def _check(x):
+    """Both forms of the port against the kernel and the sort of JAX."""
+    t = torch.from_numpy(x)
+    want_kernel = _jax_kernel(x)
+    want_sort = np.asarray(jf._row_median(jnp.asarray(x), pallas=False))
+    got = tf._row_median(t, pallas=True).numpy()
+    got_sort = tf._row_median(t, pallas=False).numpy()
+    assert got.shape == want_kernel.shape == x.shape[:-1] + (1,)
+    np.testing.assert_array_equal(got, want_kernel)
+    np.testing.assert_array_equal(got, want_sort)
+    np.testing.assert_array_equal(got_sort, want_sort)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("scale", [1e-4, 1.0, 1e4])
+def test_row_median_matches_jax(shape, scale):
+    rng = np.random.default_rng(abs(hash((shape, scale))) % 2**31)
+    x = (rng.normal(size=shape) * scale).astype(np.float32)
+    x[..., 0] *= -1  # mixed signs
+    _check(x)
+
+
+def test_row_median_value_classes():
+    """Duplicates, +-0, +-inf and NaN (above +inf) in odd and even rows."""
+    inf, nan = np.inf, np.nan
+    x = np.array([
+        [0.0, -0.0, 1.0, 1.0, -2.0, 0.0],
+        [3.0, 3.0, 3.0, 3.0, 3.0, 3.0],
+        [-0.0, -0.0, 0.0, 0.0, -0.0, 0.0],
+        [inf, -inf, 1.0, 2.0, inf, -inf],
+        [inf, inf, inf, 5.0, -1.0, inf],
+        [-inf, -inf, -inf, -inf, 2.0, 1.0],
+        [nan, 1.0, 2.0, 3.0, 4.0, 5.0],
+        [nan, nan, nan, nan, 1.0, 2.0],
+        [nan, inf, 7.0, -inf, 0.5, 0.5],
+    ], np.float32)
+    _check(x)
+    _check(x[:, :5])  # odd rows
+    assert tf._row_median(torch.from_numpy(x[6:7])).item() == 3.5
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 1001, 1002])
+def test_row_median_ragged_lengths(n):
+    rng = np.random.default_rng(n)
+    x = rng.integers(-5, 6, size=(3, 4, n)).astype(np.float32)  # many ties
+    _check(x)
+
+
+@pytest.mark.parametrize("dtype", [np.float16, np.int32])
+def test_non_f32_dtypes_take_the_sort(dtype, monkeypatch):
+    """Another dtype sorts on both sides, even with ``pallas=True``: the
+    port never reaches the kernel's wrapper for it."""
+    def no_kernel(x):
+        raise AssertionError("row_median_batch was called")
+
+    monkeypatch.setattr(tn, "row_median_batch", no_kernel)
+    x = (np.random.default_rng(3).normal(size=(3, 5, 9)) * 100).astype(dtype)
+    want = np.asarray(jf._row_median(jnp.asarray(x), pallas=True))
+    for pallas in (True, False):
+        got = tf._row_median(torch.from_numpy(x), pallas=pallas).numpy()
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def test_row_median_batch_wrapper_twin_and_launch_count():
+    """On a CPU tensor the wrapper takes its twin (the sort) and counts no
+    launch; the twin is the module's exported plain form."""
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(4, 6, 11)).astype(np.float32))
+    tn.row_median_batch.launches = 0
+    got = tn.row_median_batch(x)
+    assert tn.row_median_batch.launches == 0
+    assert torch.equal(got, tn.row_median_batch_plain(x))
+    assert tn.row_median_batch_plain is tn.row_median

@@ -125,7 +125,8 @@ def test_registry_lists_every_kernel():
     assert names == ["an_x_lowpass_log1p", "an_y_pass", "syn_y_pass",
                      "syn_x_exp", "an_x_lowpass_chunked", "syn_x_exp_chunked",
                      "histogram256_batch", "row_median_masked",
-                     "notch_delta", "notch_select", "blend_smooth_mix"]
+                     "row_median_batch", "notch_delta", "notch_select",
+                     "blend_smooth_mix", "dense_matmul"]
     tops.reset_launches()
     assert all(k.launches == 0 for k in tops.kernels())
 
@@ -139,3 +140,5 @@ def test_wrappers_refuse_other_devices():
         tn.row_median_masked(x, t)
     with pytest.raises(ValueError, match="no kernel or plain route"):
         tn.notch_select(x, t, t)
+    with pytest.raises(ValueError, match="no kernel or plain route"):
+        tn.row_median_batch(x)

@@ -103,7 +103,8 @@ def test_second_run_resumes_through_journal(capsule, monkeypatch):
 
 
 def test_subprocess_run_never_imports_jax(tmp_path):
-    """Every module of the port imported (``parallel.*`` included), and
+    """Every module of the port imported (``parallel.*``, the facade, the
+    file-batch destriper, the CLI, BaSiC and flat estimation included), and
     the CPU capsule run, in a fresh interpreter: neither jax nor any module
     of the JAX package is loaded."""
     data, results = build_capsule(tmp_path)
@@ -114,8 +115,10 @@ def test_subprocess_run_never_imports_jax(tmp_path):
         "pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert {'aind_smartspim_destripe_torch.parallel.halo', "
-        "'aind_smartspim_destripe_torch.parallel.mesh'} <= set(names)\n"
+        "assert {'aind_smartspim_destripe_torch.' + m for m in ("
+        "'parallel.halo', 'parallel.mesh', 'parallel.distributed', "
+        "'filtering', 'destriper', 'destriper_params', '__main__', "
+        "'models.basic', 'flatfield_estimation')} <= set(names)\n"
         "from aind_smartspim_destripe_torch import run_capsule\n"
         f"run_capsule.run({str(data)!r}, {str(results)!r}, "
         f"{str(tmp_path / 'scratch')!r}, devices=[torch.device('cpu')])\n"
@@ -128,7 +131,7 @@ def test_subprocess_run_never_imports_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "NO_JAX_OK" in res.stdout
-    assert int(res.stdout.split("NO_JAX_OK")[1].split()[0]) >= 20
+    assert int(res.stdout.split("NO_JAX_OK")[1].split()[0]) >= 28
     assert set(_tile(results, "471320_461360").keys()) == {"0", "1", "2"}
 
 
@@ -147,6 +150,21 @@ def test_device_resolution(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pipeline.resolve_device(None)
+
+
+def test_one_device(monkeypatch):
+    """A single-device entry point's device: the named one, or None for
+    the current CUDA device; no CPU fallback."""
+    from aind_smartspim_destripe_torch.parallel.mesh import one_device
+
+    assert one_device("cpu") == torch.device("cpu")
+    assert one_device(torch.device("cuda", 2)) == torch.device("cuda", 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        one_device(None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert one_device(None) == torch.device("cuda", 1)
 
 
 def test_codec_build_with_zstd_shim(tmp_path, monkeypatch):
