@@ -14,92 +14,66 @@
 // the one cuBLAS's own kernels take at the row counts of a 64-plane batch
 // (scripts/batch_stages.py compares them), so those batches keep their bits.
 //
-// Operands are read through element strides, so a transposed or sliced
-// operator and a batch stride of 0 (one operator for every plane) need no
-// copy. The tile is the notch GEMM's (csrc/notch.cu): a block of 256
-// threads computes a 128 x 64 output tile, each thread 8 rows x 4 columns,
-// over K-steps of 16 staged in shared memory; each operand's tile is loaded
-// along its unit-stride axis when it has one, so a warp's loads coalesce.
+// The tile is gemm_f32.cuh's at 64 x 64 (64 threads: at the dense levels'
+// short K, four times as many blocks as the 128 x 128 tile, which
+// notch_select runs at its long K); its note has the design and the order
+// contract; bound by its FP32 operations. Operands are read through element
+// strides, so a transposed or sliced operator and a batch stride of 0 (one
+// operator for every plane) need no copy. The wrapper (ops/cuda_dense.py)
+// folds the batch into the rows where the planes are stacked evenly and the
+// operator is shared (planes @ operator^T: M = B * m, as cuBLAS does), keeps
+// a z grid otherwise (operator @ planes), and picks the copy widths.
 //
 // The entry point launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include "gemm_f32.cuh"
+
 namespace {
 
-constexpr int BM = 128, BN = 64, BK = 16, TM = 8, TN = 4;
-constexpr int kThreads = (BM / TM) * (BN / TN);
+constexpr int kEdge = 64;  // the output tile's edge
+using Tile = gemm_f32::Tile<kEdge, kEdge>;
 
 // c[z, r, j] = sum_k a[z*sab + r*sam + k*sak] * b[z*sbb + k*sbk + j*sbn];
 // c is (batch, m, n) row-major.
-__global__ void __launch_bounds__(kThreads, 3)
+template <int VA, bool kBUnitN, int VB>
+__global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
     dense_matmul_kernel(const float* __restrict__ a,
                         const float* __restrict__ b, float* __restrict__ c,
                         int m, int n, int K, long long sab, long long sam,
                         long long sak, long long sbb, long long sbk,
                         long long sbn) {
-  __shared__ __align__(16) float As[BK][BM + 4];  // A tile, k-major
-  __shared__ __align__(16) float Bs[BK][BN];
-  const int z = blockIdx.z;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const float* az = a + z * sab;
-  const float* bz = b + z * sbb;
-  const bool a_rows = sak == 1;  // load A along k, else along its rows
-  const bool b_cols = sbn == 1;  // load B along its columns, else along k
+  const long long z = blockIdx.z;
+  gemm_f32::tile_product<kEdge, kEdge, VA, kBUnitN, VB>(
+      a + z * sab, sam, sak, b + z * sbb, sbk, sbn, c + z * m * n, n, m, n,
+      K, blockIdx.y * kEdge, blockIdx.x * kEdge);
+}
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+template <int VA, bool kBUnitN, int VB>
+void launch(const float* a, const float* b, float* c, int batch, int m, int n,
+            int K, long long sab, long long sam, long long sak, long long sbb,
+            long long sbk, long long sbn, cudaStream_t stream) {
+  const dim3 grid((n + kEdge - 1) / kEdge, (m + kEdge - 1) / kEdge, batch);
+  dense_matmul_kernel<VA, kBUnitN, VB><<<grid, Tile::kThreads, 0, stream>>>(
+      a, b, c, m, n, K, sab, sam, sak, sbb, sbk, sbn);
+}
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int e = 0; e < BM * BK / kThreads; ++e) {
-      const int idx = tid + e * kThreads;
-      const int mm = a_rows ? idx / BK : idx % BM;
-      const int kk = a_rows ? idx % BK : idx / BM;
-      const int r = row0 + mm, k = k0 + kk;
-      As[kk][mm] = (r < m && k < K) ? az[r * sam + k * sak] : 0.0f;
-    }
-#pragma unroll
-    for (int e = 0; e < BN * BK / kThreads; ++e) {
-      const int idx = tid + e * kThreads;
-      const int kk = b_cols ? idx / BN : idx % BK;
-      const int nn = b_cols ? idx % BN : idx / BK;
-      const int k = k0 + kk, j = col0 + nn;
-      Bs[kk][nn] = (k < K && j < n) ? bz[k * sbk + j * sbn] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bb[TN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* cz = c + (size_t)z * m * n;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    if (r >= m) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = col0 + tx * TN + j;
-      if (col < n) cz[(size_t)r * n + col] = acc[i][j];
-    }
+template <int VA>
+void launch_b(const float* a, const float* b, float* c, int batch, int m,
+              int n, int K, long long sab, long long sam, long long sak,
+              long long sbb, long long sbk, long long sbn, int vb,
+              cudaStream_t stream) {
+  if (sbn != 1) {
+    launch<VA, false, 1>(a, b, c, batch, m, n, K, sab, sam, sak, sbb, sbk,
+                         sbn, stream);
+  } else if (vb == 2) {
+    launch<VA, true, 2>(a, b, c, batch, m, n, K, sab, sam, sak, sbb, sbk,
+                        sbn, stream);
+  } else {
+    launch<VA, true, 1>(a, b, c, batch, m, n, K, sab, sam, sak, sbb, sbk,
+                        sbn, stream);
   }
 }
 
@@ -108,16 +82,20 @@ __global__ void __launch_bounds__(kThreads, 3)
 extern "C" {
 
 // a, b f32 through element strides (a batch stride of 0 repeats an
-// operand for every z) -> c (batch, m, n) f32; batch and ceil(m / 128) at
-// most 65535.
+// operand for every z) -> c (batch, m, n) f32; va, vb 1 or 2, the floats
+// per load along a's k and along b's columns (2: unit stride there, 8-byte
+// aligned base and even other strides); batch and ceil(m / 64) at most
+// 65535.
 int destripe_dense_matmul(const float* a, const float* b, float* c, int batch,
                           int m, int n, int K, long long sab, long long sam,
                           long long sak, long long sbb, long long sbk,
-                          long long sbn, void* stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
-  dense_matmul_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      a, b, c, m, n, K, sab, sam, sak, sbb, sbk, sbn);
+                          long long sbn, int va, int vb, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((va != 1 && va != 2) || (vb != 1 && vb != 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  (va == 2 ? launch_b<2> : launch_b<1>)(a, b, c, batch, m, n, K, sab, sam,
+                                        sak, sbb, sbk, sbn, vb, s);
   return static_cast<int>(cudaGetLastError());
 }
 

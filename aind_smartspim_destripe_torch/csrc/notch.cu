@@ -35,9 +35,11 @@
 // in column chunks, since a halo-width bank does not fit there. Here the
 // operator is the same f32 (w, 2w) [cells | no-cells] layout as the notch
 // tail's, read tile by tile from device memory, so no chunking is needed.
-// It is bound by its operations (2 h w^2 per plane, FP32 FMAs): the same
-// 128 x 64 tile GEMM as the notch tail, in a kernel of its own so that the
-// tail's register count, which sets its blocks per SM, does not move.
+// It is bound by its operations (2 h w^2 per plane, FP32 FMAs) and runs
+// gemm_f32.cuh's pipelined tile, the one dense.cu runs, under the same order
+// contract (each output summed in k order by one thread, one fmaf per term
+// from 0); the notch tail keeps its own 128 x 64 tile and register count,
+// which set its blocks per SM.
 //
 // The median is exact: a radix select over the bits of the float (4 passes
 // of 8 bits, counts in a shared-memory histogram with integer atomics),
@@ -58,6 +60,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "gemm_f32.cuh"
 
 namespace {
 
@@ -262,70 +266,24 @@ __global__ void __launch_bounds__(kNotchThreads, 3)
 }
 
 // out[b, r, c] = sum_k x[b, r, k] * op[k, sel[b]*w + c]; op is (w, 2w)
-// row-major. The tiles of notch_kernel without its mask and delta.
-__global__ void __launch_bounds__(kNotchThreads, 3)
-    notch_select_kernel(const float* __restrict__ x, const int* __restrict__ sel,
+// row-major. gemm_f32.cuh's 128 x 128 tile (K = w runs long on the route,
+// where the larger tile wins), V floats per load along the rows of x and
+// of the bank.
+constexpr int kSelectTile = 128;
+
+template <int V>
+__global__ void __launch_bounds__(
+    gemm_f32::Tile<kSelectTile, kSelectTile>::kThreads,
+    gemm_f32::Tile<kSelectTile, kSelectTile>::kMinBlocks)
+    notch_select_kernel(const float* __restrict__ x,
+                        const int* __restrict__ sel,
                         const float* __restrict__ op, float* __restrict__ out,
                         int h, int w) {
-  __shared__ __align__(16) float As[BK][BM + 4];  // A tile, k-major
-  __shared__ __align__(16) float Bs[BK][BN];
-  const int b = blockIdx.z;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const size_t ldo = 2 * (size_t)w;
-  const float* bop = op + (size_t)sel[b] * w;
-  const size_t plane = (size_t)b * h * w;
-  const float* xb = x + plane;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < w; k0 += BK) {
-#pragma unroll
-    for (int e = 0; e < BM * BK / kNotchThreads; ++e) {
-      const int idx = tid + e * kNotchThreads;
-      const int m = idx / BK, kk = idx % BK;
-      const int r = row0 + m, k = k0 + kk;
-      As[kk][m] = (r < h && k < w) ? xb[(size_t)r * w + k] : 0.0f;
-    }
-#pragma unroll
-    for (int e = 0; e < BN * BK / kNotchThreads; ++e) {
-      const int idx = tid + e * kNotchThreads;
-      const int kk = idx / BN, n = idx % BN;
-      const int k = k0 + kk, c = col0 + n;
-      Bs[kk][n] = (k < w && c < w) ? bop[(size_t)k * ldo + c] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bb[TN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    if (r >= h) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx * TN + j;
-      if (c < w) out[plane + (size_t)r * w + c] = acc[i][j];
-    }
-  }
+  const size_t plane = (size_t)blockIdx.z * h * w;
+  gemm_f32::tile_product<kSelectTile, kSelectTile, V, true, V>(
+      x + plane, w, 1, op + (size_t)sel[blockIdx.z] * w, 2 * (long long)w, 1,
+      out + plane, w, h, w, w, blockIdx.y * kSelectTile,
+      blockIdx.x * kSelectTile);
 }
 
 }  // namespace
@@ -371,13 +329,23 @@ int destripe_notch(const float* x, const float* med, const float* thr,
 }
 
 // x (B, h, w) f32, sel (B,) int32 in {0, 1}, op (w, 2w) f32 -> out
-// (B, h, w) f32.
+// (B, h, w) f32; v 1 or 2, the floats per load along x's rows and the
+// bank's (2: w even and both bases 8-byte aligned); B and ceil(h / 128) at
+// most 65535.
 int destripe_notch_select(const float* x, const int* sel, const float* op,
-                          float* out, int B, int h, int w, void* stream) {
-  const dim3 grid((w + BN - 1) / BN, (h + BM - 1) / BM, B);
-  notch_select_kernel<<<grid, kNotchThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(x, sel, op, out,
-                                                             h, w);
+                          float* out, int B, int h, int w, int v,
+                          void* stream) {
+  const dim3 grid((w + kSelectTile - 1) / kSelectTile,
+                  (h + kSelectTile - 1) / kSelectTile, B);
+  const int threads = gemm_f32::Tile<kSelectTile, kSelectTile>::kThreads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (v == 2) {
+    notch_select_kernel<2><<<grid, threads, 0, s>>>(x, sel, op, out, h, w);
+  } else if (v == 1) {
+    notch_select_kernel<1><<<grid, threads, 0, s>>>(x, sel, op, out, h, w);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

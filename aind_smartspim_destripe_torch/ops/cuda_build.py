@@ -2,19 +2,22 @@
 Build, load and launch the port's CUDA kernels.
 
 The CUDA sources in ``csrc/`` of this package (``band.cu``: K1-K4,
-``hist.cu``: the Otsu histogram, ``notch.cu``: row medians (masked and plain), the notch
-tail and the per-plane notch product, ``blend.cu``: the dual-band blend,
-``dense.cu``: the dense levels' fixed-order products) are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all
-started together, and linked into one shared library with a plain C
-interface, loaded with ``ctypes``. The
-build happens at first use, into ``build/torch_kernels/`` at the root of
-the checkout (listed in ``.gitignore``), under a name keyed by the sources'
-content, so an edited source never loads a stale library. Nothing here runs
-at import time: the CPU tests import this module on hosts without ``nvcc``.
+``hist.cu``: the Otsu histogram, ``notch.cu``: row medians (masked and
+plain), the notch tail and the per-plane notch product, ``blend.cu``: the
+dual-band blend, ``dense.cu``: the dense levels' fixed-order products;
+``notch.cu`` and ``dense.cu`` share the GEMM tile of ``gemm_f32.cuh``) are
+compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
+together, and linked into one shared library with a plain C interface,
+loaded with ``ctypes``. The build happens at first use, into
+``build/torch_kernels/`` at the root of the checkout (listed in
+``.gitignore``), under a name keyed by the content of the sources and
+headers (:func:`digest_inputs`), so an edited file never loads a stale
+library. Nothing here runs at import time: the CPU tests import this module
+on hosts without ``nvcc``.
 
 The wrappers of ``cuda_band``, ``cuda_hist``, ``cuda_notch``,
-``cuda_blend`` and ``cuda_dense`` dispatch with :func:`on_cuda`, validate with :func:`check`
-and launch with :func:`launch`.
+``cuda_blend`` and ``cuda_dense`` dispatch with :func:`on_cuda`, validate
+with :func:`check` and launch with :func:`launch`.
 """
 
 from __future__ import annotations
@@ -32,12 +35,11 @@ from typing import Optional
 import torch
 
 __all__ = ["kernel_library", "build_dir", "find_nvcc", "SOURCES",
-           "on_cuda", "check", "launch"]
+           "digest_inputs", "on_cuda", "check", "launch"]
 
-SOURCES = tuple(
-    Path(__file__).resolve().parents[1] / "csrc" / name
-    for name in ("band.cu", "hist.cu", "notch.cu", "blend.cu", "dense.cu")
-)
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = tuple(CSRC / name for name in ("band.cu", "hist.cu", "notch.cu",
+                                         "blend.cu", "dense.cu"))
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 _FLAGS = (_ARCH, "-std=c++17", "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
@@ -74,26 +76,39 @@ _SIGNATURES = {
     + [ctypes.c_void_p],
     "destripe_notch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
-    "destripe_notch_select": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    "destripe_notch_select": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
     "destripe_blend": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     "destripe_dense_matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-    + [ctypes.c_longlong] * 6 + [ctypes.c_void_p],
+    + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
 }
+
+
+def digest_inputs() -> tuple:
+    """The files the library's name is keyed by: the sources and every
+    header beside them (``gemm_f32.cuh``, which ``notch.cu`` and
+    ``dense.cu`` include), so an edited header never loads a stale
+    library."""
+    return SOURCES + tuple(sorted(CSRC.glob("*.cuh")))
 
 
 @functools.lru_cache(maxsize=None)
 def kernel_library() -> ctypes.CDLL:
     """The compiled kernel library (built on first call). Raises
     RuntimeError when ``nvcc`` is missing or the build fails, with the
-    compiler's message. ``kernel_library.build_seconds`` and ``.build_log``
-    record the last build (0.0 and '' when a built library was reused)."""
+    compiler's message. ``kernel_library.build_seconds`` records the build
+    (0.0 when a built library was reused) and ``.build_log`` the compiler's
+    output of the build that made the library (kept beside it, so a reused
+    library still reports its registers and spills)."""
     digest = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in SOURCES:
+    for src in digest_inputs():
         digest.update(src.name.encode() + src.read_bytes())
     out = build_dir() / f"libdestripe_kernels_{digest.hexdigest()[:16]}.so"
-    kernel_library.build_seconds, kernel_library.build_log = 0.0, ""
+    log_file = out.with_suffix(".log")
+    kernel_library.build_seconds = 0.0
+    kernel_library.build_log = (log_file.read_text() if log_file.exists()
+                                else "")
     if not out.exists():
         nvcc = find_nvcc()
         if nvcc is None:
@@ -134,6 +149,7 @@ def kernel_library() -> ctypes.CDLL:
             name, rc, log = failed[0]
             raise RuntimeError(
                 f"nvcc failed to build {name} (exit {rc}):\n" + log[-8000:])
+        log_file.write_text(kernel_library.build_log)
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():

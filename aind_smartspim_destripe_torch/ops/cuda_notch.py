@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .cuda_build import check, launch, on_cuda
+from .cuda_dense import _GRID_MAX, copy_width
 
 __all__ = [
     "row_median",
@@ -41,6 +42,7 @@ __all__ = [
     "notch_delta",
     "notch_select",
     "stacked_notch_operators",
+    "plan_notch_select",
     "row_median_batch_plain",
     "row_median_masked_plain",
     "notch_delta_plain",
@@ -49,6 +51,7 @@ __all__ = [
 ]
 
 _MEDIAN_THREADS = 256
+_SELECT_TILE = 128  # notch_select's output tile edge (csrc/notch.cu)
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +227,20 @@ def notch_select_plain(x, sel, bank):
     ])
 
 
+def plan_notch_select(B: int, h: int, w: int, x_ptr: int = 0,
+                      bank_ptr: int = 0) -> int:
+    """Floats per load of the notch_select launch for B planes of (h, w)
+    at these addresses (bytes; only their alignment is read), by the shared
+    GEMM tile's rule (:func:`.cuda_dense.copy_width`; the bank's rows are
+    read from column ``sel * w``, so an odd w gives 4-byte loads). The tile
+    is always the 128 x 128 one: K = w runs long on the route. Raises
+    ValueError where the kernel's grid would overflow."""
+    if B > _GRID_MAX or -(-h // _SELECT_TILE) > _GRID_MAX:
+        raise ValueError(f"{B} planes of {h} rows exceed the kernel's grid")
+    return min(copy_width(x_ptr, 1, (w, h * w)),
+               copy_width(bank_ptr, 1, (2 * w, w)))
+
+
 def notch_select(
     x: torch.Tensor,  # (B, h, w) float32 inpainted band
     sel: torch.Tensor,  # (B,) int32: 0 = cells operator, 1 = no-cells
@@ -232,8 +249,10 @@ def notch_select(
     """``out[b] = x[b] @ bank[:, sel[b]*w : (sel[b]+1)*w]`` -> (B, h, w)
     float32: each plane multiplies only its own operator. The TPU kernel
     streams its bank in output-column chunks to fit scoped VMEM; the card's
-    kernel reads the operator tile by tile from device memory, so it needs
-    no chunking and runs in one launch over the full width."""
+    kernel (the GEMM tile of ``csrc/gemm_f32.cuh``) reads the operator tile
+    by tile from device memory, so it needs no chunking and runs in one
+    launch over the full width; each output is summed in k order, one FMA
+    per term from 0."""
     if not on_cuda(x):
         return notch_select_plain(x, sel, bank)
     B, h, w = x.shape
@@ -241,9 +260,10 @@ def notch_select(
     check("x", x, (torch.float32,), dev)
     check("sel", sel, (torch.int32,), dev, (B,))
     check("bank", bank, (torch.float32,), dev, (w, 2 * w))
+    v = plan_notch_select(B, h, w, x.data_ptr(), bank.data_ptr())
     out = torch.empty((B, h, w), dtype=torch.float32, device=dev)
     launch("destripe_notch_select", dev, x.data_ptr(), sel.data_ptr(),
-           bank.data_ptr(), out.data_ptr(), B, h, w)
+           bank.data_ptr(), out.data_ptr(), B, h, w, v)
     notch_select.launches += 1
     return out
 

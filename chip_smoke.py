@@ -11,7 +11,9 @@ Phases, each printing its lines:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    the TF32 flags, the blosc-zstd codec backend, and the time to make
    every visible card's context (once, so the timed runs below start warm);
-2. the build of the CUDA kernels from ``aind_smartspim_destripe_torch/csrc``;
+2. the build of the CUDA kernels from ``aind_smartspim_destripe_torch/csrc``,
+   with each kernel's registers and spilled bytes (and the shared memory of
+   the shared GEMM tile's instances, which must spill nothing);
 3. each kernel of the destripe step against its plain PyTorch twin on the
    card, on the same inputs, at the step's shapes for a 64-plane batch of
    1600x2000 planes: the banded DWT passes K1-K4 at levels 0 and 1, and the
@@ -31,8 +33,9 @@ Phases, each printing its lines:
    and a 4-D stack past grid.y's 65535 rows, exactly against its twin, with
    ``torch.kthvalue`` of the middle ranks as the library call; then
    ``dense_matmul``, the dense levels' fixed-order product, on the four
-   products of dense level 2 against ``torch.matmul`` (its twin and the
-   library call), each also bit-equal for one plane alone and in the batch;
+   products of every dense level (2-7) against ``torch.matmul`` (its twin
+   and the library call), each also bit-equal for one plane alone and in
+   the batch, per level and summed over a step;
 4. the port's main paths: a synthetic capsule (one channel, one tile of
    128 x 1600 x 2000 uint16 planes with dark and flats, in the layout of
    tests/test_run_capsule_e2e.py) through ``run_capsule.run()`` on the card
@@ -57,7 +60,8 @@ Phases, each printing its lines:
    row-sharded route's
    kernel calls against their twins at the route's level-0 and level-1
    shard shapes of a 16384 x 18000 plane (K1 and K4 on row shards, the
-   per-plane notch product, the histogram with a row bound); ``[slice-halo]``
+   per-plane notch product with each operator choice, the histogram with a
+   row bound); ``[slice-halo]``
    ``run_capsule.run`` on a tile of 4 x 16384 x 18000 uint16 planes with
    flats and dark, on the mesh, through the row-sharded route (the plane
    alone passes ``DESTRIPE_HALO_THRESHOLD_BYTES``); ``[step-halo]`` /
@@ -536,49 +540,91 @@ def phase_median(dev, seed):
 
 def phase_dense(plan, consts, dev, seed):
     """``dense_matmul`` against its twin (``torch.matmul``, also the
-    library call) on the four products of dense level 2 at B=64, in the
-    order the step runs them; each also bit-equal for the batch's first
-    plane alone (the fixed order), and whether it equals cuBLAS's bits."""
+    library call) on the four products of every dense level (2-7) at B=64,
+    in the order the step runs them; each also bit-equal for the batch's
+    first plane alone (the fixed order), and whether it equals cuBLAS's
+    bits; where the wrapper plans 8-byte loads, the kernel also launched
+    directly at 4-byte loads (bit-equal, timed); then the sums over a
+    step's 24 products of the kernel's and of cuBLAS's times."""
     import torch
 
     from aind_smartspim_destripe_torch.ops import cuda_dense as td
+    from aind_smartspim_destripe_torch.ops.cuda_build import launch
 
     g = torch.Generator(device=dev).manual_seed(seed + 17)
-    n, lvl = plan.n_levels, 2
-    h, w = plan.ladder[n - lvl]  # level 2's input: level 1's cA band
-    L = consts["an_x_lo"][lvl].shape[0]
-    a = torch.randn((BATCH, h, w), generator=g, device=dev) * 0.3
-    an_y, syn_y = consts["an_y"][lvl], consts["syn_y"][n - 1 - lvl]
-    up = torch.randn((BATCH, syn_y.shape[1], L), generator=g,
-                     device=dev) * 0.01
-    st = torch.randn((BATCH, syn_y.shape[0], L), generator=g,
-                     device=dev) * 0.01
-    x_lo = torch.randn((BATCH, h, L), generator=g, device=dev) * 0.3
-    forms = {
-        "an_x": (a, consts["an_x_lo"][lvl].t()),
-        "an_y": (an_y, x_lo),
-        "syn_y": (syn_y, up),
-        "syn_x": (st, consts["syn_x_lo"][n - 1 - lvl].t()),
-    }
+    n = plan.n_levels
     rec = {"dense_matmul": {}}
-    for key, (p, q) in forms.items():
-        _compare(rec, "dense_matmul", key, lambda: td.dense_matmul(p, q),
-                 lambda: td.dense_matmul_plain(p, q),
-                 scale=p.abs().max().item() * q.abs().max().item()
-                 * p.shape[-1], ins=(p, q),
-                 ops=2.0 * BATCH * p.shape[-2] * q.shape[-1] * p.shape[-1],
-                 library=lambda: torch.matmul(p, q))
-        got = td.dense_matmul(p, q)
-        one = td.dense_matmul(p[:1], q) if p.ndim == 3 else td.dense_matmul(
-            p, q[:1])
-        cublas = torch.equal(got, torch.matmul(p, q))
-        print(f"[kernels] dense_matmul level {lvl} {key}: {tuple(p.shape)} "
-              f"@ {tuple(q.shape)}; one plane alone bit-equal to it in the "
-              f"batch: {torch.equal(one, got[:1])}; bit-equal to cuBLAS at "
-              f"B={BATCH}: {cublas}")
-        if not torch.equal(one, got[:1]):
-            raise AssertionError("dense_matmul depends on the batch")
-        rec["dense_matmul"][key]["cublas_bit_equal"] = cublas
+    for lvl in range(2, n):
+        h, w = plan.ladder[n - lvl]  # the level's input: the finer cA band
+        L = consts["an_x_lo"][lvl].shape[0]
+        a = torch.randn((BATCH, h, w), generator=g, device=dev) * 0.3
+        an_y, syn_y = consts["an_y"][lvl], consts["syn_y"][n - 1 - lvl]
+        up = torch.randn((BATCH, syn_y.shape[1], L), generator=g,
+                         device=dev) * 0.01
+        st = torch.randn((BATCH, syn_y.shape[0], L), generator=g,
+                         device=dev) * 0.01
+        x_lo = torch.randn((BATCH, h, L), generator=g, device=dev) * 0.3
+        forms = {
+            "an_x": (a, consts["an_x_lo"][lvl].t()),
+            "an_y": (an_y, x_lo),
+            "syn_y": (syn_y, up),
+            "syn_x": (st, consts["syn_x_lo"][n - 1 - lvl].t()),
+        }
+        for form, (p, q) in forms.items():
+            key = f"{lvl} {form}"
+            _compare(rec, "dense_matmul", key, lambda: td.dense_matmul(p, q),
+                     lambda: td.dense_matmul_plain(p, q),
+                     scale=p.abs().max().item() * q.abs().max().item()
+                     * p.shape[-1], ins=(p, q),
+                     ops=2.0 * BATCH * p.shape[-2] * q.shape[-1]
+                     * p.shape[-1],
+                     library=lambda: torch.matmul(p, q))
+            got = td.dense_matmul(p, q)
+            one = (td.dense_matmul(p[:1], q) if p.ndim == 3
+                   else td.dense_matmul(p, q[:1]))
+            cublas = torch.equal(got, torch.matmul(p, q))
+            pl = td.plan_dense_matmul(p.shape, p.stride(), q.shape,
+                                      q.stride(), p.data_ptr() % 8,
+                                      q.data_ptr() % 8)
+            narrow = None
+            if (pl.va, pl.vb) != (1, 1):
+                c4 = torch.empty_like(got)
+
+                def four(p=p, q=q, pl=pl, c4=c4):
+                    launch("destripe_dense_matmul", dev, p.data_ptr(),
+                           q.data_ptr(), c4.data_ptr(), pl.batch, pl.m, pl.n,
+                           pl.K, *pl.sa, *pl.sb, 1, 1)
+                    return c4
+
+                if not torch.equal(four(), got):
+                    raise AssertionError("dense_matmul's copy widths differ")
+                narrow = _time_ms(four)
+                del c4
+            print(f"[kernels] dense_matmul level {key}: {tuple(p.shape)} @ "
+                  f"{tuple(q.shape)} as {pl.batch} x ({pl.m}, {pl.n}), "
+                  f"{4 * pl.va}- and {4 * pl.vb}-byte loads"
+                  + ("" if narrow is None else
+                     f" (4- and 4-byte: {narrow:.4f} ms, bit-equal)")
+                  + f"; one plane alone bit-equal to it in the "
+                  f"batch: {torch.equal(one, got[:1])}; bit-equal to cuBLAS "
+                  f"at B={BATCH}: {cublas}")
+            if not torch.equal(one, got[:1]):
+                raise AssertionError("dense_matmul depends on the batch")
+            rec["dense_matmul"][key].update(cublas_bit_equal=cublas,
+                                            copy_widths=[pl.va, pl.vb],
+                                            ms_4byte_copies=narrow)
+        del a, up, st, x_lo, forms
+    rows = rec["dense_matmul"].values()
+    for lvl in range(2, n):
+        lv = [r for k, r in rec["dense_matmul"].items()
+              if k.startswith(f"{lvl} ")]
+        print(f"[kernels] dense_matmul level {lvl}: four products "
+              f"{sum(r['ms'] for r in lv):.4f} ms, torch.matmul "
+              f"{sum(r['library_ms'] for r in lv):.4f} ms")
+    kern, lib = (sum(r[k] for r in rows) for k in ("ms", "library_ms"))
+    print(f"[kernels] dense_matmul per step (levels 2-{n - 1}, "
+          f"{len(rows)} products): {kern:.4f} ms against torch.matmul's "
+          f"{lib:.4f} ms ({kern / lib:.2f}x)")
     torch.cuda.synchronize()
     return rec
 
@@ -706,6 +752,7 @@ def phase_halo_kernels(hplan, dense, dev, seed, n_dev):
     from aind_smartspim_destripe_torch.ops import cuda_band as cb
     from aind_smartspim_destripe_torch.ops import cuda_hist as th
     from aind_smartspim_destripe_torch.ops import cuda_notch as tn
+    from aind_smartspim_destripe_torch.ops.cuda_build import launch
     from aind_smartspim_destripe_torch.parallel.halo import _plan_x_blocks
 
     g = torch.Generator(device=dev).manual_seed(seed + 11)
@@ -773,13 +820,41 @@ def phase_halo_kernels(hplan, dense, dev, seed, n_dev):
         rows_b, bound = _shard_rows_max(h_b, n_dev)
         ch = torch.randn((1, rows_b, w_b), generator=g, device=dev) * 0.5
         bank = put(dense["notch_cat"][i])
-        sel = torch.ones(1, dtype=torch.int32, device=dev)
-        compare(rec, "notch_select_chunked", lvl,
-                lambda: tn.notch_select(ch, sel, bank),
-                lambda: tn.notch_select_plain(ch, sel, bank),
-                scale=ch.abs().max().item(), ins=(ch, sel, bank[:, w_b:]),
-                ops=2.0 * rows_b * w_b * w_b,
-                library=lambda: torch.matmul(ch, bank[:, w_b:]))
+        # both operator choices: the no-cells operator (sel 1) starts w_b
+        # columns into the bank, misaligned for 16-byte copies; where the
+        # wrapper plans 8-byte loads, also the kernel launched directly at
+        # 4-byte loads (bit-equal, timed)
+        v = tn.plan_notch_select(1, rows_b, w_b, ch.data_ptr(),
+                                 bank.data_ptr())
+        for s in (1, 0):
+            key = lvl if s else f"{lvl} sel=0"
+            sel = torch.full((1,), s, dtype=torch.int32, device=dev)
+            op = bank[:, s * w_b:(s + 1) * w_b]
+            compare(rec, "notch_select_chunked", key,
+                    lambda: tn.notch_select(ch, sel, bank),
+                    lambda: tn.notch_select_plain(ch, sel, bank),
+                    scale=ch.abs().max().item(), ins=(ch, sel, op),
+                    ops=2.0 * rows_b * w_b * w_b,
+                    library=lambda: torch.matmul(ch, op))
+            narrow = None
+            if v != 1:
+                out4 = torch.empty_like(ch)
+
+                def four(sel=sel, out4=out4):
+                    launch("destripe_notch_select", dev, ch.data_ptr(),
+                           sel.data_ptr(), bank.data_ptr(), out4.data_ptr(),
+                           1, rows_b, w_b, 1)
+                    return out4
+
+                if not torch.equal(four(), tn.notch_select(ch, sel, bank)):
+                    raise AssertionError("notch_select's copy widths differ")
+                narrow = _time_ms(four)
+                del out4
+                print(f"[halo-kernels] notch_select_chunked level {key}: "
+                      f"{4 * v}-byte loads as planned, 4-byte loads "
+                      f"{narrow:.3f} ms (bit-equal)")
+            rec["notch_select_chunked"][key].update(copy_width=v,
+                                                    ms_4byte_copies=narrow)
         a = ch[:, :bound].abs()
         lo = a.amin(dim=(1, 2)) ** 2
         span = a.amax(dim=(1, 2)) ** 2 - lo
@@ -979,25 +1054,47 @@ def main(argv=None):
     # -- 2. kernel build --------------------------------------------------
     t0 = time.perf_counter()
     cuda_build.kernel_library()
-    # most registers per thread (and spilled bytes) of each kernel template
-    regs = {}
+    # registers per thread, shared memory and spilled bytes of each kernel
+    # instance, as ptxas reports them
+    ptxas = {}
     for part in cuda_build.kernel_library.build_log.split(
             "Compiling entry function")[1:]:
-        fn = re.search(r"(k[1-4]|hist|row_median_batch|row_median|notch|"
-                       r"notch_select|blend|dense_matmul)"
-                       r"_kernel(ILb([01]))?", part)  # notch: <false>/<true>
+        fn = re.search(r"(k[1-4]|hist|row_median_batch|row_median|"
+                       r"notch_select|notch|blend|dense_matmul)"
+                       r"_kernel(I(.*?)EE)?", part)
         n = re.search(r"Used (\d+) registers", part)
+        if not (fn and n):
+            continue
+        targs = re.findall(r"L[ib](\d+)", fn.group(3) or "")
+        name = fn.group(1) + (f"<{','.join(targs)}>" if targs else "")
+        smem = re.search(r"(\d+) bytes smem", part)
         spill = re.search(r"(\d+) bytes spill stores", part)
-        if fn and n:
-            name = fn.group(1) + (f"<{fn.group(3)}>" if fn.group(3) else "")
-            r = regs.get(name, (0, 0))
-            regs[name] = (max(r[0], int(n.group(1))), max(
-                r[1], int(spill.group(1)) if spill else 0))
+        ptxas[name] = dict(registers=int(n.group(1)),
+                           smem=int(smem.group(1)) if smem else 0,
+                           spill=int(spill.group(1)) if spill else 0)
+    regs = " ".join(f"{k}={v['registers']}/{v['spill']}"
+                    for k, v in ptxas.items())
     print(f"[build] {', '.join(sorted(set(SOURCE.values())))} -> sm_90a in "
           f"{time.perf_counter() - t0:.2f} s (nvcc "
           f"{cuda_build.kernel_library.build_seconds:.2f} s; registers per "
-          f"thread, spilled bytes: "
-          f"{' '.join(f'{k}={r}/{s}' for k, (r, s) in regs.items()) or 'n/a'})")
+          f"thread, spilled bytes: {regs or 'n/a'})")
+    gemm = {k: v for k, v in ptxas.items()
+            if k.startswith(("dense_matmul<", "notch_select<"))}
+    print("[build] shared GEMM tile (csrc/gemm_f32.cuh) instances, "
+          "registers / shared memory bytes / spilled bytes: "
+          + " ".join(f"{k}={v['registers']}/{v['smem']}/{v['spill']}"
+                     for k, v in gemm.items()))
+    # every instance the two entry points launch: dense_matmul<va, b's
+    # columns unit-stride, vb>, notch_select<v>
+    expect = {f"dense_matmul<{va},{u},{vb}>" for va in (1, 2)
+              for u, vb in ((0, 1), (1, 1), (1, 2))}
+    expect |= {"notch_select<1>", "notch_select<2>"}
+    if not cuda_build.kernel_library.build_log or expect - gemm.keys():
+        raise AssertionError(
+            "the build log does not report the GEMM tile instances "
+            f"{sorted(expect - gemm.keys())}: their spills are unchecked")
+    if any(v["spill"] for v in gemm.values()):
+        raise AssertionError("a GEMM tile instance spills registers")
 
     # -- 3. kernels vs plain twins ----------------------------------------
     cfg = run_capsule.PRODUCTION_PARAMETERS
@@ -1135,8 +1232,21 @@ def main(argv=None):
                                for lvl in (0, 1, "1d", "4d")}
         if name == "dense_matmul":
             entry["forms"] = {k: {**{f: v[f] for f in keys},
-                                  "cublas_bit_equal": v["cublas_bit_equal"]}
+                                  "cublas_bit_equal": v["cublas_bit_equal"],
+                                  "copy_widths": v["copy_widths"],
+                                  "ms_4byte_copies": v["ms_4byte_copies"]}
                               for k, v in main.items()}
+        if name == "notch_select_chunked":
+            extra = ("copy_width", "ms_4byte_copies")
+            entry["sel0"] = {f"level{lvl}": {k: main[f"{lvl} sel=0"][k]
+                                             for k in keys + extra}
+                             for lvl in (0, 1)}
+            entry["sel1"] = {f"level{lvl}": {k: main[lvl][k] for k in extra}
+                             for lvl in (0, 1)}
+        if name in ("dense_matmul", "notch_select_chunked"):
+            stem = WRAPPER.get(name, name) + "<"
+            entry["ptxas"] = {k: v for k, v in ptxas.items()
+                              if k.startswith(stem)}
         if name == "histogram256_batch":
             entry["row_bound"] = {
                 f"level{lvl}": {k: r[k] for k in keys + ("row_bound",)}

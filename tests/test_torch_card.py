@@ -249,6 +249,104 @@ def test_card_dense_matmul_fixed_order(card, form):
         assert torch.equal(one, got[1:2])
 
 
+@pytest.fixture(scope="module")
+def dense_levels(card):
+    """The dense levels' operators of a 1600x2000 plan on the card, with
+    each level's input shape: {level: (h, w, an_x_lo, an_y, syn_y,
+    syn_x_lo)}."""
+    cfg = tf.FilterConfig(wavelet="db3", level=None, sigma=64,
+                          max_threshold=3)
+    plan = tf.build_plan(1600, 2000, cfg, cfg)
+    consts = tf.constants_from_numpy(plan.constants(), card)
+    n = plan.n_levels
+    return {lvl: plan.ladder[n - lvl] + (
+        consts["an_x_lo"][lvl], consts["an_y"][lvl],
+        consts["syn_y"][n - 1 - lvl], consts["syn_x_lo"][n - 1 - lvl])
+        for lvl in range(2, n)}
+
+
+def _launches(fn, inputs, args, like, widths):
+    """The C entry ``fn`` (input pointers, then the output's, then
+    ``args(*widths)``) at the planned copy widths and at 4-byte copies,
+    launched directly (the wrapper picks the first)."""
+    from aind_smartspim_destripe_torch.ops.cuda_build import launch
+
+    outs = []
+    for v in {widths, (1,) * len(widths)}:
+        out = torch.empty_like(like)
+        launch(fn, like.device, *inputs, out.data_ptr(), *args(*v))
+        outs.append(out)
+    return outs
+
+
+@pytest.mark.parametrize("batch", [1, 3, 64])
+@pytest.mark.parametrize("form", ["an_x", "an_y", "syn_y", "syn_x"])
+@pytest.mark.parametrize("level", [2, 3, 4, 5, 6, 7])
+def test_card_dense_matmul_every_level(card, dense_levels, level, form,
+                                       batch):
+    """The four products of every dense level of a 1600x2000 plan, with
+    the step's operand forms (the operators transposed or sliced as the
+    step passes them): bit-equal to the term-by-term sum in k order
+    through the wrapper's launch and at each copy width, and a plane alone
+    bit-equal to it inside the batch."""
+    h, w, an_x_lo, an_y, syn_y, syn_x_lo = dense_levels[level]
+    L = an_x_lo.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(level * 10 + len(form))
+
+    def rand(*shape):
+        return (torch.randn(shape, generator=g) * 0.3).to(card)
+
+    a, b = {
+        "an_x": lambda: (rand(batch, h, w), an_x_lo.t()),
+        "an_y": lambda: (an_y, rand(batch, h, L)),
+        "syn_y": lambda: (syn_y, rand(batch, syn_y.shape[1], L)),
+        "syn_x": lambda: (rand(batch, syn_y.shape[0], L), syn_x_lo.t()),
+    }[form]()
+    want = _sequential(a, b)
+    tops.reset_launches()
+    got = td.dense_matmul(a, b)
+    assert td.dense_matmul.launches == 1
+    assert torch.equal(got, want)
+    p = td.plan_dense_matmul(a.shape, a.stride(), b.shape, b.stride(),
+                             a.data_ptr() % 8, b.data_ptr() % 8)
+    for out in _launches("destripe_dense_matmul",
+                         (a.data_ptr(), b.data_ptr()),
+                         lambda *v: (p.batch, p.m, p.n, p.K, *p.sa, *p.sb,
+                                     *v), got, (p.va, p.vb)):
+        assert torch.equal(out, want)
+    q = batch // 2
+    one = (td.dense_matmul(a[q:q + 1], b) if a.ndim == 3
+           else td.dense_matmul(a, b[q:q + 1]))
+    assert torch.equal(one, got[q:q + 1])
+
+
+@pytest.mark.parametrize("rows,w", [(259, 517), (70, 258), (130, 131),
+                                    (129, 256)], ids=str)
+def test_card_notch_select_fixed_order(card, rows, w):
+    """The per-plane notch product with mixed operator choices, at widths
+    of every residue mod 4 (the no-cells operator starts w columns into
+    the bank, so its rows are misaligned for 16-byte copies) and row counts
+    off the tile: bit-equal to the term-by-term sum in k order, through the
+    wrapper and through the kernel at 8-byte (even w) and 4-byte
+    copies."""
+    g = torch.Generator(device="cpu").manual_seed(rows + w)
+    x = (torch.randn((3, rows, w), generator=g) * 0.3).to(card)
+    bank = (torch.randn((w, 2 * w), generator=g) / w**0.5).to(card)
+    sel = torch.tensor([1, 0, 1], dtype=torch.int32, device=card)
+    want = torch.stack([_sequential(x[b], bank[:, s * w:(s + 1) * w])
+                        for b, s in enumerate(sel.tolist())])
+    tops.reset_launches()
+    got = tn.notch_select(x, sel, bank)
+    assert tn.notch_select.launches == 1
+    assert torch.equal(got, want)
+    v = tn.plan_notch_select(3, rows, w, x.data_ptr(), bank.data_ptr())
+    assert v == (2 if w % 2 == 0 else 1)
+    for out in _launches("destripe_notch_select",
+                         (x.data_ptr(), sel.data_ptr(), bank.data_ptr()),
+                         lambda v: (3, rows, w, v), got, (v,)):
+        assert torch.equal(out, want)
+
+
 @pytest.mark.parametrize("hw", [(640, 768), (1600, 2000)], ids=str)
 def test_card_plane_output_independent_of_batch(card, hw):
     """The step on the card gives a plane the same bits alone as in a

@@ -90,3 +90,154 @@ def test_plane_output_independent_of_batch(plane):
     alone = tf.destripe_batch(plan, torch.from_numpy(x[plane:plane + 1]),
                               2500.0, **kw)
     assert torch.equal(whole[plane:plane + 1], alone)
+
+
+# ---------------------------------------------------------------------------
+# The launch the wrappers plan for the shared GEMM tile (pure functions of
+# shapes and strides; the kernels run on the card, tests/test_torch_card.py)
+# ---------------------------------------------------------------------------
+
+
+
+def _dense_products(batch):
+    """(level, form, a, b) for the four products of every dense level of a
+    1600x2000 plan, with the step's operand forms (views, no data)."""
+    cfg = tf.FilterConfig(wavelet="db3", sigma=64, max_threshold=3)
+    plan = tf.build_plan(1600, 2000, cfg, cfg)
+    c = plan.constants()
+    n = plan.n_levels
+    out = []
+    for lvl in range(2, n):
+        h, w = plan.ladder[n - lvl]
+        an_x_lo = torch.from_numpy(c["an_x_lo"][lvl])
+        an_y = torch.from_numpy(c["an_y"][lvl])
+        syn_y = torch.from_numpy(c["syn_y"][n - 1 - lvl])
+        syn_x_lo = torch.from_numpy(c["syn_x_lo"][n - 1 - lvl])
+        L = an_x_lo.shape[0]
+        out += [
+            (lvl, "an_x", torch.empty(batch, h, w), an_x_lo.t()),
+            (lvl, "an_y", an_y, torch.empty(batch, h, L)),
+            (lvl, "syn_y", syn_y, torch.empty(batch, syn_y.shape[1], L)),
+            (lvl, "syn_y sliced", syn_y[:, syn_y.shape[1] // 2:],
+             torch.empty(batch, syn_y.shape[1] // 2, L)),
+            (lvl, "syn_x", torch.empty(batch, syn_y.shape[0], L),
+             syn_x_lo.t()),
+        ]
+    return out
+
+
+@pytest.mark.parametrize("batch", [1, 3, 64])
+def test_plan_dense_matmul_on_the_dense_levels(batch):
+    """Planes by one operator fold into one product of B*m rows; an
+    operator by planes keeps a grid plane per plane; the strides reach the
+    same elements as the views."""
+    for lvl, form, a, b in _dense_products(batch):
+        p = td.plan_dense_matmul(a.shape, a.stride(), b.shape, b.stride())
+        m, K = a.shape[-2:]
+        n = b.shape[-1]
+        assert (p.n, p.K) == (n, K), (lvl, form)
+        assert p.sb == ((b.stride(0) if b.ndim == 3 else 0),) + b.stride()[-2:]
+        if a.ndim == 3:  # planes @ operator^T: folded
+            assert (p.batch, p.m) == (1, batch * m), (lvl, form)
+            assert p.sa == (0,) + a.stride()[-2:]
+        else:
+            assert (p.batch, p.m) == (batch, m), (lvl, form)
+            assert p.sa == (0,) + a.stride()
+        # 8-byte loads along a's rows and b's columns where they are even
+        assert p.va == (2 if p.sa[2] == 1 and p.sa[0] % 2 == 0
+                        and p.sa[1] % 2 == 0 else 1), (lvl, form)
+        assert p.vb == (2 if p.sb[2] == 1 and p.sb[0] % 2 == 0
+                        and p.sb[1] % 2 == 0 else 1), (lvl, form)
+
+
+def test_plan_dense_matmul_keeps_unevenly_stacked_planes():
+    """Planes that are not stacked evenly (a slice of each plane's rows)
+    keep their grid plane each; a single matrix is one plane."""
+    x = torch.empty(4, 50, 30)
+    op = torch.empty(20, 30).t()
+    a = x[:, :40]
+    p = td.plan_dense_matmul(a.shape, a.stride(), op.shape, op.stride())
+    assert (p.batch, p.m, p.sa) == (4, 40, (1500, 30, 1))
+    p = td.plan_dense_matmul(x[0].shape, x[0].stride(), op.shape,
+                             op.stride())
+    assert (p.batch, p.m, p.sa) == (1, 50, (0, 30, 1))
+    with pytest.raises(ValueError, match="cannot multiply"):
+        td.plan_dense_matmul((4, 50, 30), x.stride(), (29, 20), (20, 1))
+    with pytest.raises(ValueError, match="cannot multiply"):
+        td.plan_dense_matmul((4, 50, 30), x.stride(), (3, 30, 20),
+                             (600, 20, 1))
+
+
+def _strides(shape):
+    """Row-major element strides of ``shape``."""
+    out, step = [], 1
+    for d in reversed(shape):
+        out.insert(0, step)
+        step *= d
+    return tuple(out)
+
+
+@pytest.mark.parametrize("a_shape,b_shape,fits", [
+    ((64, 403, 503), (503, 254), True),
+    ((65535 * 64, 1), (1, 1), True),
+    ((65535 * 64 + 1, 1), (1, 1), False),
+    ((2, 65535 * 32, 1), (1, 1), True),
+    ((2, 65535 * 32 + 1, 1), (1, 1), False),
+    ((408, 403), (65535, 403, 254), True),
+    ((408, 403), (65536, 403, 254), False)], ids=str)
+def test_plan_dense_matmul_grid_limit(a_shape, b_shape, fits):
+    """The 64-row tiles of the rows, folded planes' rows counted together,
+    and the grid planes each stay within the kernel's 65535 grid rows."""
+    sa, sb = _strides(a_shape), _strides(b_shape)
+    if fits:
+        p = td.plan_dense_matmul(a_shape, sa, b_shape, sb)
+        assert -(-p.m // 64) <= 65535 and p.batch <= 65535
+    else:
+        with pytest.raises(ValueError, match="grid"):
+            td.plan_dense_matmul(a_shape, sa, b_shape, sb)
+
+
+@pytest.mark.parametrize("shape", [(1, 4097, 9002), (1, 2050, 4503),
+                                   (1, 2049, 9002), (1, 1025, 4503),
+                                   (3, 259, 1026)], ids=str)
+def test_plan_notch_select_on_halo_shards(shape):
+    """The notch product's launch at the row-sharded route's level-0 and
+    level-1 shard shapes (16384x18000 on two and on four entries): 8-byte
+    loads where w is even (the bank's no-cells operator starts w columns
+    in) and both bases are 8-byte aligned, else 4-byte."""
+    from aind_smartspim_destripe_torch.ops import cuda_notch as tn
+
+    B, h, w = shape
+    assert tn.plan_notch_select(B, h, w) == (2 if w % 2 == 0 else 1)
+    assert tn.plan_notch_select(B, h, w, x_ptr=4) == 1
+    assert tn.plan_notch_select(B, h, w, bank_ptr=12) == 1
+    with pytest.raises(ValueError, match="grid"):
+        tn.plan_notch_select(65536, h, w)
+
+
+@pytest.mark.parametrize("ptr,unit,others,want", [
+    (0, 1, (9002, 4097 * 9002), 2), (0, 1, (4503,), 1), (4, 1, (254,), 1),
+    (8, 1, (254, 0), 2), (0, 503, (1,), 1), (0, 1, (18004, 9002), 2),
+    (0, 1, (9006, 4503), 1)], ids=str)
+def test_copy_width(ptr, unit, others, want):
+    """8-byte loads only along a unit-stride axis whose every load is
+    8-byte aligned."""
+    assert td.copy_width(ptr, unit, others) == want
+
+
+def test_kernel_library_digest_covers_every_include():
+    """Every local header a CUDA source includes is among the files the
+    kernel library's name is keyed by, so an edited header rebuilds it."""
+    import re
+
+    from aind_smartspim_destripe_torch.ops import cuda_build
+
+    keyed = set(cuda_build.digest_inputs())
+    assert set(cuda_build.SOURCES) <= keyed
+    found = 0
+    for src in cuda_build.SOURCES:
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                               src.read_text(), flags=re.M):
+            assert (src.parent / name).resolve() in keyed, (src.name, name)
+            found += 1
+    assert found >= 2  # notch.cu and dense.cu include gemm_f32.cuh
