@@ -1,6 +1,8 @@
 // One pipelined FP32 GEMM tile for NVIDIA Hopper (sm_90a), shared by the
-// dense levels' products (dense.cu) and the row-sharded route's per-plane
-// notch product (notch.cu's notch_select).
+// dense levels' products (dense.cu), the row-sharded route's per-plane
+// notch product (notch.cu's notch_select) and the plane path's notch tail
+// (notch.cu's notch_delta, through the tile's two hooks: a transform of
+// each A element as it is loaded and an epilogue in place of the store).
 //
 // A block of BM * BN / 64 threads computes a BM x BN output tile of
 // c = a @ b, each thread 8 x 8 outputs laid out as two 4 x 4 quadrants
@@ -41,7 +43,7 @@
 // c equals the sum taken term by term in k order at any shape.
 //
 // No tensor cores, and why: dense_matmul's fixed order rules them out; for
-// notch_select a 3xTF32 wgmma split would change the bits, its PSNR cost is
+// the notch products a 3xTF32 wgmma split would change the bits, its PSNR cost is
 // not measured, and it would run above the FP32 bound the smoke run reckons.
 // It stays an option, gated on measuring that PSNR first.
 //
@@ -89,6 +91,30 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// The two hooks of tile_product, identity by default, so that an instance
+// without them compiles to the plain product:
+// - an A-element transform, applied by KMajorLoader::load to each loaded
+//   value with k < K (k >= K still reads 0): prepare() is called once per
+//   block, before the first load, with the loader (whose lines a thread
+//   keeps across K-steps), and f(e, v) maps the value v of the thread's
+//   e-th line;
+// - an epilogue in place of the plain store, called once per stored output
+//   with its row, column and sum.
+struct AIdentity {
+  template <class Loader>
+  __device__ __forceinline__ void prepare(const Loader&, int, int) {}
+  __device__ __forceinline__ float operator()(int, float v) const {
+    return v;
+  }
+};
+
+struct CStore {
+  __device__ __forceinline__ void operator()(float* c, long long ldc, int r,
+                                             int col, float acc) const {
+    c[r * ldc + col] = acc;
+  }
+};
+
 // A kBK x LINES slab of an operand whose k runs along its lines, line l and
 // step k at src[l * sl + k * sk], staged into dst[k][l] (pitch LINES +
 // kPad) through registers: load() issues the global loads of a K-step,
@@ -111,25 +137,32 @@ struct KMajorLoader {
     kc = (threadIdx.x % kChunks) * V;
   }
 
+  // the (clamped) line of the thread's e-th load
+  __device__ __forceinline__ int line_of(int e, int line0,
+                                         int nlines) const {
+    return min(line0 + line + e * kLineStep, nlines - 1);
+  }
+
+  template <class F>
   __device__ __forceinline__ void load(const float* __restrict__ src,
                                        int line0, int nlines, long long sl,
-                                       long long sk, int k0, int K) {
+                                       long long sk, int k0, int K,
+                                       const F& f) {
     const int k = k0 + kc;
 #pragma unroll
     for (int e = 0; e < kLoads; ++e) {
-      const int l = min(line0 + line + e * kLineStep, nlines - 1);
-      const float* p = src + l * sl + k * sk;
+      const float* p = src + line_of(e, line0, nlines) * sl + k * sk;
       if constexpr (V == 2) {
         if (k + 2 <= K) {
           const float2 v = __ldg(reinterpret_cast<const float2*>(p));
-          r[e][0] = v.x;
-          r[e][1] = v.y;
+          r[e][0] = f(e, v.x);
+          r[e][1] = f(e, v.y);
           continue;
         }
       }
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        r[e][j] = k + j < K ? __ldg(p + j * sk) : 0.0f;
+        r[e][j] = k + j < K ? f(e, __ldg(p + j * sk)) : 0.0f;
       }
     }
   }
@@ -202,22 +235,25 @@ struct KMajorCopier {
   }
 };
 
-// c[r, j] = sum_k a[r * sam + k * sak] * b[k * sbk + j * sbn] for the tile
-// at (row0, col0) of the m x n output, c row-major with row pitch ldc.
+// c[r, j] = sum_k f(a[r * sam + k * sak]) * b[k * sbk + j * sbn] for the
+// tile at (row0, col0) of the m x n output, c row-major with row pitch ldc,
+// f the A-element transform a_op, each sum handed to the epilogue epi.
 // a is staged by KMajorLoader<VA>; b by NMajorLoader<VB> where
 // kBUnitN (sbn == 1), else by KMajorCopier. Called by every thread of the
 // block.
-template <int BM, int BN, int VA, bool kBUnitN, int VB>
+template <int BM, int BN, int VA, bool kBUnitN, int VB,
+          class AOp = AIdentity, class Epi = CStore>
 __device__ __forceinline__ void tile_product(
     const float* __restrict__ a, long long sam, long long sak,
     const float* __restrict__ b, long long sbk, long long sbn,
     float* __restrict__ c, long long ldc, int m, int n, int K, int row0,
-    int col0) {
+    int col0, AOp a_op = AOp(), const Epi& epi = Epi()) {
   using T = Tile<BM, BN>;
   __shared__ __align__(16) float As[kStages][kBK][BM + kPad];
   __shared__ __align__(16) float Bs[kStages][kBK][BN + kPad];
 
   KMajorLoader<BM, T::kThreads, VA> load_a;
+  a_op.prepare(load_a, row0, m);
   const NMajorLoader<BN, T::kThreads, VB> copy_bn(col0, n);
   const KMajorCopier<BN, T::kThreads> copy_bk;
   auto copy_b = [&](int s, int k0) {
@@ -242,7 +278,7 @@ __device__ __forceinline__ void tile_product(
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < steps) {
-      load_a.load(a, row0, m, sam, sak, s * kBK, K);
+      load_a.load(a, row0, m, sam, sak, s * kBK, K, a_op);
       load_a.store(&As[s][0][0]);
       copy_b(s, s * kBK);
     }
@@ -255,7 +291,7 @@ __device__ __forceinline__ void tile_product(
     const int next = t + kStages - 1;
     const int sn = next % kStages;  // the slot of step t - 1
     if (next < steps) {
-      load_a.load(a, row0, m, sam, sak, next * kBK, K);
+      load_a.load(a, row0, m, sam, sak, next * kBK, K, a_op);
       copy_b(sn, next * kBK);
     }
     cp_async_commit();
@@ -284,11 +320,10 @@ __device__ __forceinline__ void tile_product(
   for (int i = 0; i < 8; ++i) {
     const int r = row0 + ty * 4 + (i & 3) + (i >> 2) * (BM / 2);
     if (r >= m) continue;
-    float* cr = c + r * ldc;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = col0 + tx * 4 + (j & 3) + (j >> 2) * (BN / 2);
-      if (col < n) cr[col] = acc[i][j];
+      if (col < n) epi(c, ldc, r, col, acc[i][j]);
     }
   }
 }

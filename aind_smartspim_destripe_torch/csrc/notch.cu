@@ -16,11 +16,19 @@
 // The TPU kernel selects the median in VMEM and runs the product as bf16x3
 // MXU dots. Here it is two launches: destripe_row_median writes the (B, h)
 // medians (the TPU kernel's own two-kernel split, med_raw), and
-// destripe_notch is a tiled f32 GEMM whose A-tile loader applies the mask
-// and the inpainting, and whose epilogue applies the mask and subtracts ch.
-// The operator is chosen per plane (a column offset into the (w, 2w)
-// [cells | no-cells] bank), so each plane multiplies only its own operator
-// and neither the inpainted band nor the product is stored.
+// destripe_notch runs gemm_f32.cuh's pipelined f32 tile with its two hooks:
+// the A-element transform applies the mask and the inpainting as the band
+// is loaded (each thread holds the medians of its rows in registers), the
+// epilogue applies the mask and subtracts ch. The operator is chosen per
+// plane (a column offset into the (w, 2w) [cells | no-cells] bank), so each
+// plane multiplies only its own operator and neither the inpainted band nor
+// the product is stored. It is bound by its operations (2 h w^2 per output
+// plane, FP32 FMAs) and runs a 64 x 128 tile (measured faster than
+// 128 x 128 at the plane path's levels 0 and 1); the order contract (each
+// output summed by one thread, in k order, one fmaf per term from 0) keeps
+// the bits of the 128 x 64 tile it replaces. The stripe test is one compare of
+// the square against a per-plane cut (stripe_cut), the same decision as the
+// rounded square root's.
 //
 // Both take an output batch n_out that is a multiple of the band's batch
 // n_in: output plane b reads band plane b % n_in, with thr[b] and sel[b] of
@@ -36,10 +44,9 @@
 // operator is the same f32 (w, 2w) [cells | no-cells] layout as the notch
 // tail's, read tile by tile from device memory, so no chunking is needed.
 // It is bound by its operations (2 h w^2 per plane, FP32 FMAs) and runs
-// gemm_f32.cuh's pipelined tile, the one dense.cu runs, under the same order
-// contract (each output summed in k order by one thread, one fmaf per term
-// from 0); the notch tail keeps its own 128 x 64 tile and register count,
-// which set its blocks per SM.
+// gemm_f32.cuh's pipelined tile, the one dense.cu and the notch tail run,
+// under the same order contract (each output summed in k order by one
+// thread, one fmaf per term from 0).
 //
 // The median is exact: a radix select over the bits of the float (4 passes
 // of 8 bits, counts in a shared-memory histogram with integer atomics),
@@ -177,92 +184,105 @@ __global__ void row_median_batch_kernel(const float* __restrict__ x,
   if (threadIdx.x == 0) med[r] = m;
 }
 
-// Tile shape of the notch GEMM: a block of 256 threads computes a 128 x 64
-// output tile, each thread 8 rows x 4 columns, over K-steps of 16.
-constexpr int BM = 128, BN = 64, BK = 16, TM = 8, TN = 4;
-constexpr int kNotchThreads = (BM / TM) * (BN / TN);
+// The stripe test of a plane as one compare of the square: the largest
+// float y with __fsqrt_rn(y) <= t, so that stripe(v, t) ==
+// (__fmul_rn(v, v) > stripe_cut(t)) for every v (the rounded square root
+// is monotone; a NaN square compares false both ways). A negative t cuts
+// at -inf (every square but NaN is a stripe), a NaN or +inf t at +inf.
+__device__ __forceinline__ float stripe_cut(float t) {
+  if (!(t >= 0.0f)) return t < 0.0f ? -INFINITY : INFINITY;
+  if (isinf(t)) return INFINITY;
+  float y = __fmul_rn(t, t);
+  while (__fsqrt_rn(y) > t) y = nextafterf(y, -INFINITY);
+  for (float up = nextafterf(y, INFINITY); __fsqrt_rn(up) <= t;
+       up = nextafterf(y, INFINITY)) {
+    y = up;
+  }
+  return y;
+}
+
+// The notch tail's hooks into gemm_f32.cuh's tile. Inpaint, the
+// A-element transform, maps v -> stripe(v, t) ? med[row] : v, the row being
+// the thread's line of the load (fixed across K-steps); it reads the
+// medians of the thread's lines once per block, into registers where a
+// thread has two lines (8-byte loads), else into shared memory for the
+// tile's BM rows (at 4-byte loads a thread has four, and four registers
+// more spill under the tile's 128-register cap). DeltaStore, the epilogue,
+// writes stripe(x, t) ? 0 : acc - x for each output. Both test the stripe
+// as v * v > cut, cut = stripe_cut(t), the same decision as stripe(v, t).
+template <int BM, class Loader>
+struct Inpaint {
+  static constexpr bool kInRegisters = Loader::kLoads <= 2;
+  const float* __restrict__ med;  // the plane's (h,) row medians
+  float cut;
+  float m[Loader::kLoads];
+  const float* rows;  // in shared memory: the thread's first line on
+
+  __device__ __forceinline__ void prepare(const Loader& ld, int line0,
+                                          int nlines) {
+    if constexpr (kInRegisters) {
+#pragma unroll
+      for (int e = 0; e < Loader::kLoads; ++e) {
+        m[e] = med[ld.line_of(e, line0, nlines)];
+      }
+    } else {
+      __shared__ float staged[BM];
+      for (int i = threadIdx.x; i < BM; i += blockDim.x) {
+        staged[i] = med[min(line0 + i, nlines - 1)];  // the loader's clamp
+      }
+      __syncthreads();
+      rows = staged + ld.line;
+    }
+  }
+  __device__ __forceinline__ float operator()(int e, float v) const {
+    if constexpr (kInRegisters) {
+      return __fmul_rn(v, v) > cut ? m[e] : v;
+    } else {
+      return __fmul_rn(v, v) > cut ? rows[e * Loader::kLineStep] : v;
+    }
+  }
+};
+
+struct DeltaStore {
+  const float* __restrict__ x;  // the band plane, row pitch = ldc
+  float cut;
+
+  __device__ __forceinline__ void operator()(float* c, long long ldc, int r,
+                                             int col, float acc) const {
+    const long long o = r * ldc + col;
+    const float xv = x[o];
+    c[o] = __fmul_rn(xv, xv) > cut ? 0.0f : __fsub_rn(acc, xv);
+  }
+};
 
 // out[b, r, c] = stripes ? 0 : sum_k inpainted[b, r, k] * op[k, sel*w + c]
-//                                - x[b % n_in, r, c]; op is (w, 2w)
-// row-major. Three blocks per SM (at most 80 registers per thread). The
-// wrapped form (kWrapped, n_out > n_in) keeps a second plane base live
-// through the K loop and spills a few bytes at that cap; the unwrapped form
-// shares one base between x and out and spills nothing.
-template <bool kWrapped>
-__global__ void __launch_bounds__(kNotchThreads, 3)
-    notch_kernel(const float* __restrict__ x, const float* __restrict__ med,
-                 const float* __restrict__ thr, const int* __restrict__ sel,
-                 const float* __restrict__ op, float* __restrict__ out,
-                 int n_in, int h, int w) {
-  __shared__ __align__(16) float As[BK][BM + 4];  // A tile, k-major
-  __shared__ __align__(16) float Bs[BK][BN];
+//                              - x[b % n_in, r, c]; op is (w, 2w)
+// row-major. gemm_f32.cuh's 64 x 128 tile (faster than 128 x 128 at the
+// plane path's levels 0 and 1), V floats per load along the rows of x and
+// of the bank.
+constexpr int kNotchRows = 64;
+
+template <int V>
+__global__ void __launch_bounds__(gemm_f32::Tile<kNotchRows, 128>::kThreads,
+                                  gemm_f32::Tile<kNotchRows, 128>::kMinBlocks)
+    notch_delta_kernel(const float* __restrict__ x,
+                       const float* __restrict__ med,
+                       const float* __restrict__ thr,
+                       const int* __restrict__ sel,
+                       const float* __restrict__ op, float* __restrict__ out,
+                       int n_in, int h, int w) {
+  using Loader = gemm_f32::KMajorLoader<
+      kNotchRows, gemm_f32::Tile<kNotchRows, 128>::kThreads, V>;
   const int b = blockIdx.z;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const float t = thr[b];
-  const size_t ldo = 2 * (size_t)w;
-  const float* bop = op + (size_t)sel[b] * w;
-  const float* xb = x + (size_t)(kWrapped ? b % n_in : b) * h * w;
-  const float* mb = med + (size_t)b * h;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < w; k0 += BK) {
-#pragma unroll
-    for (int e = 0; e < BM * BK / kNotchThreads; ++e) {
-      const int idx = tid + e * kNotchThreads;
-      const int m = idx / BK, kk = idx % BK;
-      const int r = row0 + m, k = k0 + kk;
-      float v = 0.0f;
-      if (r < h && k < w) {
-        v = xb[(size_t)r * w + k];
-        if (stripe(v, t)) v = mb[r];
-      }
-      As[kk][m] = v;
-    }
-#pragma unroll
-    for (int e = 0; e < BN * BK / kNotchThreads; ++e) {
-      const int idx = tid + e * kNotchThreads;
-      const int kk = idx / BN, n = idx % BN;
-      const int k = k0 + kk, c = col0 + n;
-      Bs[kk][n] = (k < w && c < w) ? bop[(size_t)k * ldo + c] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bb[TN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    if (r >= h) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx * TN + j;
-      if (c >= w) continue;
-      const size_t o = (size_t)r * w + c;
-      const float xv = xb[o];
-      out[(size_t)b * h * w + o] =
-          stripe(xv, t) ? 0.0f : __fsub_rn(acc[i][j], xv);
-    }
-  }
+  const float cut = stripe_cut(thr[b]);
+  const float* xb = x + (size_t)(b % n_in) * h * w;
+  Inpaint<kNotchRows, Loader> inpaint;
+  inpaint.med = med + (size_t)b * h;
+  inpaint.cut = cut;
+  gemm_f32::tile_product<kNotchRows, 128, V, true, V>(
+      xb, w, 1, op + (size_t)sel[b] * w, 2 * (long long)w, 1,
+      out + (size_t)b * h * w, w, h, w, w, blockIdx.y * kNotchRows,
+      blockIdx.x * 128, inpaint, DeltaStore{xb, cut});
 }
 
 // out[b, r, c] = sum_k x[b, r, k] * op[k, sel[b]*w + c]; op is (w, 2w)
@@ -312,18 +332,23 @@ int destripe_row_median_batch(const float* x, float* med, int rows, int n,
 }
 
 // x (n_in, h, w) f32, med (n_out, h) f32, thr (n_out,) f32, sel (n_out,)
-// int32 in {0, 1}, op (w, 2w) f32 -> out (n_out, h, w) f32.
+// int32 in {0, 1}, op (w, 2w) f32 -> out (n_out, h, w) f32; v 1 or 2, the
+// floats per load along x's rows and the bank's (2: w even and both bases
+// 8-byte aligned); n_out and ceil(h / 64) at most 65535.
 int destripe_notch(const float* x, const float* med, const float* thr,
                    const int* sel, const float* op, float* out, int n_out,
-                   int n_in, int h, int w, void* stream) {
-  const dim3 grid((w + BN - 1) / BN, (h + BM - 1) / BM, n_out);
+                   int n_in, int h, int w, int v, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_out == n_in) {
-    notch_kernel<false><<<grid, kNotchThreads, 0, s>>>(x, med, thr, sel, op,
-                                                       out, n_in, h, w);
+  const dim3 grid((w + 127) / 128, (h + kNotchRows - 1) / kNotchRows, n_out);
+  const int threads = gemm_f32::Tile<kNotchRows, 128>::kThreads;
+  if (v == 2) {
+    notch_delta_kernel<2><<<grid, threads, 0, s>>>(x, med, thr, sel, op, out,
+                                                   n_in, h, w);
+  } else if (v == 1) {
+    notch_delta_kernel<1><<<grid, threads, 0, s>>>(x, med, thr, sel, op, out,
+                                                   n_in, h, w);
   } else {
-    notch_kernel<true><<<grid, kNotchThreads, 0, s>>>(x, med, thr, sel, op,
-                                                      out, n_in, h, w);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

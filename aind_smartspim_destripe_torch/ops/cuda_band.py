@@ -37,6 +37,8 @@ from .flatfield import flatfield_correction, wrap_cast
 
 __all__ = [
     "band_form",
+    "band_form_taps",
+    "check_k1_band",
     "band_dense",
     "band_level_forms",
     "an_x_lowpass_log1p",
@@ -52,11 +54,17 @@ __all__ = [
     "KERNELS",
 ]
 
-# Launch geometry, shared with the kernels through their arguments: K1/K4
-# run one thread per output column, K2/K3 blocks of columns x rows (powers
-# of two, as the block reductions require).
+# Launch geometry, shared with the kernels through their arguments: K4
+# runs one thread per output column, K2/K3 blocks of columns x rows (powers
+# of two, as the block reductions require). K1's is fixed in csrc/band.cu:
+# blocks of 1024 outputs of a row, float32 input's classifier partials per
+# 256 of them; a segment stages at most 2112 inputs, so its band form's
+# starts step by 0-2 per output and K is at most 63 (check_k1_band).
 _ROW_THREADS = 256
 _COLS, _ROWS = 64, 4
+_K1_GROUP = 256
+_K1_SEG, _K1_CAP = 1024, 2 * 1024 + 64
+_GRID_MAX = 65535  # grid.y and grid.z
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +113,45 @@ def band_form(*mats: np.ndarray) -> Tuple[np.ndarray, Tuple[np.ndarray, ...]]:
     return start, coefs
 
 
+def band_form_taps(cols: np.ndarray, vals: np.ndarray,
+                   n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`band_form` of the (m, n) operator whose row i is the sum of
+    its taps ``vals[i, t]`` (float64) at columns ``cols[i, t]``, rounded to
+    float32, without building it: O(m t) memory where the dense operator
+    is O(m n). The same ``start`` and ``coef`` as ``band_form`` of that
+    dense operator (taps at one column add in the order given)."""
+    cols = np.asarray(cols, np.int64)
+    m, t = cols.shape
+    lo = cols.min(axis=1)
+    width = int((cols.max(axis=1) - lo).max()) + 1
+    win = np.zeros((m, width))
+    np.add.at(win, (np.repeat(np.arange(m), t), (cols - lo[:, None]).ravel()),
+              np.asarray(vals, np.float64).ravel())
+    win = win.astype(np.float32)
+    nz = win != 0
+    has = nz.any(axis=1)
+    first = np.where(has, lo + nz.argmax(axis=1), 0)
+    last = np.where(has, lo + width - 1 - nz[:, ::-1].argmax(axis=1), 0)
+    K = int((last - first + 1)[has].max()) if has.any() else 1
+    start = np.minimum(first, n - K)
+    idx = start[:, None] + np.arange(K)[None, :] - lo[:, None]
+    inside = (idx >= 0) & (idx < width)
+    coef = np.where(inside, np.take_along_axis(
+        win, np.clip(idx, 0, width - 1), axis=1), 0.0).astype(np.float32)
+    return start.astype(np.int32), np.ascontiguousarray(coef)
+
+
+def check_k1_band(start: np.ndarray, K: int) -> None:
+    """Raise ValueError unless K1 can take this band form: starts that step
+    by 0, 1 or 2 per output (the analysis band's), so a segment of its
+    outputs reads a run of inputs that fits the kernel's shared memory."""
+    step = np.diff(np.asarray(start, np.int64))
+    if (step.size and (step.min() < 0 or step.max() > 2)) or (
+            2 * (_K1_SEG - 1) + K + 3 > _K1_CAP):
+        raise ValueError("K1 takes band forms whose starts step by 0-2 per "
+                         f"output, K <= {_K1_CAP - 2 * _K1_SEG - 1}")
+
+
 def band_level_forms(an_y, an_x_lo, syn_y, syn_x_lo) -> dict:
     """Band forms of one banded level's four dense operators (numpy):
     ``an_x_lo`` (L_w, W) for K1, ``an_y`` (2 L_h, H) for K2 (lowpass and
@@ -113,6 +160,7 @@ def band_level_forms(an_y, an_x_lo, syn_y, syn_x_lo) -> dict:
     (W, L_w) for K4."""
     L_h = an_y.shape[0] // 2
     k1_start, (k1_coef,) = band_form(an_x_lo)
+    check_k1_band(k1_start, k1_coef.shape[1])
     k2_start, (k2_lo, k2_hi) = band_form(an_y[:L_h], an_y[L_h:])
     k3_start, (k3_lo, k3_hi) = band_form(syn_y[:, :L_h], syn_y[:, L_h:])
     k4_start, (k4_coef,) = band_form(syn_x_lo)
@@ -175,33 +223,40 @@ def an_x_lowpass_log1p(
     (exact for uint16 input) and rounded once."""
     if not on_cuda(x):
         return an_x_lowpass_log1p_plain(x, a_lo, log1p, cls_cut)
-    out, partials = _k1(x, start, coef, log1p, cls_cut)
+    out, sums = _k1(x, start, coef, log1p, cls_cut)
     an_x_lowpass_log1p.launches += 1
-    if partials is None:
-        return out
-    return out, partials.sum(dim=1).to(torch.float32)
+    return out if sums is None else (out, sums)
 
 
 def _k1(x, start, coef, log1p, cls_cut):
-    """Launch K1 over the full width: (out, per-block partials or None)."""
+    """Launch K1 over the full width: (out, the (B, 4) float32 classifier
+    sums or None). The kernel adds uint16 input's sums in int64 (exact);
+    float32 input's come as float64 partials per 256 outputs of a row,
+    summed here."""
     B, H, W = x.shape
     L, K = coef.shape
     dev = x.device
     check("x", x, (torch.uint16, torch.float32), dev)
     check("start", start, (torch.int32,), dev, (L,))
     check("coef", coef, (torch.float32,), dev)
+    if H > _GRID_MAX or B > _GRID_MAX:
+        raise ValueError(f"{B} planes of {H} rows exceed K1's grid")
     out = torch.empty((B, H, L), dtype=torch.float32, device=dev)
-    gx = _cdiv(L, _ROW_THREADS)
-    partials = (
-        None if cls_cut is None
-        else torch.empty((B, H * gx, 4), dtype=torch.float64, device=dev)
-    )
+    u16 = x.dtype == torch.uint16
+    sums = partials = None
+    if cls_cut is not None and u16:
+        sums = torch.zeros((B, 4), dtype=torch.int64, device=dev)
+    elif cls_cut is not None:
+        partials = torch.empty((B, H * _cdiv(L, _K1_GROUP), 4),
+                               dtype=torch.float64, device=dev)
     launch(
-        "destripe_k1", dev, x.data_ptr(), int(x.dtype == torch.uint16),
-        out.data_ptr(), _ptr(partials), start.data_ptr(), coef.data_ptr(),
-        K, B, H, W, L, int(log1p), float(cls_cut or 0.0), _ROW_THREADS,
+        "destripe_k1", dev, x.data_ptr(), int(u16), out.data_ptr(),
+        _ptr(sums), _ptr(partials), start.data_ptr(), coef.data_ptr(),
+        K, B, H, W, L, int(log1p), float(cls_cut or 0.0),
     )
-    return out, partials
+    if cls_cut is None:
+        return out, None
+    return out, (sums if u16 else partials.sum(dim=1)).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +370,12 @@ def _image_planes(stacked, images) -> int:
 def syn_x_exp_plain(stacked, images, s_x_lo, flat=None, dark=None,
                     wrap=False):
     """Plain twin of :func:`syn_x_exp`, on any device."""
-    corr = torch.matmul(stacked, s_x_lo.t())
+    return _syn_x_epilogue(torch.matmul(stacked, s_x_lo.t()), stacked,
+                           images, flat, dark, wrap)
+
+
+def _syn_x_epilogue(corr, stacked, images, flat, dark, wrap):
+    """The plain twins' epilogue of K4 on the x-synthesised ``corr``."""
     if images is None:
         return corr
     reps = stacked.shape[0] // _image_planes(stacked, images)
@@ -389,10 +449,17 @@ def _check_epilogue(images, flat, wrap):
 # ---------------------------------------------------------------------------
 
 
-def _dense(op: Optional[torch.Tensor]) -> torch.Tensor:
-    if op is None:
-        raise ValueError("the plain twin needs the dense operator")
-    return op
+def _band_matmul(x: torch.Tensor, start: torch.Tensor,
+                coef: torch.Tensor) -> torch.Tensor:
+    """``x @ A^T`` for the (m, n) operator A that the band form ``(start,
+    coef)`` encodes, without building A (a width at the dense-x gate, whose
+    dense operator is never built): each output the sum of its K taps,
+    O(x.numel() / n * m * K) operations and one output-sized accumulator."""
+    idx = start.to(torch.int64)
+    out = x[..., idx] * coef[:, 0]
+    for k in range(1, coef.shape[1]):
+        out += x[..., idx + k] * coef[:, k]
+    return out
 
 
 def an_x_lowpass_chunked(
@@ -410,9 +477,13 @@ def an_x_lowpass_chunked(
     limit: K1 reads its K taps per output from the band form, so one launch
     covers the shard's full width and there is nothing to chunk. The
     kernel reads the band form only (``a_lo`` may be None); the plain twin
-    reads the dense operator."""
+    reads the dense operator, or the band form where there is none."""
     if not on_cuda(x):
-        return an_x_lowpass_log1p_plain(x, _dense(a_lo), log1p)
+        if a_lo is not None:
+            return an_x_lowpass_log1p_plain(x, a_lo, log1p)
+        xf = x.to(torch.float32)
+        return _band_matmul(torch.log(1.0 + xf) if log1p else xf, start,
+                           coef)
     out, _ = _k1(x, start, coef, log1p, None)
     an_x_lowpass_chunked.launches += 1
     return out
@@ -433,11 +504,13 @@ def syn_x_exp_chunked(
     launch over the full width, as for :func:`an_x_lowpass_chunked`: the
     TPU kernel's output-column chunks exist only to fit scoped VMEM. The
     kernel reads the band form only (``s_x_lo`` may be None); the plain
-    twin reads the dense operator."""
+    twin reads the dense operator, or the band form where there is none."""
     _check_epilogue(images, flat, wrap)
     if not on_cuda(stacked):
-        return syn_x_exp_plain(stacked, images, _dense(s_x_lo), flat, dark,
-                               wrap)
+        if s_x_lo is not None:
+            return syn_x_exp_plain(stacked, images, s_x_lo, flat, dark, wrap)
+        return _syn_x_epilogue(_band_matmul(stacked, start, coef), stacked,
+                               images, flat, dark, wrap)
     out = _k4(stacked, images, start, coef, flat, dark, wrap)
     syn_x_exp_chunked.launches += 1
     return out

@@ -58,9 +58,8 @@ def find_nvcc() -> Optional[str]:
 
 
 _SIGNATURES = {
-    "destripe_k1": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "destripe_k1": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
     "destripe_k2": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
     "destripe_k3": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
@@ -74,7 +73,7 @@ _SIGNATURES = {
     + [ctypes.c_void_p],
     "destripe_row_median_batch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
-    "destripe_notch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    "destripe_notch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
     "destripe_notch_select": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],

@@ -29,6 +29,8 @@ copy of the band.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -43,6 +45,7 @@ __all__ = [
     "notch_select",
     "stacked_notch_operators",
     "plan_notch_select",
+    "plan_notch_delta",
     "row_median_batch_plain",
     "row_median_masked_plain",
     "notch_delta_plain",
@@ -52,6 +55,7 @@ __all__ = [
 
 _MEDIAN_THREADS = 256
 _SELECT_TILE = 128  # notch_select's output tile edge (csrc/notch.cu)
+_NOTCH_TILE_ROWS = 64  # the notch tail's tile: 64 x 128 (csrc/notch.cu)
 
 
 # ---------------------------------------------------------------------------
@@ -149,10 +153,12 @@ def row_median_masked(
 # ---------------------------------------------------------------------------
 
 
-def notch_delta_plain(ch, thr, sel, notch_cat):
+def notch_delta_plain(ch, thr, sel, notch_cat, notch_apply=None):
     """Plain twin of :func:`notch_delta`, on any device: the JAX package's
     dense formulation (both notch products in one matrix product, selected
-    per plane afterwards)."""
+    per plane afterwards). With ``notch_cat`` None, ``notch_apply`` maps the
+    inpainted band (kB, h, w) to both filtered bands (kB, h, 2w) instead
+    (the rfft notch of a width-gated level)."""
     w = ch.shape[-1]
     ch = _tiled(ch, _n_out(ch, thr))
     mask = _stripe_mask(ch, thr)
@@ -160,7 +166,8 @@ def notch_delta_plain(ch, thr, sel, notch_cat):
     background = ch * (1.0 - mask)
     inpainted = background + row_median(background) * mask
     del background
-    both = torch.matmul(inpainted, notch_cat)
+    both = (notch_apply(inpainted) if notch_cat is None
+            else torch.matmul(inpainted, notch_cat))
     del inpainted
     filtered = torch.where((sel == 0)[:, None, None], both[..., :w],
                            both[..., w:])
@@ -181,8 +188,10 @@ def notch_delta(
     sel[b]*w : (sel[b]+1)*w] - c)``.
 
     On the card this is two launches: :func:`row_median_masked`, then the
-    notch GEMM with the mask and inpainting in its loader and the delta in
-    its epilogue, multiplying each plane by its own operator only."""
+    shared GEMM tile (``csrc/gemm_f32.cuh``) with the mask and inpainting
+    applied to the band as it is loaded and the delta in its epilogue,
+    multiplying each plane by its own operator only; each output is summed
+    in k order, one FMA per term from 0."""
     if not on_cuda(ch):
         return notch_delta_plain(ch, thr, sel, notch_cat)
 
@@ -193,13 +202,31 @@ def notch_delta(
     check("thr", thr, (torch.float32,), dev, (n_out,))
     check("sel", sel, (torch.int32,), dev, (n_out,))
     check("notch_cat", notch_cat, (torch.float32,), dev, (w, 2 * w))
+    v = plan_notch_delta(n_out, h, w, ch.data_ptr() % 8,
+                         notch_cat.data_ptr() % 8)
     med = row_median_masked(ch, thr)
     out = torch.empty((n_out, h, w), dtype=torch.float32, device=dev)
     launch("destripe_notch", dev, ch.data_ptr(), med.data_ptr(),
            thr.data_ptr(), sel.data_ptr(), notch_cat.data_ptr(),
-           out.data_ptr(), n_out, B, h, w)
+           out.data_ptr(), n_out, B, h, w, v)
     notch_delta.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def plan_notch_delta(n_out: int, h: int, w: int, x_ptr: int = 0,
+                     bank_ptr: int = 0):
+    """The floats per load ``v`` of the notch tail's launch for n_out
+    planes of (h, w) at these addresses (bytes; only their alignment is
+    read), by the shared GEMM tile's rule (:func:`.cuda_dense.copy_width`,
+    as for :func:`plan_notch_select`; cached: the step calls it with a few
+    forms). Raises ValueError where the kernel's grid (64-row tiles) would
+    overflow."""
+    if n_out > _GRID_MAX or -(-h // _NOTCH_TILE_ROWS) > _GRID_MAX:
+        raise ValueError(f"{n_out} planes of {h} rows exceed the kernel's "
+                         f"grid")
+    return min(copy_width(x_ptr, 1, (w, h * w)),
+               copy_width(bank_ptr, 1, (2 * w, w)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
 """
-Gaussian-notch row filter as a dense operator, in numpy.
+Gaussian-notch row filter, as a dense operator (numpy) and spectrally.
 
-Counterpart of ``aind_smartspim_destripe_tpu/ops/fft_notch.py`` (its numpy
-builders). The reference multiplies the *packed* FFTPACK rfft output by a
-1-D Gaussian notch, so frequency k's real part takes gain ``g[2k-1]`` and
-its imaginary part ``g[2k]``. rfft -> per-bin gains -> irfft is a fixed
-real linear map of each row; :func:`packed_notch_matrix` builds it exactly
-in float64, and the destripe step applies it as one matrix product.
+Counterpart of ``aind_smartspim_destripe_tpu/ops/fft_notch.py``. The
+reference multiplies the *packed* FFTPACK rfft output by a 1-D Gaussian
+notch, so frequency k's real part takes gain ``g[2k-1]`` and its imaginary
+part ``g[2k]``. rfft -> per-bin gains -> irfft is a fixed real linear map
+of each row; :func:`packed_notch_matrix` builds it exactly in float64, and
+the destripe step applies it as one matrix product. At widths where that
+(w, w) matrix is too large to build, the row-sharded route applies the same
+map with :func:`apply_notch_fft` (``torch.fft``; cuFFT on the card), at
+O(w) operator bytes.
 """
 
 from __future__ import annotations
@@ -14,8 +17,10 @@ from __future__ import annotations
 from functools import lru_cache
 
 import numpy as np
+import torch
 
-__all__ = ["notch", "gaussian_filter", "packed_notch_matrix"]
+__all__ = ["notch", "gaussian_filter", "packed_notch_matrix",
+           "apply_notch_fft"]
 
 
 def notch(n: int, sigma: float) -> np.ndarray:
@@ -62,3 +67,23 @@ def packed_notch_matrix(n: int, sigma: float) -> np.ndarray:
     spec = a * spec.real + 1j * (b * spec.imag)
     basis = np.fft.irfft(spec, n=n, axis=-1)
     return np.ascontiguousarray(basis.T)
+
+
+@lru_cache(maxsize=64)
+def _gains(n: int, sigma: float, device: torch.device):
+    """The (real, imag) packed gains of length n // 2 + 1 as float32
+    tensors on ``device``, made once per width, sigma and device."""
+    a, b = _packed_gains(n, notch(n, sigma))
+    return (torch.as_tensor(a, dtype=torch.float32, device=device),
+            torch.as_tensor(b, dtype=torch.float32, device=device))
+
+
+def apply_notch_fft(rows: torch.Tensor, sigma: float) -> torch.Tensor:
+    """The packed-gain spectral map of :func:`packed_notch_matrix` on the
+    last axis of float32 ``rows``, by rfft and irfft: O(n log n) work and
+    O(n) operator bytes, where the matrix is O(n^2) both ways."""
+    n = rows.shape[-1]
+    a, b = _gains(n, float(sigma), rows.device)
+    spec = torch.fft.rfft(rows, dim=-1)
+    spec = torch.complex(a * spec.real, b * spec.imag)
+    return torch.fft.irfft(spec, n=n, dim=-1).to(rows.dtype)

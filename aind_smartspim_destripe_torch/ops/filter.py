@@ -58,7 +58,6 @@ __all__ = [
     "DestripePlan",
     "build_plan",
     "band_gate",
-    "require_dense_x",
     "constants_from_numpy",
     "destripe_batch",
     "classify_planes",
@@ -154,27 +153,48 @@ class DestripePlan:
             for (h, _) in self.ladder
         )
 
-    def constants(self, dense_only: bool = False) -> dict:
+    def constants(self, dense_only: bool = False,
+                  banded_x_min_w: Optional[int] = None) -> dict:
         """The operator matrices as a dict of numpy arrays. Keys:
         ``an_y`` (2L_h x h) and ``an_x_lo`` (L_w x w), finest first;
         ``syn_y`` (h_t x 2L_h, rows trimmed to the crop-rule target),
         ``syn_x_lo`` (w_t x L_w) and ``notch_cat`` ((w, 2w): the cells and
         no-cells notch operators side by side), coarsest first. Unless
         ``dense_only``, ``band{lvl}`` adds the band forms
-        (:func:`cuda_band.band_level_forms`) of each banded level."""
+        (:func:`cuda_band.band_level_forms`) of each banded level.
+        ``banded_x_min_w``: the levels whose input width reaches it get
+        None for all three x-axis operators (``an_x_lo``, ``syn_x_lo``,
+        ``notch_cat``), which are O(w^2) and never built; the row-sharded
+        route applies them as the blocked lowpass passes and the rfft
+        notch instead (the JAX package's gate, line for line)."""
         wav = wavelets.wavelet(self.wavelet)
         an = wavelets.analysis_operators(
-            (self.height, self.width), wav, self.n_levels)
+            (self.height, self.width), wav, self.n_levels,
+            x_skip_min=banded_x_min_w)
         syn = wavelets.synthesis_operators(
-            (self.height, self.width), wav, self.n_levels)
+            (self.height, self.width), wav, self.n_levels,
+            x_skip_min=banded_x_min_w)
+        # ladder level i comes from analysis level n - 1 - i, whose input
+        # width decides the skip of its three x operators
+        w_in, w_cur = [], self.width
+        for _ in range(self.n_levels):
+            w_in.append(w_cur)
+            w_cur = wavelets.dwt_coeff_len(w_cur, wav.flen)
+        notch_skip = [banded_x_min_w is not None
+                      and w_in[self.n_levels - 1 - i] >= banded_x_min_w
+                      for i in range(self.n_levels)]
         out = {
             "an_y": tuple(p[0] for p in an),
-            "an_x_lo": tuple(p[1][: p[1].shape[0] // 2] for p in an),
+            "an_x_lo": tuple(None if p[1] is None
+                             else p[1][: p[1].shape[0] // 2] for p in an),
             "syn_y": tuple(p[0] for p in syn),
-            "syn_x_lo": tuple(p[1][:, : p[1].shape[1] // 2] for p in syn),
+            "syn_x_lo": tuple(None if p[1] is None
+                              else p[1][:, : p[1].shape[1] // 2]
+                              for p in syn),
             "notch_cat": tuple(
-                np.concatenate([c.T, n.T], axis=1)
-                for c, n in self.notch_matrices()
+                None if pair is None
+                else np.concatenate([pair[0].T, pair[1].T], axis=1)
+                for pair in self.notch_matrices(skip=notch_skip)
             ),
         }
         if not dense_only:
@@ -188,6 +208,8 @@ def _band_constants(consts: dict) -> dict:
     n = len(consts["an_y"])
     out = {}
     for lvl in range(n):
+        if consts["an_x_lo"][lvl] is None:  # a width-gated level
+            break
         h = consts["an_y"][lvl].shape[1]
         w = consts["an_x_lo"][lvl].shape[1]
         if not band_gate(h, w):
@@ -199,20 +221,6 @@ def _band_constants(consts: dict) -> dict:
             np.asarray(consts["syn_x_lo"][n - 1 - lvl]),
         )
     return out
-
-
-def require_dense_x(plan: "DestripePlan", gate: int) -> None:
-    """Raise NotImplementedError for a plan whose width reaches ``gate``,
-    the JAX package's dense-x memory gate (``parallel/halo.py
-    banded_x_min_w_default``): levels that wide run the banded/spectral x
-    tier there (``wavelets.an_lo_pass_last``, ``syn_lo_pass_last``,
-    ``fft_notch.apply_notch_fft``), which this package does not have."""
-    if plan.width >= gate:
-        raise NotImplementedError(
-            f"plane width {plan.width} is at or above the dense-x gate "
-            f"{gate}: the banded/spectral x tier (wavelets.an_lo_pass_last, "
-            f"syn_lo_pass_last, fft_notch.apply_notch_fft) is not ported"
-        )
 
 
 def constants_from_numpy(consts: dict, device) -> dict:
@@ -386,12 +394,15 @@ def _filter_level_delta(
     thr_no_cells: float,
     abs_range=None,  # optional per-plane (min|ch|, max|ch|) for Otsu
     otsu_sqrt=None,  # optional per-output-plane sqrt(otsu(ch**2))
+    notch_apply=None,  # (kB, h, w) -> (kB, h, 2w) where bmat_cat is None
 ) -> torch.Tensor:
     """Per-level synthesis delta ``filter(ch) - ch``: the Otsu stripe
     threshold (capped by the configuration's), then
     :func:`.cuda_notch.notch_delta` (mask -> row-median inpaint -> notch ->
     recombine). ``is_cells`` (and ``otsu_sqrt``) may hold k x B entries for
-    B band planes: k deltas per plane (dual band, k = 2)."""
+    B band planes: k deltas per plane (dual band, k = 2). A width-gated
+    level (``bmat_cat`` None) applies both notches with ``notch_apply``
+    (the rfft form) in the dense formulation, as the JAX package does."""
     # scalars, not tensors made from them: a tensor made on the card from a
     # host value is a blocking copy, and the step must not wait on the host
     max_thr = torch.where(is_cells, float(thr_cells), float(thr_no_cells))
@@ -400,6 +411,9 @@ def _filter_level_delta(
             ch, square=True, abs_range=abs_range))
     threshold = torch.minimum(max_thr, otsu_sqrt)
     sel = torch.where(is_cells, 0, 1).to(torch.int32)
+    if bmat_cat is None:
+        return cuda_notch.notch_delta_plain(ch, threshold, sel, None,
+                                            notch_apply)
     return cuda_notch.notch_delta(ch, threshold, sel, bmat_cat)
 
 

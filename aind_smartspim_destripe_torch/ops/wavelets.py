@@ -2,10 +2,14 @@
 Daubechies filter banks and the dense per-axis DWT operators, in numpy.
 
 Counterpart of ``aind_smartspim_destripe_tpu/ops/wavelets.py`` (its numpy
-builders only). The destripe step applies a DWT level along one axis as a
-banded linear map; these builders produce that map as a dense float32
-matrix in pywt's conventions, which the step either multiplies directly
-(``torch.matmul``) or hands to :mod:`.cuda_band` in compact band form:
+builders and its blocked lowpass passes). The destripe step applies a DWT
+level along one axis as a banded linear map; these builders produce that
+map as a dense float32 matrix in pywt's conventions, which the step either
+multiplies directly (``torch.matmul``) or hands to :mod:`.cuda_band` in
+compact band form. At plane widths where a dense x operator (O(w^2)) is too
+large to build, the row-sharded route applies the x lowpass passes as the
+blocked, shift-invariant maps :func:`an_lo_pass_last` and
+:func:`syn_lo_pass_last` (O(flen) operator bytes) instead:
 
 - "symmetric" half-sample extension by ``flen - 1`` samples per side,
   folded into the analysis matrix;
@@ -22,6 +26,7 @@ from functools import lru_cache
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
     "Wavelet",
@@ -34,6 +39,8 @@ __all__ = [
     "synthesis_operator",
     "analysis_operators",
     "synthesis_operators",
+    "an_lo_pass_last",
+    "syn_lo_pass_last",
 ]
 
 
@@ -218,29 +225,148 @@ def synthesis_operator(coeff_len: int, wavelet_name: str) -> np.ndarray:
 
 
 def analysis_operators(
-    shape: Tuple[int, int], wav: Wavelet, level: Optional[int] = None
+    shape: Tuple[int, int], wav: Wavelet, level: Optional[int] = None,
+    x_skip_min: Optional[int] = None,
 ):
-    """Per-level (A_y, A_x) operator pairs, finest level first."""
+    """Per-level (A_y, A_x) operator pairs, finest level first.
+    ``x_skip_min``: levels whose input width reaches it get ``A_x = None``;
+    their O(w^2) x operator is never built (:func:`an_lo_pass_last` applies
+    it instead)."""
     n_levels, _ = wavedec2_shapes(shape, wav, level)
     ops = []
     h, w = shape
     for _ in range(n_levels):
-        ops.append((analysis_operator(h, wav.name),
-                    analysis_operator(w, wav.name)))
+        a_x = (None if x_skip_min is not None and w >= x_skip_min
+               else analysis_operator(w, wav.name))
+        ops.append((analysis_operator(h, wav.name), a_x))
         h, w = dwt_coeff_len(h, wav.flen), dwt_coeff_len(w, wav.flen)
     return ops
 
 
 def synthesis_operators(
-    shape: Tuple[int, int], wav: Wavelet, level: Optional[int] = None
+    shape: Tuple[int, int], wav: Wavelet, level: Optional[int] = None,
+    x_skip_min: Optional[int] = None,
 ):
     """Per-level (S_y, S_x) operator pairs, coarsest level first, with
     output rows trimmed to the next level's detail shape (final level: the
-    image shape) so waverec2's crop-by-one rule needs no slice."""
+    image shape) so waverec2's crop-by-one rule needs no slice.
+    ``x_skip_min``: levels whose output width reaches it get ``S_x = None``
+    (:func:`syn_lo_pass_last` applies it instead)."""
     _, ladder = wavedec2_shapes(shape, wav, level)
     targets = list(ladder[1:]) + [shape]
     return [
         (synthesis_operator(h, wav.name)[:th],
-         synthesis_operator(w, wav.name)[:tw])
+         None if x_skip_min is not None and tw >= x_skip_min
+         else synthesis_operator(w, wav.name)[:tw])
         for (h, w), (th, tw) in zip(ladder, targets)
     ]
+
+
+# ---------------------------------------------------------------------------
+# Blocked lowpass passes along the last axis
+#
+# With the symmetric extension written into the data, the banded analysis
+# and synthesis maps are shift-invariant: every block of _AN_R analysis (or
+# 2 _AN_R synthesis) outputs is the same small matrix applied to a short
+# overlapping window of the input, so a pass is one batched product of
+# windows by an O(flen) operator.
+# ---------------------------------------------------------------------------
+
+_AN_R = 64  # analysis outputs per block (per filter)
+
+
+@lru_cache(maxsize=None)
+def _blocked_analysis_mat(wavelet_name: str) -> np.ndarray:
+    """(K, 2R) float32: a window of 2R + flen - 2 extended samples ->
+    [R lowpass outputs | R highpass outputs]."""
+    wav = wavelet(wavelet_name)
+    flen = wav.flen
+    R = _AN_R
+    K = 2 * R + flen - 2
+    lo_rev = wav.dec_lo[::-1]
+    hi_rev = wav.dec_hi[::-1]
+    M = np.zeros((K, 2 * R))
+    for r in range(R):
+        for i in range(flen):
+            M[2 * r + i, r] += lo_rev[i]
+            M[2 * r + i, R + r] += hi_rev[i]
+    return M.astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _blocked_synthesis_mat(wavelet_name: str) -> Tuple[np.ndarray, int]:
+    """((2T, R_out) float32, T): windows of T lowpass and T highpass
+    coefficients -> R_out = 2 _AN_R reconstructed samples (upsample,
+    convolve, crop)."""
+    wav = wavelet(wavelet_name)
+    flen = wav.flen
+    R_out = 2 * _AN_R
+    T = (R_out - 1 + flen - 2) // 2 + 1
+    rec_lo = wav.rec_lo_arr
+    rec_hi = wav.rec_hi
+    M = np.zeros((2 * T, R_out))
+    for s in range(R_out):
+        for t in range(T):
+            j = s + flen - 2 - 2 * t
+            if 0 <= j < flen:
+                M[t, s] += rec_lo[j]
+                M[T + t, s] += rec_hi[j]
+    return M.astype(np.float32), T
+
+
+@lru_cache(maxsize=64)
+def _operand(mat_key: tuple, device: torch.device) -> torch.Tensor:
+    name, kind = mat_key
+    if kind == "an":
+        m = _blocked_analysis_mat(name)[:, :_AN_R]
+    else:
+        M, T = _blocked_synthesis_mat(name)
+        m = M[:T]
+    return torch.as_tensor(np.ascontiguousarray(m), device=device)
+
+
+def _windows(c: torch.Tensor, step: int, nq: int, width: int):
+    """(..., nq, width) windows of the last axis: window q starts at
+    q * step (``c`` holds at least step * nq + width - step samples)."""
+    base = c[..., : step * nq].reshape(c.shape[:-1] + (nq, step))
+    halo = c[..., step : step + step * nq].reshape(
+        c.shape[:-1] + (nq, step))[..., : width - step]
+    return torch.cat([base, halo], dim=-1)
+
+
+def an_lo_pass_last(x: torch.Tensor, wav: Wavelet) -> torch.Tensor:
+    """Lowpass-only analysis along the last axis -> (..., L): the blocked
+    equivalent of ``x @ analysis_operator(n)[:L].T`` (the dense ``an_x_lo``
+    of :meth:`..filter.DestripePlan.constants`), at O(flen) operator bytes
+    instead of O(n^2). float32 in, float32 out."""
+    flen = wav.flen
+    n = x.shape[-1]
+    L = dwt_coeff_len(n, flen)
+    R = _AN_R
+    nq = -(-L // R)
+    idx = _fold_symmetric(np.arange(-(flen - 1), n + flen - 1), n)
+    ext = x.index_select(-1, torch.as_tensor(idx, device=x.device))
+    need = 1 + 2 * R * (nq + 1)
+    if ext.shape[-1] < need:
+        ext = torch.nn.functional.pad(ext, (0, need - ext.shape[-1]))
+    win = _windows(ext[..., 1:], 2 * R, nq, 2 * R + flen - 2)
+    out = torch.matmul(win, _operand((wav.name, "an"), x.device))
+    return out.reshape(x.shape[:-1] + (nq * R,))[..., :L]
+
+
+def syn_lo_pass_last(lo: torch.Tensor, wav: Wavelet,
+                     out_len: int) -> torch.Tensor:
+    """Lowpass-only synthesis along the last axis, cropped to ``out_len``
+    samples: the blocked equivalent of ``lo @ synthesis_operator(L)
+    [:out_len, :L].T`` (the dense trimmed ``syn_x_lo``). Output s = q R_out
+    + s' of coefficient t = q H + t' has tap j = s' + flen - 2 - 2 t', so
+    every tap of the dense operator lands in block q's window."""
+    L = lo.shape[-1]
+    M, T = _blocked_synthesis_mat(wav.name)
+    R_out = M.shape[1]
+    H = R_out // 2
+    nq = -(-out_len // R_out)
+    lo_p = torch.nn.functional.pad(lo, (0, max(0, H * nq + T - L)))
+    win = _windows(lo_p, H, nq, T)
+    out = torch.matmul(win, _operand((wav.name, "syn"), lo.device))
+    return out.reshape(lo.shape[:-1] + (nq * R_out,))[..., :out_len]

@@ -33,21 +33,29 @@ histogram with a row bound, the masked row median and the per-plane notch
 product (:func:`.cuda_notch.notch_select`); bands under the kernels'
 pay-off gate (:data:`..ops.filter._PALLAS_MIN_PX`) are filtered whole.
 
-Widths at or above the dense-x gate (:func:`banded_x_min_w_default`) run
-the banded/spectral x tier in the JAX package; it is not ported, and such
-plans raise NotImplementedError (:func:`..ops.filter.require_dense_x`).
+Levels whose input width reaches the dense-x gate
+(:func:`banded_x_min_w_default`) carry no dense x operator, as in the JAX
+package: their O(w^2) matrices are never built. Such a level runs K1/K4 per
+shard where the band fits their windows (the band forms are built from the
+filter taps, never from a dense operator: :func:`_k1_taps_band`,
+:func:`_k4_taps_band`), the blocked lowpass passes
+(:func:`..ops.wavelets.an_lo_pass_last`, :func:`..ops.wavelets.
+syn_lo_pass_last`) where it does not, and its notch as the rfft map
+(:func:`..ops.fft_notch.apply_notch_fft`, cuFFT on the card) for both
+operator choices.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..ops import cuda_band, cuda_notch
-from ..ops.cuda_band import band_form
+from ..ops import cuda_band, cuda_notch, wavelets
+from ..ops.cuda_band import band_form_taps, check_k1_band
 from ..ops.cuda_blend import RADIUS, blend_smooth_mix
 from ..ops.cuda_hist import histogram256_batch
 from ..ops.cuda_notch import row_median_masked
@@ -59,8 +67,8 @@ from ..ops.filter import (
     classifier_sums,
     classify_from_sums,
     normalize_flat_dark,
-    require_dense_x,
 )
+from ..ops.fft_notch import apply_notch_fft
 from ..ops.flatfield import flatfield_correction, wrap_cast
 from ..ops.otsu import _u16_range, otsu_from_counts, threshold_otsu_batch
 from .mesh import make_mesh
@@ -253,17 +261,19 @@ def _window_starts(n_blocks: int, stride: int, pad: int, smax: int):
     return tuple(min(max(stride * i - pad, 0), smax) for i in range(n_blocks))
 
 
-def _windows_cover(A: np.ndarray, r_out: int, w_win: int, starts) -> bool:
-    """Does every block of ``r_out`` output rows of ``A`` keep its nonzero
-    columns inside its window ``[starts[i], starts[i] + w_win)``? (The JAX
-    package's ``blocked_operator`` raises otherwise, and the level then
-    keeps its dense x pass.)"""
-    nz = A != 0
+def _windows_cover(start: np.ndarray, coef: np.ndarray, r_out: int,
+                   w_win: int, starts) -> bool:
+    """Does every block of ``r_out`` output rows of the band form (start,
+    coef) keep its nonzero columns inside its window ``[starts[i],
+    starts[i] + w_win)``? (The JAX package's ``blocked_operator`` raises
+    otherwise, and the level then keeps its dense x pass.)"""
+    nz = coef != 0
     has = nz.any(axis=1)
-    first = np.where(has, nz.argmax(axis=1), np.iinfo(np.int64).max)
-    last = np.where(has, A.shape[1] - 1 - nz[:, ::-1].argmax(axis=1), -1)
+    K = coef.shape[1]
+    first = np.where(has, start + nz.argmax(axis=1), np.iinfo(np.int64).max)
+    last = np.where(has, start + K - 1 - nz[:, ::-1].argmax(axis=1), -1)
     for i, s in enumerate(starts):
-        a, b = i * r_out, min((i + 1) * r_out, A.shape[0])
+        a, b = i * r_out, min((i + 1) * r_out, coef.shape[0])
         if a >= b or not has[a:b].any():
             continue
         if first[a:b].min() < s or last[a:b].max() >= s + w_win:
@@ -271,13 +281,46 @@ def _windows_cover(A: np.ndarray, r_out: int, w_win: int, starts) -> bool:
     return True
 
 
-def _plan_x_blocks(plan: DestripePlan, dense: dict):
+def _k1_taps_band(w: int, wavelet_name: str):
+    """K1's band form of the lowpass analysis operator of width w
+    (``analysis_operator(w)[:L]``), from the filter taps: row k sums
+    ``dec_lo[::-1][i]`` at the symmetric fold of column 2k + 1 + i -
+    (flen - 1), as the dense builder adds them."""
+    wav = wavelets.wavelet(wavelet_name)
+    flen = wav.flen
+    L = wavelets.dwt_coeff_len(w, flen)
+    k = np.arange(L)[:, None]
+    cols = wavelets._fold_symmetric(2 * k + 1 + np.arange(flen)[None, :]
+                                    - (flen - 1), w)
+    vals = np.broadcast_to(wav.dec_lo[::-1], (L, flen))
+    start, coef = band_form_taps(cols, vals, w)
+    check_k1_band(start, coef.shape[1])
+    return start, coef
+
+
+def _k4_taps_band(L_x: int, tw: int, wavelet_name: str):
+    """K4's band form of the trimmed lowpass synthesis operator
+    (``synthesis_operator(L_x)[:tw, :L_x]``), from the filter taps: output
+    m takes ``rec_lo[j]`` of coefficient k for j = m + flen - 2 - 2k in
+    [0, flen)."""
+    wav = wavelets.wavelet(wavelet_name)
+    flen = wav.flen
+    m = np.arange(tw)[:, None]
+    cols = (m + flen - 2) // 2 - np.arange(flen // 2 + 1)[None, :]
+    j = m + flen - 2 - 2 * cols
+    valid = (j >= 0) & (j < flen) & (cols >= 0) & (cols < L_x)
+    vals = np.where(valid, wav.rec_lo_arr[np.clip(j, 0, flen - 1)], 0.0)
+    return band_form_taps(np.clip(cols, 0, L_x - 1), vals, L_x)
+
+
+def _plan_x_blocks(plan: DestripePlan):
     """The level set of the per-shard K1/K4 tier, as in the JAX package:
     K1 by analysis level (finest first), K4 by synthesis index (coarsest
     first), for levels at least 560 wide whose band fits the TPU kernels'
     closed-form windows. Each holds the band form that K1/K4 read instead
-    of the JAX package's bf16 blocked operators. Returns ``((k1, k4),
-    (k1_static, k4_static))``."""
+    of the JAX package's bf16 blocked operators, built from the filter
+    taps (O(w) host memory at any width, the dense-x gate's included).
+    Returns ``((k1, k4), (k1_static, k4_static))``."""
     rup = lambda a, b: -(-a // b) * b  # noqa: E731
     cdiv = lambda a, b: -(-a // b)  # noqa: E731
     n = plan.n_levels
@@ -287,10 +330,9 @@ def _plan_x_blocks(plan: DestripePlan, dense: dict):
         L_w = plan.ladder[-1 - lvl][1]
         smax = rup(w_cur, 128) - 384
         if smax >= 0 and w_cur >= 560:
-            A = np.asarray(dense["an_x_lo"][lvl])
+            start, coef = _k1_taps_band(w_cur, plan.wavelet)
             starts = _window_starts(cdiv(L_w, 128), 256, 128, smax)
-            if _windows_cover(A, 128, 384, starts):
-                start, (coef,) = band_form(A)
+            if _windows_cover(start, coef, 128, 384, starts):
                 k1[lvl] = {"start": start, "coef": coef}
                 k1_static[lvl] = {"out_w": L_w}
         w_cur = L_w
@@ -299,10 +341,9 @@ def _plan_x_blocks(plan: DestripePlan, dense: dict):
         tw = plan.ladder[i + 1][1] if i + 1 < n else plan.width
         smax = rup(L_x, 128) - 384
         if smax >= 0 and tw >= 560:
-            S = np.asarray(dense["syn_x_lo"][i])
+            start, coef = _k4_taps_band(L_x, tw, plan.wavelet)
             starts = _window_starts(cdiv(tw, 256), 128, 128, smax)
-            if _windows_cover(S, 256, 384, starts):
-                start, (coef,) = band_form(S)
+            if _windows_cover(start, coef, 256, 384, starts):
                 k4[i] = {"start": start, "coef": coef}
                 k4_static[i] = {"out_w": tw}
     return (k1, k4), (k1_static, k4_static)
@@ -326,11 +367,14 @@ def halo_constants(plan: DestripePlan, n_devices: int,
       ``notch_blocks=False`` and multiplies its static halves with the
       dense ``notch_cat`` instead.
 
-    ``dense``: the plan's ``constants(dense_only=True)``, when the caller
-    has them already."""
-    require_dense_x(plan, banded_x_min_w_default())
+    Levels at or above the dense-x gate get no notch bank (it costs the
+    O(w^2) bytes the gate bounds; their notch runs spectrally).
+
+    ``dense``: the plan's ``constants(dense_only=True, banded_x_min_w=
+    banded_x_min_w_default())``, when the caller has them already."""
     if dense is None:
-        dense = plan.constants(dense_only=True)
+        dense = plan.constants(dense_only=True,
+                               banded_x_min_w=banded_x_min_w_default())
     D = int(n_devices)
     arrays: dict = {}
     static: dict = {}
@@ -359,15 +403,16 @@ def halo_constants(plan: DestripePlan, n_devices: int,
             break
         arrays[str(lvl)] = lvl_arrays
         static[lvl] = lvl_static
-    (a1, a4), (s1, s4) = _plan_x_blocks(plan, dense)
+    (a1, a4), (s1, s4) = _plan_x_blocks(plan)
     if a1:
         arrays["xk1"] = {str(k): v for k, v in a1.items()}
         static["xk1"] = s1
     if a4:
         arrays["xk4"] = {str(k): v for k, v in a4.items()}
         static["xk4"] = s4
-    skip = [not (notch_blocks and lh * lw >= _PALLAS_MIN_PX)
-            for lh, lw in plan.ladder]
+    # a width-gated level has no notch matrix to stack (notch_cat None)
+    skip = [not (notch_blocks and lh * lw >= _PALLAS_MIN_PX) or cat is None
+            for (lh, lw), cat in zip(plan.ladder, dense["notch_cat"])]
     if not all(skip):
         nb_arrays, nb_static = {}, {}
         for i, pair in enumerate(plan.notch_matrices(skip=skip)):
@@ -399,11 +444,12 @@ def halo_device_constants(plan: DestripePlan, mesh,
     device: ``notch_cat`` where a bank serves, the y operators of sharded
     levels, and on a CUDA device the x operators of K1/K4 levels (the
     kernels read the band forms; the plain twins on a CPU device read the
-    dense x operators)."""
-    require_dense_x(plan, banded_x_min_w_default())  # before any operator
+    dense x operators, or those the band forms encode). Levels at or above
+    the dense-x gate have no dense x operators at all."""
     mesh = tuple(make_mesh(mesh))
     devices = tuple(dict.fromkeys(mesh))
-    dense = plan.constants(dense_only=True)
+    dense = plan.constants(dense_only=True,
+                           banded_x_min_w=banded_x_min_w_default())
     arrays, static = halo_constants(plan, len(mesh), notch_blocks, dense)
     n = plan.n_levels
 
@@ -423,8 +469,8 @@ def halo_device_constants(plan: DestripePlan, mesh,
 
     def dense_on(dev):
         drop = on_card if dev.type == "cuda" else dropped
-        return {k: tuple(None if i in drop.get(k, ()) else put(a, dev)
-                         for i, a in enumerate(v))
+        return {k: tuple(None if a is None or i in drop.get(k, ())
+                         else put(a, dev) for i, a in enumerate(v))
                 for k, v in dense.items()}
 
     def per_device(group, fn):
@@ -606,7 +652,10 @@ def destripe_y_sharded(
               "syn_lo": syn_y[:, :half], "syn_hi": syn_y[:, half:]}
         return [_dense_y(v, op[nm]) for nm in names]
 
-    # analysis, finest -> coarsest: the x lowpass (per shard) first
+    wav = wavelets.wavelet(plan.wavelet)
+
+    # analysis, finest -> coarsest: the x lowpass (per shard) first; a
+    # level at the dense-x gate without K1 takes the blocked pass
     a = x if fuse_io else _map(
         x, lambda p, d: torch.log(1.0 + p.to(torch.float32)))
     chs = []
@@ -616,6 +665,8 @@ def destripe_y_sharded(
             lox = _map(a, lambda p, d: cuda_band.an_x_lowpass_chunked(
                 p, dense[p.device]["an_x_lo"][lvl], *bands[p.device],
                 log1p=fuse_io and lvl == 0))
+        elif dense[dev0]["an_x_lo"][lvl] is None:
+            lox = _map(a, lambda p, d: wavelets.an_lo_pass_last(p, wav))
         else:
             lox = _map(a, lambda p, d: torch.matmul(
                 p, dense[p.device]["an_x_lo"][lvl].t()))
@@ -628,10 +679,16 @@ def destripe_y_sharded(
     thr_cap = (plan.cells.max_threshold, plan.no_cells.max_threshold)
     n_out = 2 * B0 if dual else B0
     sel = torch.where(is_cells, 0, 1).to(torch.int32)
+    sigmas = plan.notch_sigmas()
     for j in range(n):
         ch = chs[n - 1 - j]
         chs[n - 1 - j] = None
         h_b, w_b = plan.ladder[j]
+        # a level at the dense-x gate has no notch matrix: both notches as
+        # the rfft map, each plane taking its own
+        spectral = None
+        if dense[dev0]["notch_cat"][j] is None and j not in consts.notch:
+            spectral = functools.partial(_notch_both_fft, sigmas=sigmas[j])
         if h_b * w_b < _PALLAS_MIN_PX:
             # small band: filtered whole on the first device, as the plane
             # path filters it (notch_delta)
@@ -642,7 +699,7 @@ def destripe_y_sharded(
                     chg, square=True)).repeat(2)
             deltas.append(_replicated(_filter_level_delta(
                 chg, is_cells, dense[dev0]["notch_cat"][j], *thr_cap,
-                otsu_sqrt=otsu_sqrt)))
+                otsu_sqrt=otsu_sqrt, notch_apply=spectral)))
             continue
         otsu = torch.sqrt(_otsu_sharded(ch, dev0, square=True))
         max_thr = torch.where(is_cells, float(thr_cap[0]), float(thr_cap[1]))
@@ -651,14 +708,21 @@ def destripe_y_sharded(
         if bank is None:
             bank = {dev: dense[dev]["notch_cat"][j] for dev in dense}
 
-        def tail(p, d, thr=thr, bank=bank):
+        def tail(p, d, thr=thr, bank=bank, spectral=spectral):
             t = thr.to(p.device)
             med = row_median_masked(p, t)
             c = p.repeat(n_out // B0, 1, 1) if dual else p
             stripes = torch.sqrt(c * c) > t[:, None, None]
             inpainted = torch.where(stripes, med, c)
-            filtered = cuda_notch.notch_select(
-                inpainted, sel.to(p.device), bank[p.device])
+            s = sel.to(p.device)
+            if spectral is None:
+                filtered = cuda_notch.notch_select(inpainted, s,
+                                                   bank[p.device])
+            else:
+                both = spectral(inpainted)
+                w = c.shape[-1]
+                filtered = torch.where((s == 0)[:, None, None],
+                                       both[..., :w], both[..., w:])
             return torch.where(stripes, 0.0, filtered - c)
 
         deltas.append(_map(ch, tail))
@@ -684,6 +748,10 @@ def destripe_y_sharded(
                 return _k4_final(stacked, x, ops, flat, dark, wrap)
             corr = _map(stacked, lambda p, d: cuda_band.syn_x_exp_chunked(
                 p, None, *ops[p.device]))
+        elif dense[dev0]["syn_x_lo"][i] is None:
+            tw = plan.ladder[i + 1][1] if i + 1 < n else plan.width
+            corr = _map(stacked, lambda p, d: wavelets.syn_lo_pass_last(
+                p, wav, tw))
         else:
             corr = _map(stacked, lambda p, d: torch.matmul(
                 p, dense[p.device]["syn_x_lo"][i].t()))
@@ -694,6 +762,12 @@ def destripe_y_sharded(
         xl = torch.cat([xl, xl])
     out0 = torch.exp(xl + corr.gather(dev0)) + 1.0
     return _replicated(_epilogue(out0, flat, dark, wrap, dev0))
+
+
+def _notch_both_fft(rows, sigmas):
+    """Both notches of a width-gated level, (kB, h, w) -> (kB, h, 2w):
+    [cells | no-cells], the column layout of ``notch_cat``'s product."""
+    return torch.cat([apply_notch_fft(rows, s) for s in sigmas], dim=-1)
 
 
 def _epilogue(y, flat, dark, wrap, dev):

@@ -35,7 +35,10 @@ Phases, each printing its lines:
    ``dense_matmul``, the dense levels' fixed-order product, on the four
    products of every dense level (2-7) against ``torch.matmul`` (its twin
    and the library call), each also bit-equal for one plane alone and in
-   the batch, per level and summed over a step;
+   the batch, per level and summed over a step, and on the four level-2
+   products of a 2000 x 16000 plane (K = 4003 for its x analysis). The
+   notch tail's lines also time its GEMM launch alone (its median
+   excluded) and ``torch.matmul`` of the same per-plane product alone;
 4. the port's main paths: a synthetic capsule (one channel, one tile of
    128 x 1600 x 2000 uint16 planes with dark and flats, in the layout of
    tests/test_run_capsule_e2e.py) through ``run_capsule.run()`` on the card
@@ -47,10 +50,18 @@ Phases, each printing its lines:
    ``devices=None``: planes this size run on one card;
    ``scripts/mesh_capsule.py`` holds that against a split over every
    card); then each device step alone on one resident 64-plane batch
-   (CUDA events, peak device memory);
+   (CUDA events, peak device memory) and the sha256 of its output, which
+   ``scripts/step_hash.py`` computes for another commit's package;
 5. four sampled planes of each run's level 0 against the port's plain path
    on the CPU, within 1 LSB outside a stated flip budget and at
-   PSNR >= 100 dB;
+   PSNR >= 100 dB; then ``[check-every]``: every plane of the single-band
+   run's first 64-plane step against the same path, four planes per CPU
+   call: the step's decisions exactly (the classifier's choice, and each
+   level's Otsu threshold against the CPU's Otsu of the card's band) and
+   each plane at PSNR >= 100 dB against the CPU's path with the card's
+   thresholds; it also prints each plane's max LSB, share of pixels > 1
+   LSB and PSNR against the CPU's path with its own thresholds, and the
+   levels where those differ (an Otsu near-tie, PERF.md);
 6. the multi-device routes on the mesh (every visible card when there are
    two or more, else two entries on ``cuda:0``; printed on the ``[halo]``
    line): ``[zmesh]`` the plane-sharded step at 64 x 1600 x 2000 against
@@ -68,7 +79,12 @@ Phases, each printing its lines:
    ``[step-dual-halo]`` the row-sharded step alone on one resident plane,
    and ``[check-halo]`` / ``[check-dual-halo]`` its output against the
    single-device plane path on the card, within 1 LSB outside the flip
-   budget at PSNR >= 100 dB.
+   budget at PSNR >= 100 dB; ``[check-banded]`` the same plane through
+   the row-sharded step with the dense-x gate forced to 64 columns (the
+   banded/spectral x tier at every level that wide) against the dense
+   tier, under 1e-3 of pixels > 1 LSB at >= 90 dB; ``[step-banded]`` one
+   4096 x 20480 plane, at the default gate, through the row-sharded step
+   (its time, peak memory and launches, and its stripes cut).
 
 Between 5 and 6, the other entry points, each with the launch counts reset
 just before it and read just after it: ``[facade]`` ``filtering.filter_stripes``
@@ -89,7 +105,9 @@ disjoint ownership covering every tile, levels 0-2 of each tile, one
 provenance write, one sampled plane per tile against the CPU plain path,
 wall time.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record, the one before it
+the steps' sha256, the every-plane check and the banded step; the last
+line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero; so does a host without CUDA, before any result is printed.
 Z is cut to 128 planes (two slabs) only to keep the run short, and to 4
@@ -98,6 +116,7 @@ plane).
 """
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -125,12 +144,25 @@ EXACT = ("histogram256_batch", "row_median_masked", "row_median_batch")
 # which bounds how far any pixel may move.
 FLIP_BUDGET = 1e-4
 PSNR_MIN = 100.0
+# The banded/spectral x tier against the dense one on the same plane: it
+# sums the x passes and the notch in other orders (blocked windows, the
+# band form, an FFT), so coefficients on an Otsu bin edge or the stripe
+# threshold may flip; the JAX package's gate for it (__graft_entry__.py).
+BANDED_FLIPS = 1e-3
+BANDED_PSNR = 90.0
 SHAPE = (128, 1600, 2000)
 # The smallest production-routed row-sharded plane: above 1 GiB of f32 (so
 # the row route is taken) and under the dense-x gate of 20067 columns.
 HALO_SHAPE = (4, 16384, 18000)
+# A plane at the dense-x gate (20067 columns by default): the row-sharded
+# route runs its finest level through the banded/spectral x tier.
+BANDED_SHAPE = (1, 4096, 20480)
+# A plane whose level-2 dense products run K in the thousands (level 2's
+# input is 503 x 4003): dense_matmul at long K.
+LONG_K_SHAPE = (2000, 16000)
 BATCH = 64
 SAMPLED = (0, 1, 64, 127)
+EVERY_CHUNK = 4  # planes per CPU call of [check-every]
 ZSAMPLED = (0, 1, 17, 50)  # of the [zmesh] batch: planes of both classes
 CROSSOVER = 100.0
 # The bound of a call: the larger of its bytes (each input read once, each
@@ -256,10 +288,11 @@ def _bound(nbytes, ops):
 
 
 def _compare(rec, name, lvl, kern, plain, scale=None, ins=(), ops=0.0,
-             library=None, tag="kernels"):
+             library=None, tag="kernels", extra=None):
     """Hold one kernel call against its twin, time both (and ``library``,
-    one PyTorch call computing the same function, where there is one),
-    bound the call by the bytes of ``ins`` and of its outputs and by its
+    one PyTorch call computing the same function, where there is one, and
+    each call of ``extra``, {key: call}, recorded as ``<key>_ms``), bound
+    the call by the bytes of ``ins`` and of its outputs and by its
     ``ops``, print and record; raises on a disagreement."""
     import torch
 
@@ -280,18 +313,20 @@ def _compare(rec, name, lvl, kern, plain, scale=None, ins=(), ops=0.0,
     del want
     ms, plain_ms = _time_ms(kern), _time_ms(plain)
     library_ms = None if library is None else _time_ms(library)
+    more = {f"{k}_ms": _time_ms(fn) for k, fn in (extra or {}).items()}
     ok = err <= tol
     lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
     print(f"[{tag}] {name} level {lvl} out {tuple(got.shape)} "
           f"{str(got.dtype).replace('torch.', '')}: max_abs_err "
           f"{err:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'}; "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, "
-          f"bound {bound_ms:.3f} ms ({bound_by})")
+          f"bound {bound_ms:.3f} ms ({bound_by})"
+          + "".join(f", {k} {v:.3f}" for k, v in more.items()))
     if not ok:
         raise AssertionError(f"{name} level {lvl}: {err} > {tol}")
     rec[name][lvl] = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                           library_ms=library_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, shape=list(got.shape))
+                          bound_by=bound_by, shape=list(got.shape), **more)
 
 
 def _tail_calls(ch, notch_cat, thr_cap, dual=False):
@@ -323,18 +358,49 @@ def _tail_calls(ch, notch_cat, thr_cap, dual=False):
         "row_median_masked": (
             lambda: tn.row_median_masked(ch, thr),
             lambda: tn.row_median_masked_plain(ch, thr),
-            (ch, thr), 4.0 * n_out * h * w),
+            (ch, thr), 4.0 * n_out * h * w, None),
         "notch_delta": (
             lambda: tn.notch_delta(ch, thr, sel, notch_cat),
             lambda: tn.notch_delta_plain(ch, thr, sel, notch_cat),
-            (ch, thr, sel, notch_cat), 2.0 * n_out * h * w * w),
+            (ch, thr, sel, notch_cat), 2.0 * n_out * h * w * w,
+            _notch_parts(ch, thr, sel, notch_cat)),
     }
     if not dual:
         calls["histogram256_batch"] = (
             lambda: th.histogram256_batch(ch, lo, span, square=True),
             lambda: th.histogram256_batch_plain(ch, lo, span, square=True),
-            (ch, lo, span), 5.0 * ch.numel())
+            (ch, lo, span), 5.0 * ch.numel(), None)
     return calls
+
+
+def _notch_parts(ch, thr, sel, notch_cat):
+    """The notch tail's parts to time beside it: ``gemm``, its GEMM launch
+    alone on the medians of the call (the mask, inpainting and delta
+    fused), and ``product_alone``, ``torch.matmul`` of the output batch by
+    the cells operator at the same per-plane shape, the product without
+    mask, inpainting, delta or per-plane operator choice (no library call
+    computes the whole function)."""
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import cuda_notch as tn
+    from aind_smartspim_destripe_torch.ops.cuda_build import launch
+
+    B, h, w = ch.shape
+    n_out = thr.shape[0]
+    med = tn.row_median_masked(ch, thr)
+    out = torch.empty((n_out, h, w), device=ch.device)
+    v = tn.plan_notch_delta(n_out, h, w, ch.data_ptr() % 8,
+                            notch_cat.data_ptr() % 8)
+    band = ch.repeat(n_out // B, 1, 1)
+    op = notch_cat[:, :w]
+
+    def gemm():
+        launch("destripe_notch", ch.device, ch.data_ptr(), med.data_ptr(),
+               thr.data_ptr(), sel.data_ptr(), notch_cat.data_ptr(),
+               out.data_ptr(), n_out, B, h, w, v)
+        return out
+
+    return {"gemm": gemm, "product_alone": lambda: torch.matmul(band, op)}
 
 
 def phase_kernels(plan, consts, dev, seed):
@@ -385,10 +451,11 @@ def phase_kernels(plan, consts, dev, seed):
         ca, ch, _ = cb.an_y_pass(k1, a_y, bd["k2_start"], bd["k2_lo"],
                                  bd["k2_hi"])
         del k1
-        for name, (kern, plain, ins, ops) in _tail_calls(
+        for name, (kern, plain, ins, ops, extra) in _tail_calls(
                 ch, consts["notch_cat"][n - 1 - lvl], thr_cap).items():
             _compare(rec, name, lvl, kern, plain,
-                     scale=ch.abs().max().item(), ins=ins, ops=ops)
+                     scale=ch.abs().max().item(), ins=ins, ops=ops,
+                     extra=extra if lvl < 2 else None)
         corr = torch.randn(ch.shape, generator=g, device=dev) * 0.01
         delta = torch.randn(ch.shape, generator=g, device=dev) * 0.01
         del ch
@@ -422,7 +489,7 @@ def phase_kernels(plan, consts, dev, seed):
     for lvl in range(2, n):
         h, w = plan.ladder[n - 1 - lvl]
         ch = torch.randn((B, h, w), generator=g, device=dev) * 0.5
-        for name, (kern, plain, ins, ops) in _tail_calls(
+        for name, (kern, plain, ins, ops, _) in _tail_calls(
                 ch, consts["notch_cat"][n - 1 - lvl], thr_cap).items():
             _compare(rec, name, lvl, kern, plain, scale=ch.abs().max().item(),
                      ins=ins, ops=ops)
@@ -496,11 +563,11 @@ def phase_dual_kernels(plan, consts, dev, seed):
         else:
             h, w = plan.ladder[n - 1 - lvl]
             ch = torch.randn((B, h, w), generator=g, device=dev) * 0.5
-        for name, (kern, plain, ins, ops) in _tail_calls(
+        for name, (kern, plain, ins, ops, extra) in _tail_calls(
                 ch, consts["notch_cat"][n - 1 - lvl], thr_cap,
                 dual=True).items():
             _compare(rec, name, lvl, kern, plain, scale=ch.abs().max().item(),
-                     ins=ins, ops=ops)
+                     ins=ins, ops=ops, extra=extra if lvl == 0 else None)
         del ch
     torch.cuda.synchronize()
     return rec
@@ -538,82 +605,101 @@ def phase_median(dev, seed):
     return rec
 
 
-def phase_dense(plan, consts, dev, seed):
-    """``dense_matmul`` against its twin (``torch.matmul``, also the
-    library call) on the four products of every dense level (2-7) at B=64,
-    in the order the step runs them; each also bit-equal for the batch's
-    first plane alone (the fixed order), and whether it equals cuBLAS's
-    bits; where the wrapper plans 8-byte loads, the kernel also launched
-    directly at 4-byte loads (bit-equal, timed); then the sums over a
-    step's 24 products of the kernel's and of cuBLAS's times."""
+def _dense_products(rec, lvl_key, forms, dev):
+    """``dense_matmul`` on each product of ``forms`` ({form: (a, b)}),
+    against its twin (``torch.matmul``, also the library call): bit-equal
+    for the batch's first plane alone (the fixed order), whether it equals
+    cuBLAS's bits, and, where the wrapper plans 8-byte loads, the kernel
+    launched directly at 4-byte loads (bit-equal, timed)."""
     import torch
 
     from aind_smartspim_destripe_torch.ops import cuda_dense as td
     from aind_smartspim_destripe_torch.ops.cuda_build import launch
+
+    for form, (p, q) in forms.items():
+        key = f"{lvl_key} {form}"
+        batch = next(t.shape[0] for t in (p, q) if t.ndim == 3)
+        _compare(rec, "dense_matmul", key, lambda: td.dense_matmul(p, q),
+                 lambda: td.dense_matmul_plain(p, q),
+                 scale=p.abs().max().item() * q.abs().max().item()
+                 * p.shape[-1], ins=(p, q),
+                 ops=2.0 * batch * p.shape[-2] * q.shape[-1] * p.shape[-1],
+                 library=lambda: torch.matmul(p, q))
+        got = td.dense_matmul(p, q)
+        one = (td.dense_matmul(p[:1], q) if p.ndim == 3
+               else td.dense_matmul(p, q[:1]))
+        cublas = torch.equal(got, torch.matmul(p, q))
+        pl = td.plan_dense_matmul(p.shape, p.stride(), q.shape, q.stride(),
+                                  p.data_ptr() % 8, q.data_ptr() % 8)
+        narrow = None
+        if (pl.va, pl.vb) != (1, 1):
+            c4 = torch.empty_like(got)
+
+            def four(p=p, q=q, pl=pl, c4=c4):
+                launch("destripe_dense_matmul", dev, p.data_ptr(),
+                       q.data_ptr(), c4.data_ptr(), pl.batch, pl.m, pl.n,
+                       pl.K, *pl.sa, *pl.sb, 1, 1)
+                return c4
+
+            if not torch.equal(four(), got):
+                raise AssertionError("dense_matmul's copy widths differ")
+            narrow = _time_ms(four)
+            del c4
+        print(f"[kernels] dense_matmul level {key}: {tuple(p.shape)} @ "
+              f"{tuple(q.shape)} as {pl.batch} x ({pl.m}, {pl.n}), K = "
+              f"{pl.K}, {4 * pl.va}- and {4 * pl.vb}-byte loads"
+              + ("" if narrow is None else
+                 f" (4- and 4-byte: {narrow:.4f} ms, bit-equal)")
+              + f"; one plane alone bit-equal to it in the "
+              f"batch: {torch.equal(one, got[:1])}; bit-equal to cuBLAS "
+              f"at B={batch}: {cublas}")
+        if not torch.equal(one, got[:1]):
+            raise AssertionError("dense_matmul depends on the batch")
+        rec["dense_matmul"][key].update(cublas_bit_equal=cublas,
+                                        copy_widths=[pl.va, pl.vb],
+                                        ms_4byte_copies=narrow)
+
+
+def _level_forms(g, dev, h, w, an_x_lo, an_y, syn_y, syn_x_lo):
+    """The four products of a dense level with an (h, w) input, at B=64,
+    in the order the step runs them, the operators passed as the step
+    passes them (transposed or sliced views)."""
+    import torch
+
+    L = an_x_lo.shape[0]
+    return {
+        "an_x": (torch.randn((BATCH, h, w), generator=g, device=dev) * 0.3,
+                 an_x_lo.t()),
+        "an_y": (an_y, torch.randn((BATCH, h, L), generator=g,
+                                   device=dev) * 0.3),
+        "syn_y": (syn_y, torch.randn((BATCH, syn_y.shape[1], L),
+                                     generator=g, device=dev) * 0.01),
+        "syn_x": (torch.randn((BATCH, syn_y.shape[0], L), generator=g,
+                              device=dev) * 0.01, syn_x_lo.t()),
+    }
+
+
+def phase_dense(plan, consts, dev, seed):
+    """``dense_matmul`` (:func:`_dense_products`) on the four products of
+    every dense level (2-7) at B=64, then the sums over a step's 24
+    products of the kernel's and of cuBLAS's times; then the four products
+    of level 2 of a LONG_K_SHAPE plane, whose an_x product runs K in the
+    thousands (the dense level of a plane whose short side is under 560)."""
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import wavelets as tw
 
     g = torch.Generator(device=dev).manual_seed(seed + 17)
     n = plan.n_levels
     rec = {"dense_matmul": {}}
     for lvl in range(2, n):
         h, w = plan.ladder[n - lvl]  # the level's input: the finer cA band
-        L = consts["an_x_lo"][lvl].shape[0]
-        a = torch.randn((BATCH, h, w), generator=g, device=dev) * 0.3
-        an_y, syn_y = consts["an_y"][lvl], consts["syn_y"][n - 1 - lvl]
-        up = torch.randn((BATCH, syn_y.shape[1], L), generator=g,
-                         device=dev) * 0.01
-        st = torch.randn((BATCH, syn_y.shape[0], L), generator=g,
-                         device=dev) * 0.01
-        x_lo = torch.randn((BATCH, h, L), generator=g, device=dev) * 0.3
-        forms = {
-            "an_x": (a, consts["an_x_lo"][lvl].t()),
-            "an_y": (an_y, x_lo),
-            "syn_y": (syn_y, up),
-            "syn_x": (st, consts["syn_x_lo"][n - 1 - lvl].t()),
-        }
-        for form, (p, q) in forms.items():
-            key = f"{lvl} {form}"
-            _compare(rec, "dense_matmul", key, lambda: td.dense_matmul(p, q),
-                     lambda: td.dense_matmul_plain(p, q),
-                     scale=p.abs().max().item() * q.abs().max().item()
-                     * p.shape[-1], ins=(p, q),
-                     ops=2.0 * BATCH * p.shape[-2] * q.shape[-1]
-                     * p.shape[-1],
-                     library=lambda: torch.matmul(p, q))
-            got = td.dense_matmul(p, q)
-            one = (td.dense_matmul(p[:1], q) if p.ndim == 3
-                   else td.dense_matmul(p, q[:1]))
-            cublas = torch.equal(got, torch.matmul(p, q))
-            pl = td.plan_dense_matmul(p.shape, p.stride(), q.shape,
-                                      q.stride(), p.data_ptr() % 8,
-                                      q.data_ptr() % 8)
-            narrow = None
-            if (pl.va, pl.vb) != (1, 1):
-                c4 = torch.empty_like(got)
-
-                def four(p=p, q=q, pl=pl, c4=c4):
-                    launch("destripe_dense_matmul", dev, p.data_ptr(),
-                           q.data_ptr(), c4.data_ptr(), pl.batch, pl.m, pl.n,
-                           pl.K, *pl.sa, *pl.sb, 1, 1)
-                    return c4
-
-                if not torch.equal(four(), got):
-                    raise AssertionError("dense_matmul's copy widths differ")
-                narrow = _time_ms(four)
-                del c4
-            print(f"[kernels] dense_matmul level {key}: {tuple(p.shape)} @ "
-                  f"{tuple(q.shape)} as {pl.batch} x ({pl.m}, {pl.n}), "
-                  f"{4 * pl.va}- and {4 * pl.vb}-byte loads"
-                  + ("" if narrow is None else
-                     f" (4- and 4-byte: {narrow:.4f} ms, bit-equal)")
-                  + f"; one plane alone bit-equal to it in the "
-                  f"batch: {torch.equal(one, got[:1])}; bit-equal to cuBLAS "
-                  f"at B={BATCH}: {cublas}")
-            if not torch.equal(one, got[:1]):
-                raise AssertionError("dense_matmul depends on the batch")
-            rec["dense_matmul"][key].update(cublas_bit_equal=cublas,
-                                            copy_widths=[pl.va, pl.vb],
-                                            ms_4byte_copies=narrow)
-        del a, up, st, x_lo, forms
+        forms = _level_forms(g, dev, h, w, consts["an_x_lo"][lvl],
+                             consts["an_y"][lvl],
+                             consts["syn_y"][n - 1 - lvl],
+                             consts["syn_x_lo"][n - 1 - lvl])
+        _dense_products(rec, str(lvl), forms, dev)
+        del forms
     rows = rec["dense_matmul"].values()
     for lvl in range(2, n):
         lv = [r for k, r in rec["dense_matmul"].items()
@@ -625,8 +711,35 @@ def phase_dense(plan, consts, dev, seed):
     print(f"[kernels] dense_matmul per step (levels 2-{n - 1}, "
           f"{len(rows)} products): {kern:.4f} ms against torch.matmul's "
           f"{lib:.4f} ms ({kern / lib:.2f}x)")
+    # level 2 of the long-K plane, its operators built for that level
+    # alone (the plane's finest x operator would be gigabytes)
+    H, W = LONG_K_SHAPE
+    lplan = tf_build_plan(H, W)
+    m = lplan.n_levels
+    hi, wi = lplan.ladder[m - 2]
+    L_h, L_w = lplan.ladder[m - 3]
+
+    def put(a):
+        return torch.as_tensor(a, device=dev)
+
+    forms = _level_forms(
+        g, dev, hi, wi, put(tw.analysis_operator(wi, lplan.wavelet)[:L_w]),
+        put(tw.analysis_operator(hi, lplan.wavelet)),
+        put(tw.synthesis_operator(L_h, lplan.wavelet)[:hi]),
+        put(tw.synthesis_operator(L_w, lplan.wavelet)[:wi, :L_w]))
+    _dense_products(rec, f"long-K {H}x{W} 2", forms, dev)
     torch.cuda.synchronize()
     return rec
+
+
+def tf_build_plan(h, w):
+    """The production configurations' plan of an (h, w) plane."""
+    from aind_smartspim_destripe_torch import run_capsule
+    from aind_smartspim_destripe_torch.ops import filter as tf
+
+    cfg = run_capsule.PRODUCTION_PARAMETERS
+    return tf.build_plan(h, w, tf.FilterConfig.from_dict(cfg["cells_config"]),
+                         tf.FilterConfig.from_dict(cfg["no_cells_config"]))
 
 
 def _sync(mesh):
@@ -758,7 +871,7 @@ def phase_halo_kernels(hplan, dense, dev, seed, n_dev):
     g = torch.Generator(device=dev).manual_seed(seed + 11)
     n = hplan.n_levels
     H, W = hplan.height, hplan.width
-    (k1, k4), _ = _plan_x_blocks(hplan, dense)
+    (k1, k4), _ = _plan_x_blocks(hplan)
 
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
@@ -953,6 +1066,127 @@ def step_check_halo(tag, plan, vol, flat, dark, dev, mesh, dual=False):
           f"(min {PSNR_MIN})")
     if flips > FLIP_BUDGET * d.size or psnr < PSNR_MIN:
         raise AssertionError(f"check-{tag}: the row-sharded step disagrees")
+    return outs[0]
+
+
+def check_banded(plan, vol, flat, dark, mesh, ref):
+    """[check-banded]: the row-sharded step with the dense-x gate forced to
+    64 columns, as __graft_entry__.py runs the JAX package's (every level
+    that wide takes the banded/spectral x tier: K1/K4 from the filter
+    taps, the blocked lowpass passes under K1/K4's 560 columns, the rfft
+    notch), against the dense tier's output ``ref`` on the same plane:
+    under BANDED_FLIPS of pixels > 1 LSB and at BANDED_PSNR dB or more,
+    that package's banded-vs-dense gate."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch import ops
+    from aind_smartspim_destripe_torch.runtime.pipeline import (
+        make_device_step,
+    )
+
+    os.environ["DESTRIPE_BANDED_X_MIN_W"] = "64"
+    try:
+        t0 = time.perf_counter()
+        step = make_device_step(plan, 2500.0, True, devices=mesh)
+        plan_s = time.perf_counter() - t0
+        args = (step.put(vol[:1]), step.put_const(flat),
+                step.put_const(dark.astype(np.float32)))
+        ops.reset_launches()
+        res = step(*args)
+        _sync(mesh)
+        launches = _launches()
+        out = step.to_host(res)
+    finally:
+        del os.environ["DESTRIPE_BANDED_X_MIN_W"]
+    del step, args, res
+    torch.cuda.empty_cache()
+    d = np.abs(out.astype(np.int64) - ref.astype(np.int64))
+    share = float((d > 1).mean())
+    mse = float((d.astype(np.float64) ** 2).mean())
+    psnr = 10 * np.log10(65535.0**2 / mse) if mse else float("inf")
+    print(f"[check-banded] row-sharded step {out.shape} with the dense-x "
+          f"gate at 64 columns (planned in {plan_s:.1f} s) vs the dense "
+          f"tier: max {int(d.max())} LSB, {share:.2e} of pixels > 1 LSB "
+          f"(budget {BANDED_FLIPS}), PSNR {psnr:.1f} dB (min {BANDED_PSNR})")
+    if not (share < BANDED_FLIPS and psnr >= BANDED_PSNR):
+        raise AssertionError("[check-banded] the banded x tier disagrees")
+    # every level that wide is gated, so no notch bank: no notch_select
+    _require("check-banded", launches,
+             tuple(k for k in HALO if k != "notch_select_chunked"))
+
+
+def step_banded(mesh, dev, seed):
+    """[step-banded]: one BANDED_SHAPE uint16 plane, at or above the
+    default dense-x gate, through the row-sharded step on the mesh (the
+    halo threshold forced down so the plane takes the row route; the wrap
+    epilogue): planning and step seconds (host clock around synchronised
+    calls), peak device memory; every kernel of the route launched, the
+    output finite uint16 of the plane's shape, and the stripe energy (the
+    variance of the row means) cut as on the plane path, the JAX package's
+    beyond-gate check (tests/test_halo_sharding.py)."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch import ops
+    from aind_smartspim_destripe_torch.parallel.halo import (
+        banded_x_min_w_default,
+    )
+    from aind_smartspim_destripe_torch.runtime.pipeline import (
+        make_device_step,
+    )
+
+    Z, H, W = BANDED_SHAPE
+    if W < banded_x_min_w_default():
+        raise AssertionError("[step-banded] the plane is under the gate")
+    plan = tf_build_plan(H, W)
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    vol = 280.0 + torch.randn((Z, H, 1), generator=g, device=dev) * 50
+    vol = vol + torch.randn((Z, H, W), generator=g, device=dev) * 8
+    vol = vol.clamp_(0, 65535).to(torch.int32).cpu().numpy().astype(np.uint16)
+    os.environ["DESTRIPE_HALO_THRESHOLD_BYTES"] = "1024"
+    try:
+        t0 = time.perf_counter()
+        step = make_device_step(plan, 2500.0, False, devices=mesh)
+        plan_s = time.perf_counter() - t0
+        if not getattr(step, "shards_rows", False):
+            raise AssertionError("[step-banded] the row route was not taken")
+        x = step.put(vol)
+        ops.reset_launches()
+        res = step(x, None, None)
+        _sync(mesh)
+        launches = _launches()
+        del res
+        torch.cuda.empty_cache()
+        for d in dict.fromkeys(mesh):
+            torch.cuda.reset_peak_memory_stats(d)
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            res = step(x, None, None)
+        _sync(mesh)
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        peak = max(torch.cuda.max_memory_allocated(d)
+                   for d in dict.fromkeys(mesh))
+        out = step.to_host(res)
+    finally:
+        del os.environ["DESTRIPE_HALO_THRESHOLD_BYTES"]
+    del step, x, res
+    torch.cuda.empty_cache()
+    before = float(np.var(vol[0].astype(np.float64).mean(axis=1)))
+    after = float(np.var(out[0].astype(np.float64).mean(axis=1)))
+    print(f"[step-banded] row-sharded step {BANDED_SHAPE} uint16 -> uint16 "
+          f"on {len(mesh)} entries, wrap epilogue, dense-x gate "
+          f"{banded_x_min_w_default()}: planned in {plan_s:.1f} s, "
+          f"{ms:.1f} ms per plane = {H * W / 1e3 / ms:.1f} MPix/s; peak "
+          f"device memory {peak / 2**30:.2f} GiB; stripe energy {before:.1f}"
+          f" -> {after:.1f}")
+    _require("step-banded", launches, HALO)
+    if out.shape != vol.shape or out.dtype != np.uint16:
+        raise AssertionError(f"[step-banded] output {out.shape} {out.dtype}")
+    if not after < 0.65 * before:
+        raise AssertionError("[step-banded] the stripes were not removed")
+    return dict(ms=ms, plan_s=plan_s, peak_gib=peak / 2**30)
 
 
 def synthetic_tile(dev, seed):
@@ -1060,7 +1294,7 @@ def main(argv=None):
     for part in cuda_build.kernel_library.build_log.split(
             "Compiling entry function")[1:]:
         fn = re.search(r"(k[1-4]|hist|row_median_batch|row_median|"
-                       r"notch_select|notch|blend|dense_matmul)"
+                       r"notch_delta|notch_select|blend|dense_matmul)"
                        r"_kernel(I(.*?)EE)?", part)
         n = re.search(r"Used (\d+) registers", part)
         if not (fn and n):
@@ -1079,16 +1313,18 @@ def main(argv=None):
           f"{cuda_build.kernel_library.build_seconds:.2f} s; registers per "
           f"thread, spilled bytes: {regs or 'n/a'})")
     gemm = {k: v for k, v in ptxas.items()
-            if k.startswith(("dense_matmul<", "notch_select<"))}
+            if k.startswith(("dense_matmul<", "notch_select<",
+                             "notch_delta<"))}
     print("[build] shared GEMM tile (csrc/gemm_f32.cuh) instances, "
           "registers / shared memory bytes / spilled bytes: "
           + " ".join(f"{k}={v['registers']}/{v['smem']}/{v['spill']}"
                      for k, v in gemm.items()))
-    # every instance the two entry points launch: dense_matmul<va, b's
-    # columns unit-stride, vb>, notch_select<v>
+    # every instance the three entry points launch: dense_matmul<va, b's
+    # columns unit-stride, vb>, notch_select<v>, notch_delta<v>
     expect = {f"dense_matmul<{va},{u},{vb}>" for va in (1, 2)
               for u, vb in ((0, 1), (1, 1), (1, 2))}
     expect |= {"notch_select<1>", "notch_select<2>"}
+    expect |= {"notch_delta<1>", "notch_delta<2>"}
     if not cuda_build.kernel_library.build_log or expect - gemm.keys():
         raise AssertionError(
             "the build log does not report the GEMM tile instances "
@@ -1124,7 +1360,8 @@ def main(argv=None):
 
     launches = run_path("slice", data, results, SINGLE)
     lvl0 = check_store(results, tile)
-    step_ms("step", plan, vol, flats[0], dark, dev)
+    hashes = {"step": step_ms("step", plan, vol, flats[0], dark, dev,
+                              seed=args.seed)}
 
     results_dual = work / "results_dual"
     results_dual.mkdir()
@@ -1134,12 +1371,14 @@ def main(argv=None):
     finally:
         del os.environ["DESTRIPE_DUAL_BAND"]
     lvl0_dual = check_store(results_dual, tile)
-    step_ms("step-dual", plan, vol, flats[0], dark, dev, dual=True)
+    hashes["step-dual"] = step_ms("step-dual", plan, vol, flats[0], dark,
+                                  dev, dual=True, seed=args.seed)
 
-    # -- 5. sampled planes vs the plain path on the CPU --------------------
+    # -- 5. sampled planes, then every plane of a step, vs the CPU ---------
     check_planes("check", plan, lvl0, vol, flats[0], dark)
     check_planes("check-dual", plan, lvl0_dual, vol, flats[0], dark,
                  dual=True)
+    every = check_every_plane(plan, lvl0, vol, flats[0], dark, dev)
     shutil.rmtree(work, ignore_errors=True)
 
     # -- the other entry points: facade, file batch, flats, multi-host ------
@@ -1187,9 +1426,13 @@ def main(argv=None):
         check_store(hresults, htile, HALO_SHAPE)
     finally:
         shutil.rmtree(work_halo, ignore_errors=True)
-    step_check_halo("halo", hplan, hvol, hflat, hdark, dev, mesh)
+    dense_out = step_check_halo("halo", hplan, hvol, hflat, hdark, dev,
+                                mesh)
     step_check_halo("dual-halo", hplan, hvol, hflat, hdark, dev, mesh,
                     dual=True)
+    check_banded(hplan, hvol, hflat, hdark, mesh, dense_out)
+    del dense_out, hvol
+    banded = step_banded(mesh, dev, args.seed)
 
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err", "shape")
@@ -1225,6 +1468,13 @@ def main(argv=None):
             entry["level1"] = {k: main[1][k] for k in keys}
         if name in DUAL:
             entry["dual"] = {k: drec[name][0][k] for k in keys}
+        if name == "notch_delta":  # its GEMM launch and the product alone
+            def parts(r):
+                return {k: v for k, v in r.items() if k.startswith(
+                    ("gemm", "product_alone"))}
+            entry.update(parts(first))
+            entry["level1"].update(parts(main[1]))
+            entry["dual"].update(parts(drec[name][0]))
         if name == "row_median_batch":
             entry.update({k: main["path"][k] for k in keys
                           if k != "max_abs_err"})
@@ -1252,6 +1502,8 @@ def main(argv=None):
                 f"level{lvl}": {k: r[k] for k in keys + ("row_bound",)}
                 for lvl, r in hrec[name].items()}
         kernels.append(entry)
+    print(json.dumps({"steps_sha256": hashes, "check_every": every,
+                      "step_banded": banded}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1346,9 +1598,11 @@ def check_store(results, tile, shape=SHAPE):
     return lvl0
 
 
-def step_ms(tag, plan, vol, flat, dark, dev, dual=False):
+def step_ms(tag, plan, vol, flat, dark, dev, dual=False, seed=0):
     """The device step alone: one resident 64-plane uint16 batch, repeated
-    (CUDA events), and its peak device memory."""
+    (CUDA events), its peak device memory, and the sha256 of its output
+    (returned), which scripts/step_hash.py computes for another commit's
+    package on the same batch."""
     import numpy as np
     import torch
 
@@ -1370,8 +1624,13 @@ def step_ms(tag, plan, vol, flat, dark, dev, dual=False):
           f"{'dual-band blend, ' if dual else ''}flat-field epilogue: "
           f"{ms:.2f} ms = {BATCH * H * W / 1e3 / ms:.1f} MPix/s; peak device "
           f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    out = step.to_host(step(imgs, flat_d, dark_d))
+    digest = hashlib.sha256(np.ascontiguousarray(out).tobytes()).hexdigest()
+    print(f"[{tag}] sha256 of the step's output on the smoke batch (planes "
+          f"0-{BATCH - 1}, seed {seed}): {digest}")
     del step, imgs
     torch.cuda.empty_cache()
+    return digest
 
 
 def check_planes(tag, plan, lvl0, vol, flat, dark, dual=False):
@@ -1412,6 +1671,180 @@ def check_planes(tag, plan, lvl0, vol, flat, dark, dual=False):
         raise AssertionError(f"{tag}: sampled planes exceed the flip budget")
     if psnr < PSNR_MIN:
         raise AssertionError(f"{tag}: sampled planes at {psnr:.1f} dB")
+
+
+def check_every_plane(plan, lvl0, vol, flat, dark, dev):
+    """[check-every]: every plane of the single-band run's first 64-plane
+    step against the port's plain path on the CPU, EVERY_CHUNK planes per
+    CPU call (to bound host memory).
+
+    The step takes two kinds of decision per plane: the classifier's
+    choice, and at each level the Otsu threshold of the band (a bin of a
+    256-bin histogram). The card and the CPU sum in other orders, so their
+    bands differ in the last bits; where two bins nearly tie for Otsu's
+    maximum, that moves the threshold by a bin on one side only, and the
+    plane's output by up to tens of LSB (PERF.md §6: planes 7 and 25 at
+    level 4, where the JAX package sides with the card on one and with the
+    CPU on the other). So the check holds each part where it can hold, and
+    fails (raises) on any miss:
+
+    - the decisions, exactly: the card's classifier choice equals the
+      CPU's, and each of the card's Otsu thresholds equals the CPU's Otsu
+      of the card's own band, bit for bit (its histogram and tail);
+    - the rest, per plane at PSNR >= PSNR_MIN: the CPU's plain path run
+      with the card's thresholds against the capsule's output.
+
+    The card's decisions come from the step run again on the card, which
+    must give the capsule's output bit for bit. Per plane it prints the
+    max LSB, the share of pixels > 1 LSB and the PSNR of the plain
+    comparison (the CPU's own thresholds), which is not gated, with the
+    levels (tails, coarsest first) where the two sides' Otsu bins differ,
+    and the PSNR with the card's thresholds."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import filter as tf
+
+    t0 = time.perf_counter()
+    real_otsu, real_cls = tf.threshold_otsu_batch, tf.classify_from_sums
+    rec = {"otsu": [], "again": [], "cls": [], "bin": []}
+
+    def to_cpu(v):
+        if isinstance(v, torch.Tensor):
+            return v.cpu()
+        return tuple(map(to_cpu, v)) if isinstance(v, tuple) else v
+
+    def otsu_card(ch, *a, **k):
+        out = real_otsu(ch, *a, **k)
+        rec["otsu"].append(out.cpu())
+        rec["bin"].append(_otsu_bin(out, ch).cpu())
+        rec["again"].append(real_otsu(
+            to_cpu(ch), *a, **{n: to_cpu(v) for n, v in k.items()}))
+        return out
+
+    def cls_card(*a, **k):
+        out = real_cls(*a, **k)
+        rec["cls"].append(out.cpu())
+        return out
+
+    tf.threshold_otsu_batch, tf.classify_from_sums = otsu_card, cls_card
+    try:
+        with torch.inference_mode():
+            card = tf.destripe_batch(
+                plan, torch.from_numpy(vol[:BATCH]).to(dev), 2500.0,
+                flat=torch.from_numpy(flat).to(dev),
+                dark=torch.from_numpy(dark.astype(np.float32)).to(dev),
+            ).cpu().numpy()
+    finally:
+        tf.threshold_otsu_batch, tf.classify_from_sums = real_otsu, real_cls
+    torch.cuda.empty_cache()
+    got_all = np.asarray(lvl0[0, 0, :BATCH])
+    if not np.array_equal(card, got_all):
+        raise AssertionError("[check-every] the step on the card does not "
+                             "give the capsule's output")
+    thr_card = torch.stack(rec["otsu"])  # (levels, BATCH), coarsest first
+    bin_card = torch.stack(rec["bin"])
+    if not torch.equal(thr_card, torch.stack(rec["again"])):
+        bad = (thr_card != torch.stack(rec["again"])).nonzero().tolist()
+        raise AssertionError(f"[check-every] the card's Otsu thresholds "
+                             f"(tail, plane) {bad} differ from the CPU's "
+                             f"Otsu of the card's bands")
+    cls_card = rec["cls"][0]
+
+    rows = []
+    for c0 in range(0, BATCH, EVERY_CHUNK):
+        part = slice(c0, c0 + EVERY_CHUNK)
+        x = torch.from_numpy(vol[part])
+        mine = {"otsu": [], "cls": [], "bin": []}
+
+        def otsu_cpu(ch, *a, **k):
+            out = real_otsu(ch, *a, **k)
+            mine["otsu"].append(out)
+            mine["bin"].append(_otsu_bin(out, ch))
+            return out
+
+        def cls_cpu(*a, **k):
+            out = real_cls(*a, **k)
+            mine["cls"].append(out)
+            return out
+
+        def otsu_decided(*a, **k):
+            i = len(mine["otsu"])
+            mine["otsu"].append(None)
+            return thr_card[i, part].clone()
+
+        refs = []
+        for otsu in (otsu_cpu, otsu_decided):
+            mine["otsu"] = []
+            tf.threshold_otsu_batch, tf.classify_from_sums = otsu, cls_cpu
+            try:
+                with torch.inference_mode():
+                    refs.append(tf.destripe_batch(
+                        plan, x, 2500.0, flat=flat,
+                        dark=dark.astype(np.float32)).numpy())
+            finally:
+                tf.threshold_otsu_batch = real_otsu
+                tf.classify_from_sums = real_cls
+            if otsu is otsu_cpu:
+                bin_cpu = torch.stack(mine["bin"])
+        if not all(torch.equal(c, cls_card[part]) for c in mine["cls"]):
+            raise AssertionError(f"[check-every] planes {c0}-"
+                                 f"{c0 + EVERY_CHUNK - 1}: the classifier "
+                                 f"chose otherwise on the card")
+        for i, g in enumerate(got_all[part]):
+            p = c0 + i
+            d, dd = (np.abs(g.astype(np.int64) - r[i].astype(np.int64))
+                     for r in refs)
+            tails = (bin_cpu[:, i] != bin_card[:, p]).nonzero().flatten()
+            rows.append((p, int(d.max()), float((d > 1).mean()), _psnr(d),
+                         _psnr(dd), int(dd.max()), tails.tolist()))
+    secs = time.perf_counter() - t0
+    for p, lsb, share, psnr, psnr_d, lsb_d, tails in rows:
+        print(f"[check-every] plane {p}: max {lsb} LSB, {share:.2e} of "
+              f"pixels > 1 LSB, PSNR {psnr:.1f} dB; Otsu bins differ at "
+              f"tails {tails}; with the card's thresholds: max {lsb_d} LSB, "
+              f"PSNR "
+              f"{psnr_d:.1f} dB")
+    low = [r[0] for r in rows if r[3] < PSNR_MIN]
+    worst = min(rows, key=lambda r: r[4])
+    print(f"[check-every] planes 0-{BATCH - 1} in {secs:.1f} s: classifier "
+          f"and every Otsu threshold ({thr_card.shape[0]} levels) "
+          f"reproduced on the CPU from the card's bands, bit for bit; with "
+          f"the card's thresholds the lowest PSNR {worst[4]:.1f} dB (plane "
+          f"{worst[0]}, min {PSNR_MIN}); with the CPU's own, planes {low} "
+          f"under {PSNR_MIN} dB (lowest "
+          f"{min(r[3] for r in rows):.1f}), "
+          f"{sum(r[2] > 0 for r in rows)} planes with pixels > 1 LSB, share "
+          f"over all planes {np.mean([r[2] for r in rows]):.2e}")
+    if worst[4] < PSNR_MIN:
+        raise AssertionError(f"[check-every] plane {worst[0]} at "
+                             f"{worst[4]:.1f} dB with the card's thresholds")
+    return dict(seconds=secs, min_psnr_card_thresholds=worst[4],
+                planes_under_floor_own_thresholds=low,
+                psnr_db=[round(r[3], 2) for r in rows],
+                psnr_db_card_thresholds=[round(r[4], 2) for r in rows],
+                share_over_1lsb=[r[2] for r in rows],
+                otsu_tails_differ={r[0]: r[6] for r in rows if r[6]})
+
+
+def _otsu_bin(t, ch):
+    """Per plane, the bin of 256 over [min ch^2, max ch^2] whose center is
+    the Otsu threshold ``t`` of band ``ch`` (B, h, w)."""
+    import torch
+
+    a = ch.abs().to(torch.float64)
+    lo = a.amin(dim=(1, 2)) ** 2
+    span = a.amax(dim=(1, 2)) ** 2 - lo
+    pos = (t.to(torch.float64) - lo) / torch.where(span > 0, span, 1.0)
+    return (pos * 256).floor().clamp(0, 255).to(torch.int64)
+
+
+def _psnr(d):
+    """PSNR in dB of integer differences ``d`` over the uint16 range."""
+    import numpy as np
+
+    mse = float((d.astype(np.float64) ** 2).mean())
+    return 10 * np.log10(65535.0**2 / mse) if mse else float("inf")
 
 
 def _gate_print(tag, what, got, want):

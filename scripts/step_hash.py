@@ -1,0 +1,63 @@
+#!/usr/bin/env python3
+"""sha256 of the plane step's output on chip_smoke.py's smoke batch, for
+the package of another checkout, so that two commits' steps can be held
+bit for bit against each other on one card.
+
+Run from the root of a checkout, on a machine with one card:
+
+    python3 scripts/step_hash.py --root DIR [--seed N]
+
+DIR holds the ``aind_smartspim_destripe_torch`` package to measure (for
+example ``git archive`` of the parent commit, unpacked); it is put first
+on the import path, and this checkout's chip_smoke.py builds the same
+64-plane batch of 1600 x 2000 uint16 planes from the seed and runs its
+``[step]`` and ``[step-dual]`` measurements (step_ms) with that package.
+The ``[step] sha256`` and ``[step-dual] sha256`` lines it prints compare
+with chip_smoke.py's own; the last line is both digests as JSON.
+"""
+
+import argparse
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(args.root).resolve()))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("step_hash: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from aind_smartspim_destripe_torch.ops import filter as tf
+
+    print(f"[step-hash] package {Path(tf.__file__).resolve().parents[2]}")
+    tf.f32_matmul()
+    dev = torch.device("cuda", 0)
+    plan = smoke.tf_build_plan(*smoke.SHAPE[1:])
+    vol, flats, dark = smoke.synthetic_tile(dev, args.seed)
+    digests = {
+        "step": smoke.step_ms("step", plan, vol, flats[0], dark, dev,
+                              seed=args.seed),
+        "step-dual": smoke.step_ms("step-dual", plan, vol, flats[0], dark,
+                                   dev, dual=True, seed=args.seed),
+    }
+    print(json.dumps(digests))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -320,6 +320,213 @@ def test_card_dense_matmul_every_level(card, dense_levels, level, form,
     assert torch.equal(one, got[q:q + 1])
 
 
+def _plan_levels(h, w):
+    cfg = tf.FilterConfig(wavelet="db3", level=None, sigma=64,
+                          max_threshold=3)
+    return tf.build_plan(h, w, cfg, cfg)
+
+
+def _notch_witness(ch, thr, sel, cat):
+    """The notch tail term by term: the kernel's median (exact, held
+    against its twin above), the inpainted band, each plane's product with
+    its operator as K sequential multiply-adds in k order, the delta."""
+    n_out, w = thr.shape[0], ch.shape[-1]
+    c = ch.repeat(n_out // ch.shape[0], 1, 1)
+    stripes = torch.sqrt(c * c) > thr[:, None, None]
+    inpainted = torch.where(stripes, tn.row_median_masked(ch, thr), c)
+    prod = torch.stack([_sequential(inpainted[b], cat[:, s * w:(s + 1) * w])
+                        for b, s in enumerate(sel.tolist())])
+    return torch.where(stripes, 0.0, prod - c)
+
+
+@pytest.mark.parametrize("wrapped", [False, True], ids=["single", "wrapped"])
+@pytest.mark.parametrize("level", range(8))
+def test_card_notch_delta_fixed_order(card, level, wrapped):
+    """The notch tail on the shared GEMM tile at every level of a 1600x2000
+    plan, single (an operator choice per plane) and wrapped (2B outputs of
+    B planes, the dual form): bit-equal to the term-by-term k-order sum
+    through the wrapper, and launched directly at 4-byte copies, which the
+    order contract leaves free."""
+    from aind_smartspim_destripe_torch.ops.cuda_build import launch
+
+    plan = _plan_levels(1600, 2000)
+    h, w = plan.ladder[plan.n_levels - 1 - level]
+    g = torch.Generator(device="cpu").manual_seed(100 + level)
+    B = 2
+    ch = (torch.randn((B, h, w), generator=g) * 0.3).to(card)
+    n_out = 2 * B if wrapped else B
+    thr = torch.linspace(0.15, 0.6, n_out, device=card)
+    thr[0] = 0.0  # every nonzero coefficient a stripe
+    thr[-1] = 1e-20  # a cut under the smallest normal square
+    sel = (torch.arange(n_out, device=card) >= B if wrapped
+           else torch.arange(n_out, device=card) % 2 == 1).to(torch.int32)
+    cat = (torch.randn((w, 2 * w), generator=g) / w**0.5).to(card)
+    want = _notch_witness(ch, thr, sel, cat)
+    tops.reset_launches()
+    got = tn.notch_delta(ch, thr, sel, cat)
+    assert tn.notch_delta.launches == 1
+    assert torch.equal(got, want)
+    v = tn.plan_notch_delta(n_out, h, w, ch.data_ptr() % 8,
+                            cat.data_ptr() % 8)
+    assert v == (2 if w % 2 == 0 else 1)
+    med = tn.row_median_masked(ch, thr)
+    out = torch.empty_like(want)
+    launch("destripe_notch", card, ch.data_ptr(), med.data_ptr(),
+           thr.data_ptr(), sel.data_ptr(), cat.data_ptr(), out.data_ptr(),
+           n_out, B, h, w, 1)
+    assert torch.equal(out, want)
+
+
+def _k1_witness(x, start, coef, log1p):
+    """K1 term by term: f(x) once per input, then each output's K taps as
+    sequential multiply-adds in k order from 0."""
+    xf = x.to(torch.float32)
+    if log1p:
+        xf = torch.log(1.0 + xf)
+    L, K = coef.shape
+    idx = start.to(torch.int64)
+    acc = torch.zeros(x.shape[:-1] + (L,), device=x.device)
+    for k in range(K):
+        acc = torch.addcmul(acc, coef[:, k], xf[..., idx + k])
+    return acc
+
+
+def _k1_sums_witness(x, cut, L):
+    """The float32 classifier sums in the kernel's order: per row, per
+    group of 256 outputs, thread t's columns 2 (256 G + t) and +1 summed
+    from 0 in float64, the group's 256 values by the halving tree, the
+    (B, rows x groups) partials by torch's sum, rounded once."""
+    B, H, W = x.shape
+    gx = -(-L // 256)
+    xd = torch.zeros((B, H, gx * 512), dtype=torch.float64, device=x.device)
+    xd[..., :W] = x.to(torch.float64)
+    fg = torch.zeros_like(xd, dtype=torch.bool)
+    fg[..., :W] = x >= cut
+    valid = torch.zeros_like(fg)
+    valid[..., :W] = True
+    terms = (fg.to(torch.float64), (valid & ~fg).to(torch.float64),
+             torch.where(fg, xd, 0.0), torch.where(valid & ~fg, xd, 0.0))
+    parts = []
+    for t in terms:
+        p = t.view(B, H, gx, 256, 2)
+        s = p[..., 0] + p[..., 1]
+        for stride in (128, 64, 32, 16, 8, 4, 2, 1):
+            s = s[..., :stride] + s[..., stride:2 * stride]
+        parts.append(s[..., 0].reshape(B, H * gx))
+    return torch.stack(parts, dim=-1).sum(dim=1).to(torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.float32],
+                         ids=["u16", "f32"])
+@pytest.mark.parametrize("level", [0, 1])
+def test_card_k1_fixed_order(card, level, dtype):
+    """K1 at levels 0 and 1 of a 1600x2000 plan (log1p at level 0), on
+    uint16 and float32 input: bit-equal to its fmaf-chain witness, and
+    its classifier sums exact (uint16: the integer totals, equal to the
+    twin's float64 sums; float32: bit-equal to the same float64 sums taken
+    in the kernel's order)."""
+    ops = _ops((1600, 2000), level, card)
+    start, coef = ops["k1_start"], ops["k1_coef"]
+    W = ops["an_x_lo"].shape[1]
+    L = coef.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(200 + level)
+    x = torch.randint(0, 4000, (3, 37, W), generator=g)
+    if dtype == torch.float32:
+        x = x + torch.rand((3, 37, W), generator=g)
+    x = x.to(dtype).to(card)
+    cut = tf._classifier_cut_f32(400.0, 20.0, 0.3)
+    log1p = level == 0
+    want = _k1_witness(x, start, coef, log1p)
+    tops.reset_launches()
+    assert torch.equal(cb.an_x_lowpass_log1p(x, ops["an_x_lo"], start, coef,
+                                             log1p), want)
+    got, sums = cb.an_x_lowpass_log1p(x, ops["an_x_lo"], start, coef, log1p,
+                                      cut)
+    assert cb.an_x_lowpass_log1p.launches == 2
+    assert torch.equal(got, want)
+    _, twin = cb.an_x_lowpass_log1p_plain(x, ops["an_x_lo"], log1p, cut)
+    if dtype == torch.uint16:
+        assert torch.equal(sums, twin)
+        assert int(sums[:, :2].sum()) == x.numel()
+    else:
+        assert torch.equal(sums, _k1_sums_witness(x, cut, L))
+        _close(sums, twin)
+
+
+def test_card_k1_row_shard_fixed_order(card):
+    """K1 on a row shard of a 16384x18000 plane's level 0 (the route's
+    band form built from the filter taps, nine blocks of 1024 outputs per
+    row): bit-equal to its witness on uint16 input with log1p and on
+    float32 input without."""
+    from aind_smartspim_destripe_torch.parallel.halo import _k1_taps_band
+
+    start_np, coef_np = _k1_taps_band(18000, "db3")
+    start = torch.from_numpy(start_np).to(card)
+    coef = torch.from_numpy(coef_np).to(card)
+    g = torch.Generator(device="cpu").manual_seed(300)
+    x = torch.randint(0, 4000, (1, 19, 18000), generator=g).to(
+        torch.uint16).to(card)
+    for src, log1p in ((x, True), (x.to(torch.float32) * 0.01, False)):
+        tops.reset_launches()
+        got = cb.an_x_lowpass_chunked(src, None, start, coef, log1p=log1p)
+        assert cb.an_x_lowpass_chunked.launches == 1
+        assert torch.equal(got, _k1_witness(src, start, coef, log1p))
+
+
+def _level_ops(h, w, lvl):
+    """One level's dense operators, as ``DestripePlan.constants`` builds
+    them, without the plan's full-width operators (a wide plan's finest
+    x operator is gigabytes)."""
+    from aind_smartspim_destripe_torch.ops import wavelets as tw
+
+    plan = _plan_levels(h, w)
+    n = plan.n_levels
+    hi, wi = (h, w) if lvl == 0 else plan.ladder[n - lvl]
+    L_h, L_w = plan.ladder[n - 1 - lvl]
+    return plan, (hi, wi), {
+        "an_x_lo": tw.analysis_operator(wi, "db3")[:L_w],
+        "an_y": tw.analysis_operator(hi, "db3"),
+        "syn_y": tw.synthesis_operator(L_h, "db3")[:hi],
+        "syn_x_lo": tw.synthesis_operator(L_w, "db3")[:wi, :L_w],
+    }
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("form", ["an_x", "an_y", "syn_y", "syn_x"])
+def test_card_dense_matmul_long_k(card, form, batch):
+    """The four level-2 products of a 2000x16000 plan, where the an_x
+    product runs K = 4003 (a plane whose short side is under 560 puts K in
+    the thousands on the 64 x 64 tile): bit-equal to the term-by-term sum
+    in k order, and a plane alone bit-equal to it inside the batch."""
+    _, (h, w), o = _level_ops(2000, 16000, 2)
+    assert (h, w) == (503, 4003)
+    g = torch.Generator(device="cpu").manual_seed(400 + len(form))
+    ops = {k: torch.from_numpy(v).to(card) for k, v in o.items()}
+    L = ops["an_x_lo"].shape[0]
+
+    def rand(*shape):
+        return (torch.randn(shape, generator=g) * 0.3).to(card)
+
+    a, b = {
+        "an_x": lambda: (rand(batch, h, w), ops["an_x_lo"].t()),
+        "an_y": lambda: (ops["an_y"], rand(batch, h, L)),
+        "syn_y": lambda: (ops["syn_y"], rand(batch, ops["syn_y"].shape[1],
+                                             L)),
+        "syn_x": lambda: (rand(batch, ops["syn_y"].shape[0], L),
+                          ops["syn_x_lo"].t()),
+    }[form]()
+    if form == "an_x":
+        assert a.shape[-1] == 4003
+    tops.reset_launches()
+    got = td.dense_matmul(a, b)
+    assert td.dense_matmul.launches == 1
+    assert torch.equal(got, _sequential(a, b))
+    q = batch // 2
+    one = (td.dense_matmul(a[q:q + 1], b) if a.ndim == 3
+           else td.dense_matmul(a, b[q:q + 1]))
+    assert torch.equal(one, got[q:q + 1])
+
+
 @pytest.mark.parametrize("rows,w", [(259, 517), (70, 258), (130, 131),
                                     (129, 256)], ids=str)
 def test_card_notch_select_fixed_order(card, rows, w):
