@@ -20,9 +20,14 @@
 // K1 reads raw uint16 and fuses log(1+x) and the classifier's sums, K2
 // emits the per-plane |cH| range, K4 fuses exp(.)+1 and the flat-field or
 // wrap epilogue into the uint16 store. Neighbouring threads touch
-// neighbouring addresses. K1 stages each row segment once in shared memory
-// (16-byte loads, log(1+x) once per input rather than once per tap) and
-// computes its outputs from there. Float reductions are fixed trees in
+// neighbouring addresses. K1 and K4 stage each row segment once in shared
+// memory (16-byte loads; K1 takes log(1+x) once per input rather than once
+// per tap) and compute their outputs from there, each output's band read
+// once for all the block's rows. K4's epilogue (IEEE logf, expf and
+// division, no fast math) takes more issue time than its bytes take to
+// move; K4 runs four consecutive outputs per thread with vector loads and
+// stores and takes log(1 + pixel) once for every correction of the pixel.
+// Float reductions are fixed trees in
 // shared memory that write per-block partials (no float atomics); K1's
 // uint16 classifier sums are integers, added with integer atomics, exact in
 // any order; so runs repeat bit for bit.
@@ -32,6 +37,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -380,79 +387,317 @@ __global__ void k3_kernel(const float* __restrict__ corr,
 
 enum K4Mode { kBare = 0, kExp = 1, kFlat = 2, kWrap = 3 };
 
-// K4: corr[b, h, j] = sum_k coef[j, k] * st[b, h, start[j] + k], then
+// K4 geometry: a block of kK4Threads computes kK4Seg consecutive outputs
+// (kK4Outs consecutive ones per thread) of kK4Rows rows of one image plane,
+// for every correction of that plane, from the segment of each correction
+// row it reads, which it stages in shared memory once.
+constexpr int kK4Threads = 256;
+constexpr int kK4Outs = 4;
+constexpr int kK4Seg = kK4Threads * kK4Outs;
+constexpr int kK4Rows = 2;
+// Taps per output held in registers (db1-db3's synthesis bands); wider
+// bands read theirs from device memory.
+constexpr int kK4Taps = 3;
+// Floats of a row segment's inputs: the synthesis band form's starts step
+// by 0-1 per output (the host checks it, cuda_band.check_k4_band), so a
+// segment reads at most (kK4Seg - 1) + K inputs, 3 more for alignment.
+constexpr int kK4Cap = kK4Seg + 64;
+
+// The vector of kBytes bytes: 4, 8 or 16.
+template <int kBytes>
+struct VecOf;
+template <>
+struct VecOf<4> {
+  using type = unsigned int;
+};
+template <>
+struct VecOf<8> {
+  using type = uint2;
+};
+template <>
+struct VecOf<16> {
+  using type = uint4;
+};
+
+// N consecutive values of T at p (n of them valid, n <= N; full: all N) as
+// F: one load of N values where all are valid and p is aligned to
+// them, else n scalar loads. (full is its own argument: sm_90a code that
+// read n == N off the predicate of n's clamp, max(0, min(N, .)), stored
+// all N of a ragged thread's outputs.)
+template <int N, typename T, typename F>
+__device__ __forceinline__ void loadv(const T* p, int n, bool full, F* f) {
+  constexpr int kBytes = N * static_cast<int>(sizeof(T));
+  using V = typename VecOf<kBytes>::type;
+  if (full && (reinterpret_cast<size_t>(p) & (kBytes - 1)) == 0) {
+    union {
+      V q;
+      T v[N];
+    } u;
+    u.q = __ldg(reinterpret_cast<const V*>(p));
+#pragma unroll
+    for (int t = 0; t < N; ++t) f[t] = static_cast<F>(u.v[t]);
+    return;
+  }
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    if (t < n) f[t] = static_cast<F>(p[t]);
+  }
+}
+
+// M consecutive floats at p, in the widest aligned vectors.
+template <int M>
+__device__ __forceinline__ void load_run(const float* p, float* f) {
+  const size_t a = reinterpret_cast<size_t>(p);
+  if (M % 4 == 0 && (a & 15) == 0) {
+#pragma unroll
+    for (int i = 0; i < M; i += 4) loadv<4>(p + i, 4, true, f + i);
+  } else if (M % 2 == 0 && (a & 7) == 0) {
+#pragma unroll
+    for (int i = 0; i < M; i += 2) loadv<2>(p + i, 2, true, f + i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < M; ++i) f[i] = p[i];
+  }
+}
+
+// Store N consecutive outputs at p (n of them valid), as loadv reads.
+template <int N, typename T>
+__device__ __forceinline__ void storev(T* p, int n, bool full, const T* v) {
+  constexpr int kBytes = N * static_cast<int>(sizeof(T));
+  using V = typename VecOf<kBytes>::type;
+  if (full && (reinterpret_cast<size_t>(p) & (kBytes - 1)) == 0) {
+    union {
+      V q;
+      T v[N];
+    } u;
+#pragma unroll
+    for (int t = 0; t < N; ++t) u.v[t] = v[t];
+    *reinterpret_cast<V*>(p) = u.q;
+    return;
+  }
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    if (t < n) p[t] = v[t];
+  }
+}
+
+// K4: corr[b, h, j] = sum_k coef[j, k] * st[b, h, start[j] + k], summed in
+// k order, one fmaf per term from 0, then
 // kBare: corr; kExp: exp(log(1 + img) + corr) + 1; kFlat: that, dark
 // subtracted (clamped at 0), divided by flat, clipped to [0, 65535] and
 // truncated to uint16; kWrap: that, truncated to int32, modulo 2^16.
 // img holds P planes (P divides B) and output plane b reads image plane
-// b % P (the dual-band form: two corrections per raw plane). Block z is an
-// image plane: its threads read the pixel once, then run the corrections
-// b = z, z + P, ... < B. The pixel's load is issued before the loop and
-// its log taken inside, so the load overlaps the taps' loads.
+// b % P (the dual-band form: two corrections per raw plane).
+// Block (z, hq, s) owns outputs [s kK4Seg, (s + 1) kK4Seg) of rows
+// [hq kK4Rows, (hq + 1) kK4Rows) of image plane z and of every correction
+// b = z, z + P, ... < B: thread t the kK4Outs consecutive outputs from
+// s kK4Seg + kK4Outs t, whose band (start, and up to kK4Taps coef each) it
+// reads once into registers for all the block's rows and corrections. It
+// reads each pixel, flat and dark value once (8-byte uint16 or 16-byte
+// float loads where aligned), takes log(1 + pixel) once for all the
+// corrections, and for each correction stages the run of st its outputs
+// read, [start[j0], start[j1 - 1] + K), of each row in shared memory once
+// (16-byte loads where aligned, a scalar head and tail around them), then
+// sums each output's taps from there and stores its outputs as 8- or
+// 16-byte vectors where aligned (scalar where a row of W % 4 != 0 columns
+// is not). The planes of one row group are neighbours on grid.x, so they
+// share its flat and dark rows in L2. Two rows per block and at most 80
+// registers keep three blocks on an SM: the epilogue's IEEE logf, expf and
+// division take most of the time (PERF.md), and fewer resident warps hide
+// less of their latency.
 template <typename TI, int kMode>
-__global__ void k4_kernel(const float* __restrict__ st,
-                          const TI* __restrict__ img,
-                          const float* __restrict__ flat,
-                          const float* __restrict__ dark, void* __restrict__ out,
-                          const int* __restrict__ start,
-                          const float* __restrict__ coef, int K, int B, int H,
-                          int L, int W) {
-  const int P = gridDim.z, h = blockIdx.y;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= W) return;
-  const int s = start[j];
-  float v = 0.0f;
-  if (kMode != kBare) v = to_f32(img[((size_t)blockIdx.z * H + h) * W + j]);
-  for (int b = blockIdx.z; b < B; b += P) {
-    const float* row = st + ((size_t)b * H + h) * L;
-    float corr = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      corr = fmaf(coef[(size_t)j * K + k], row[s + k], corr);
+__global__ void __launch_bounds__(kK4Threads, 3)
+    k4_kernel(const float* __restrict__ st, const TI* __restrict__ img,
+              const float* __restrict__ flat, const float* __restrict__ dark,
+              void* __restrict__ out, const int* __restrict__ start,
+              const float* __restrict__ coef, int K, int B, int H, int L,
+              int W) {
+  using TO = typename std::conditional<kMode == kFlat || kMode == kWrap,
+                                       unsigned short, float>::type;
+  __shared__ __align__(16) float v[kK4Rows][kK4Cap];
+  const int P = gridDim.x, z = blockIdx.x, tid = threadIdx.x;
+  const int h0 = blockIdx.y * kK4Rows;
+  const int rows = min(kK4Rows, H - h0);
+  const int j0 = blockIdx.z * kK4Seg;
+  const int j1 = min(j0 + kK4Seg, W);
+  const int in0 = start[j0], in1 = start[j1 - 1] + K;
+  if (in1 - in0 + 3 > kK4Cap) __trap();  // a band form the host refuses
+  const int j = j0 + tid * kK4Outs;
+  const bool full = j + kK4Outs <= j1;  // this thread's outputs: n, all?
+  const int n = full ? kK4Outs : (j < j1 ? j1 - j : 0);
+
+  // the band of the thread's outputs, once for all rows and corrections:
+  // starts (an idle output reads input in0), and up to kK4Taps taps each
+  // in registers (wider bands read theirs from device memory)
+  int s[kK4Outs];
+  float cr[kK4Outs][kK4Taps];
+  const bool taps_in_regs = K <= kK4Taps;
+  if (full) {
+    loadv<kK4Outs>(start + j, kK4Outs, true, s);
+  } else {
+#pragma unroll
+    for (int t = 0; t < kK4Outs; ++t) s[t] = t < n ? start[j + t] : in0;
+  }
+  if (full && K == kK4Taps) {
+    float c[kK4Outs * kK4Taps];
+    load_run<kK4Outs * kK4Taps>(coef + (size_t)j * K, c);
+#pragma unroll
+    for (int t = 0; t < kK4Outs; ++t) {
+#pragma unroll
+      for (int k = 0; k < kK4Taps; ++k) cr[t][k] = c[t * kK4Taps + k];
     }
-    const size_t o = ((size_t)b * H + h) * W + j;
-    if (kMode == kBare) {
-      static_cast<float*>(out)[o] = corr;
-      continue;
+  } else {
+#pragma unroll
+    for (int t = 0; t < kK4Outs; ++t) {
+#pragma unroll
+      for (int k = 0; k < kK4Taps; ++k) {
+        cr[t][k] = t < n && k < K ? coef[(size_t)(j + t) * K + k] : 0.0f;
+      }
     }
-    float y = expf(logf(1.0f + v) + corr) + 1.0f;
-    if (kMode == kExp) {
-      static_cast<float*>(out)[o] = y;
-    } else if (kMode == kFlat) {
-      const float d = dark[(size_t)h * W + j];
-      y = (y <= d) ? 0.0f : y - d;
-      y = y / flat[(size_t)h * W + j];
-      y = fminf(fmaxf(y, 0.0f), 65535.0f);
-      static_cast<unsigned short*>(out)[o] =
-          (unsigned short)__float2int_rz(y);
-    } else {
-      int m = __float2int_rz(y) % 65536;
-      if (m < 0) m += 65536;
-      static_cast<unsigned short*>(out)[o] = (unsigned short)m;
+  }
+
+  // the pixels (and flat, dark), loaded before the first staging, and the
+  // pixels' logs taken after it, so the loads overlap
+  float px[kK4Rows][kK4Outs], fl[kK4Rows][kK4Outs], dk[kK4Rows][kK4Outs];
+  if constexpr (kMode != kBare) {
+#pragma unroll
+    for (int r = 0; r < kK4Rows; ++r) {
+      if (r < rows) {
+        const size_t pix = (size_t)(h0 + r) * W + j;
+        loadv<kK4Outs>(img + (size_t)z * H * W + pix, n, full, px[r]);
+        if constexpr (kMode == kFlat) {
+          loadv<kK4Outs>(flat + pix, n, full, fl[r]);
+          loadv<kK4Outs>(dark + pix, n, full, dk[r]);
+        }
+      }
+    }
+  }
+
+  for (int b = z; b < B; b += P) {
+    if (b != z) __syncthreads();  // the last correction's reads are done
+    const float* plane = st + (size_t)b * H * L;
+    // per row: inputs [a0, a1) in 16-byte loads; v[r][e - o] holds input
+    // e, with a0 - o a multiple of 4 floats; the first 16-byte load of
+    // every row issued before any is stored, so they are all in flight
+    int a0[kK4Rows], a1[kK4Rows], o[kK4Rows];
+    float4 q[kK4Rows];
+#pragma unroll
+    for (int r = 0; r < kK4Rows; ++r) {
+      const float* row = plane + (size_t)(h0 + min(r, rows - 1)) * L;
+      const int mis =
+          static_cast<int>((reinterpret_cast<size_t>(row + in0) & 15) / 4);
+      a0[r] = min(in0 + (mis ? 4 - mis : 0), in1);
+      a1[r] = a0[r] + (in1 - a0[r]) / 4 * 4;
+      o[r] = a0[r] - ((a0[r] - in0 + 3) & ~3);
+      const int e = a0[r] + tid * 4;
+      if (r < rows && e < a1[r]) {
+        q[r] = __ldg(reinterpret_cast<const float4*>(row + e));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kK4Rows; ++r) {
+      if (r < rows) {
+        const float* row = plane + (size_t)(h0 + r) * L;
+        float* vr = v[r] - o[r];  // vr[e] holds input e
+        for (int e = in0 + tid; e < a0[r]; e += kK4Threads) vr[e] = row[e];
+        for (int e = a1[r] + tid; e < in1; e += kK4Threads) vr[e] = row[e];
+        int e = a0[r] + tid * 4;
+        if (e < a1[r]) {
+          *reinterpret_cast<float4*>(vr + e) = q[r];
+          for (e += kK4Threads * 4; e < a1[r]; e += kK4Threads * 4) {
+            *reinterpret_cast<float4*>(vr + e) =
+                __ldg(reinterpret_cast<const float4*>(row + e));
+          }
+        }
+      }
+    }
+    if constexpr (kMode != kBare) {
+      if (b == z) {
+#pragma unroll
+        for (int r = 0; r < kK4Rows; ++r) {
+#pragma unroll
+          for (int t = 0; t < kK4Outs; ++t) {
+            if (r < rows && t < n) px[r][t] = logf(1.0f + px[r][t]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int r = 0; r < kK4Rows; ++r) {
+      if (r < rows && n > 0) {
+        const float* vr = v[r] - o[r];
+        float acc[kK4Outs];
+        if (taps_in_regs) {
+#pragma unroll
+          for (int t = 0; t < kK4Outs; ++t) {
+            acc[t] = 0.0f;
+#pragma unroll
+            for (int k = 0; k < kK4Taps; ++k) {
+              if (k < K) acc[t] = fmaf(cr[t][k], vr[s[t] + k], acc[t]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int t = 0; t < kK4Outs; ++t) {
+            acc[t] = 0.0f;
+            const float* c = coef + (size_t)(j + t) * K;
+            for (int k = 0; k < K && t < n; ++k) {
+              acc[t] = fmaf(c[k], vr[s[t] + k], acc[t]);
+            }
+          }
+        }
+        const size_t pix = (size_t)(h0 + r) * W + j;
+        TO y[kK4Outs];
+#pragma unroll
+        for (int t = 0; t < kK4Outs; ++t) {
+          if constexpr (kMode == kBare) {
+            y[t] = acc[t];
+          } else {
+            const float e = expf(px[r][t] + acc[t]) + 1.0f;
+            if constexpr (kMode == kExp) {
+              y[t] = e;
+            } else if constexpr (kMode == kFlat) {
+              float u = (e <= dk[r][t]) ? 0.0f : e - dk[r][t];
+              u = u / fl[r][t];
+              u = fminf(fmaxf(u, 0.0f), 65535.0f);
+              y[t] = (unsigned short)__float2int_rz(u);
+            } else {
+              int m = __float2int_rz(e) % 65536;
+              if (m < 0) m += 65536;
+              y[t] = (unsigned short)m;
+            }
+          }
+        }
+        storev<kK4Outs>(static_cast<TO*>(out) + (size_t)b * H * W + pix, n, full, y);
+      }
     }
   }
 }
 
+
 template <typename TI>
-void launch_k4(dim3 grid, dim3 block, cudaStream_t s, const float* st,
-               const void* img, const float* flat, const float* dark,
-               void* out, const int* start, const float* coef, int K, int B,
-               int H, int L, int W, int mode) {
+void launch_k4(dim3 grid, cudaStream_t s, const float* st, const void* img,
+               const float* flat, const float* dark, void* out,
+               const int* start, const float* coef, int K, int B, int H,
+               int L, int W, int mode) {
   const TI* im = static_cast<const TI*>(img);
   switch (mode) {
     case kBare:
-      k4_kernel<TI, kBare><<<grid, block, 0, s>>>(
+      k4_kernel<TI, kBare><<<grid, kK4Threads, 0, s>>>(
           st, im, flat, dark, out, start, coef, K, B, H, L, W);
       break;
     case kExp:
-      k4_kernel<TI, kExp><<<grid, block, 0, s>>>(
+      k4_kernel<TI, kExp><<<grid, kK4Threads, 0, s>>>(
           st, im, flat, dark, out, start, coef, K, B, H, L, W);
       break;
     case kFlat:
-      k4_kernel<TI, kFlat><<<grid, block, 0, s>>>(
+      k4_kernel<TI, kFlat><<<grid, kK4Threads, 0, s>>>(
           st, im, flat, dark, out, start, coef, K, B, H, L, W);
       break;
     default:
-      k4_kernel<TI, kWrap><<<grid, block, 0, s>>>(
+      k4_kernel<TI, kWrap><<<grid, kK4Threads, 0, s>>>(
           st, im, flat, dark, out, start, coef, K, B, H, L, W);
       break;
   }
@@ -545,20 +790,21 @@ int destripe_k3(const float* corr, const float* delta, float* out,
 // st (B, H, L) f32 -> out (B, H, W): f32 for modes 0-1, uint16 for 2-3.
 // img (img_planes, H, W) uint16 (img_u16=1) or f32 with B a multiple of
 // img_planes (= B in mode 0), null in mode 0; flat, dark (H, W) f32, read in
-// mode 2 only.
+// mode 2 only. start steps by 0 or 1 per output.
 int destripe_k4(const float* st, const void* img, int img_u16,
                 const float* flat, const float* dark, void* out,
                 const int* start, const float* coef, int K, int B,
-                int img_planes, int H, int L, int W, int mode, int threads,
+                int img_planes, int H, int L, int W, int mode,
                 void* stream) {
-  const dim3 grid((W + threads - 1) / threads, H, img_planes);
+  const dim3 grid(img_planes, (H + kK4Rows - 1) / kK4Rows,
+                  (W + kK4Seg - 1) / kK4Seg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (img_u16) {
-    launch_k4<unsigned short>(grid, dim3(threads), s, st, img, flat, dark,
-                              out, start, coef, K, B, H, L, W, mode);
+    launch_k4<unsigned short>(grid, s, st, img, flat, dark, out, start, coef,
+                              K, B, H, L, W, mode);
   } else {
-    launch_k4<float>(grid, dim3(threads), s, st, img, flat, dark, out, start,
-                     coef, K, B, H, L, W, mode);
+    launch_k4<float>(grid, s, st, img, flat, dark, out, start, coef, K, B,
+                     H, L, W, mode);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,19 +48,26 @@
 // under the same order contract (each output summed in k order by one
 // thread, one fmaf per term from 0).
 //
-// The median is exact: a radix select over the bits of the float (4 passes
-// of 8 bits, counts in a shared-memory histogram with integer atomics),
-// once for odd rows and twice for even rows, whose two middle values are
-// averaged as (v1 + v2) * 0.5 in f32, as the plain twin and numpy do.
+// The median is exact. Keys are the float's bits in IEEE order, so NaN
+// sorts above +inf and -0.0 below +0.0 (equal values, distinct keys); even
+// rows average their two middle values as (v1 + v2) * 0.5 in f32, as the
+// plain twin and numpy do. Both medians are bound by their bytes (each
+// value read once, one float written per row). A row of up to kShortMax
+// values (BaSiC's stack of tiles) takes one thread, which holds its keys in
+// registers and ranks each by counting the keys below it: many rows per
+// block, no shared memory, no barrier, read in place at any strides. A
+// longer row takes a block (64 threads up to 2048 values, where fewer
+// threads per row and more rows per SM measured faster, 256 above: the
+// host picks), which stages its keys in shared memory once (up to
+// kStageCap; wider rows read device memory at every pass) and runs
+// a radix select over them (4 passes of 8 bits, counts in a shared-memory
+// histogram with integer atomics) for the lower middle value; an even row's
+// upper middle value is found in one more pass, as the TPU kernel finds it.
 // The select is templated on the mask, as the TPU kernel's _make_kernel is:
 // destripe_row_median_batch runs its unmasked instance, which reads no
-// threshold and makes no stripe compare, one block per row of the flattened
-// (rows, n) input with the rows on grid.x (grid.y stops at 65535 blocks).
-// Keys are the float's bits in IEEE order, so NaN sorts above +inf and -0.0
-// below +0.0 (equal values, distinct keys). Both medians are bound by their
-// bytes (each value read once, one float written per row); the select reads
-// the row once per 8-bit pass (4 or 8 passes), from L2 for rows of this
-// size, which a later PR can keep in shared memory instead.
+// threshold and makes no stripe compare, one block per row of the
+// flattened (rows, n) input with the rows on grid.x (grid.y stops at 65535
+// blocks).
 //
 // Every entry point launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
@@ -87,24 +94,27 @@ __device__ __forceinline__ bool stripe(float v, float t) {
   return __fsqrt_rn(__fmul_rn(v, v)) > t;
 }
 
-// Key of the k-th smallest (0-based) of the row's w values, with kMasked
-// the ones over t read as 0. Every thread of the block calls it and gets the
-// result.
-template <bool kMasked>
-__device__ unsigned int select_kth(const float* __restrict__ row, int w,
-                                   float t, unsigned int k,
+// Short rows (n <= kShortMax) take a thread each, their keys in registers;
+// longer rows a block each, their keys staged in shared memory up to
+// kStageCap (44 KiB of the 48 KiB a block gets without opting in), read
+// from device memory (L2) at every pass above it.
+constexpr int kShortMax = 32;
+constexpr int kStageCap = 11264;
+
+// Key of the k-th smallest (0-based) of the n keys key_of(0..n-1). Every
+// thread of the block calls it and gets the result. Each 8-bit pass counts
+// the keys under the prefix found so far into a 256-bin shared histogram
+// with integer atomics.
+template <class Keys>
+__device__ unsigned int select_kth(const Keys& key_of, int n, unsigned int k,
                                    unsigned int* hist, unsigned int* pick) {
   const int tid = threadIdx.x;
   unsigned int prefix = 0u, pmask = 0u;
   for (int shift = 24; shift >= 0; shift -= 8) {
     for (int i = tid; i < 256; i += blockDim.x) hist[i] = 0u;
     __syncthreads();
-    for (int i = tid; i < w; i += blockDim.x) {
-      float v = row[i];
-      if constexpr (kMasked) {
-        if (stripe(v, t)) v = 0.0f;
-      }
-      const unsigned int key = sort_key(v);
+    for (int i = tid; i < n; i += blockDim.x) {
+      const unsigned int key = key_of(i);
       if ((key & pmask) == prefix) {
         atomicAdd(hist + ((key >> shift) & 255u), 1u);
       }
@@ -120,8 +130,8 @@ __device__ unsigned int select_kth(const float* __restrict__ row, int w,
       unsigned int inc = sum;
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
-        const unsigned int n = __shfl_up_sync(0xFFFFFFFFu, inc, o);
-        if (tid >= o) inc += n;
+        const unsigned int up = __shfl_up_sync(0xFFFFFFFFu, inc, o);
+        if (tid >= o) inc += up;
       }
       unsigned int c = inc - sum;
       if (c <= k && k < inc) {
@@ -143,45 +153,143 @@ __device__ unsigned int select_kth(const float* __restrict__ row, int w,
   return prefix;
 }
 
+// The median of the n keys key_of(0..n-1), valid in thread 0: the
+// (n - 1) / 2-th key by select_kth, averaged for even n with the n / 2-th,
+// found in one more pass, as the TPU kernel does: the same key where more
+// than n / 2 keys are at most it, else the least key above it.
+template <class Keys>
+__device__ float median_of(const Keys& key_of, int n, unsigned int* hist,
+                           unsigned int* pick) {
+  const unsigned int k1 = (n - 1) / 2, k2 = n / 2;
+  const unsigned int v1 = select_kth(key_of, n, k1, hist, pick);
+  const float m1 = key_float(v1);
+  if (k2 == k1) return m1;
+  unsigned int le = 0u, above = 0xFFFFFFFFu;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const unsigned int key = key_of(i);
+    le += key <= v1 ? 1u : 0u;
+    if (key > v1) above = min(above, key);
+  }
+  le = __reduce_add_sync(0xFFFFFFFFu, le);
+  above = __reduce_min_sync(0xFFFFFFFFu, above);
+  // hist is free again: warp w's pair in hist[2w], hist[2w + 1]
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    hist[2 * warp] = le;
+    hist[2 * warp + 1] = above;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return m1;
+  for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w) {
+    le += hist[2 * w];
+    above = min(above, hist[2 * w + 1]);
+  }
+  const unsigned int v2 = le > k2 ? v1 : above;
+  return __fmul_rn(__fadd_rn(m1, key_float(v2)), 0.5f);
+}
+
+// Keys of a row of floats, read from device memory at every call, with
+// kMasked the values over t read as 0.
+template <bool kMasked>
+struct RowKeys {
+  const float* __restrict__ row;
+  long long step;
+  float t;
+  __device__ __forceinline__ unsigned int operator()(int i) const {
+    float v = row[i * step];
+    if constexpr (kMasked) {
+      if (stripe(v, t)) v = 0.0f;
+    }
+    return sort_key(v);
+  }
+};
+
+struct StagedKeys {
+  const unsigned int* keys;
+  __device__ __forceinline__ unsigned int operator()(int i) const {
+    return keys[i];
+  }
+};
+
+// The median of one row in thread 0: with kStaged the row's keys are staged
+// in dynamic shared memory once, so that the passes read them there.
+template <bool kStaged, bool kMasked>
+__device__ float row_median_of(RowKeys<kMasked> src, int n) {
+  __shared__ unsigned int hist[256];
+  __shared__ unsigned int pick[2];
+  if constexpr (kStaged) {
+    extern __shared__ unsigned int staged[];
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n; i += blockDim.x) staged[i] = src(i);
+    __syncthreads();
+    return median_of(StagedKeys{staged}, n, hist, pick);
+  } else {
+    return median_of(src, n, hist, pick);
+  }
+}
+
 // med[b, r] = median of row r of band plane b % n_in, masked against
 // thr[b].
+template <bool kStaged>
 __global__ void row_median_kernel(const float* __restrict__ x,
                                   const float* __restrict__ thr,
                                   float* __restrict__ med, int n_in, int h,
                                   int w) {
-  __shared__ unsigned int hist[256];
-  __shared__ unsigned int pick[2];
   const int b = blockIdx.y, r = blockIdx.x;
   const float* row = x + ((size_t)(b % n_in) * h + r) * w;
-  const float t = thr[b];
-  const unsigned int k1 = (w - 1) / 2, k2 = w / 2;
-  const float v1 = key_float(select_kth<true>(row, w, t, k1, hist, pick));
-  float m = v1;
-  if (k2 != k1) {
-    const float v2 =
-        key_float(select_kth<true>(row, w, t, k2, hist, pick));
-    m = __fmul_rn(__fadd_rn(v1, v2), 0.5f);
-  }
+  const float m =
+      row_median_of<kStaged>(RowKeys<true>{row, 1, thr[b]}, w);
   if (threadIdx.x == 0) med[(size_t)b * h + r] = m;
 }
 
-// med[r] = median of row r of the (rows, n) input, unmasked.
+// med[r] = median of row r of the (rows, n) input (row r at x + r * sr, its
+// elements sr apart), unmasked, one block per row.
+template <bool kStaged>
 __global__ void row_median_batch_kernel(const float* __restrict__ x,
-                                        float* __restrict__ med, int n) {
-  __shared__ unsigned int hist[256];
-  __shared__ unsigned int pick[2];
-  const size_t r = blockIdx.x;
-  const float* row = x + r * n;
-  const unsigned int k1 = (n - 1) / 2, k2 = n / 2;
-  const float v1 =
-      key_float(select_kth<false>(row, n, 0.0f, k1, hist, pick));
-  float m = v1;
-  if (k2 != k1) {
-    const float v2 =
-        key_float(select_kth<false>(row, n, 0.0f, k2, hist, pick));
-    m = __fmul_rn(__fadd_rn(v1, v2), 0.5f);
-  }
+                                        float* __restrict__ med, int n,
+                                        long long sr, long long se) {
+  const long long r = blockIdx.x;
+  const float m =
+      row_median_of<kStaged>(RowKeys<false>{x + r * sr, se, 0.0f}, n);
   if (threadIdx.x == 0) med[r] = m;
+}
+
+// med[r] = median of row r of the (rows, n) input, n <= kShortMax, one
+// thread per row: the row's keys in registers, each ranked by counting the
+// keys below it (ties broken by index, so the ranks are a permutation of
+// 0..n-1), no shared memory and no barrier. Reads any strides in place
+// (BaSiC's stack with its axis moved last: sr = 1, se = h * w, so the
+// threads of a warp read consecutive addresses).
+__global__ void __launch_bounds__(256)
+    row_median_short_kernel(const float* __restrict__ x,
+                            float* __restrict__ med, long long rows, int n,
+                            long long sr, long long se) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const float* row = x + r * sr;
+  unsigned int key[kShortMax];
+#pragma unroll
+  for (int i = 0; i < kShortMax; ++i) {
+    key[i] = i < n ? sort_key(__ldg(row + i * se)) : 0u;
+  }
+  const int k1 = (n - 1) / 2, k2 = n / 2;
+  unsigned int v1 = 0u, v2 = 0u;
+#pragma unroll
+  for (int i = 0; i < kShortMax; ++i) {
+    if (i >= n) break;
+    int rank = 0;
+#pragma unroll
+    for (int j = 0; j < i; ++j) rank += key[j] <= key[i] ? 1 : 0;
+#pragma unroll
+    for (int j = i + 1; j < kShortMax; ++j) {
+      if (j >= n) break;
+      rank += key[j] < key[i] ? 1 : 0;
+    }
+    if (rank == k1) v1 = key[i];
+    if (rank == k2) v2 = key[i];
+  }
+  const float m1 = key_float(v1);
+  med[r] = k1 == k2 ? m1 : __fmul_rn(__fadd_rn(m1, key_float(v2)), 0.5f);
 }
 
 // The stripe test of a plane as one compare of the square: the largest
@@ -312,22 +420,56 @@ extern "C" {
 
 // x (n_in, h, w) f32, thr (n_out,) f32 -> med (n_out, h) f32, the median of
 // each row of plane b % n_in with the values over thr[b] read as 0; n_out a
-// multiple of n_in. threads a multiple of 32.
+// multiple of n_in. threads a multiple of 32; staged: the rows' keys in
+// shared memory (w <= kStageCap).
 int destripe_row_median(const float* x, const float* thr, float* med,
                         int n_out, int n_in, int h, int w, int threads,
-                        void* stream) {
-  row_median_kernel<<<dim3(h, n_out), threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(x, thr, med, n_in,
-                                                           h, w);
+                        int staged, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(h, n_out);
+  if (staged) {
+    if (w > kStageCap) return static_cast<int>(cudaErrorInvalidValue);
+    row_median_kernel<true><<<grid, threads, w * sizeof(unsigned int), s>>>(
+        x, thr, med, n_in, h, w);
+  } else {
+    row_median_kernel<false><<<grid, threads, 0, s>>>(x, thr, med, n_in, h,
+                                                      w);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (rows, n) f32 -> med (rows,) f32, the median of each row; rows >= 1,
-// n >= 1, threads a multiple of 32.
-int destripe_row_median_batch(const float* x, float* med, int rows, int n,
+// x (rows, n) f32, row r at x + r * sr with its elements se apart -> med
+// (rows,) f32, the median of each row; rows >= 1, n >= 1. route 0: a
+// thread per row (n <= kShortMax), blocks of threads rows; 1: a block of
+// threads per row, its keys in shared memory (n <= kStageCap); 2: a block
+// per row, read from device memory at every pass. threads a multiple of 32.
+int destripe_row_median_batch(const float* x, float* med, long long rows,
+                              int n, long long sr, long long se, int route,
                               int threads, void* stream) {
-  row_median_batch_kernel<<<rows, threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(x, med, n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 0) {
+    if (n > kShortMax || threads > 256) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const long long blocks = (rows + threads - 1) / threads;
+    if (blocks > 0x7FFFFFFFll) return static_cast<int>(cudaErrorInvalidValue);
+    row_median_short_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
+                              s>>>(x, med, rows, n, sr, se);
+  } else if (route == 1 || route == 2) {
+    if (rows > 0x7FFFFFFFll || (route == 1 && n > kStageCap)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const dim3 grid(static_cast<unsigned int>(rows));
+    if (route == 1) {
+      row_median_batch_kernel<true>
+          <<<grid, threads, n * sizeof(unsigned int), s>>>(x, med, n, sr, se);
+    } else {
+      row_median_batch_kernel<false><<<grid, threads, 0, s>>>(x, med, n, sr,
+                                                              se);
+    }
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

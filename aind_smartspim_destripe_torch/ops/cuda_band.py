@@ -39,6 +39,7 @@ __all__ = [
     "band_form",
     "band_form_taps",
     "check_k1_band",
+    "check_k4_band",
     "band_dense",
     "band_level_forms",
     "an_x_lowpass_log1p",
@@ -51,19 +52,21 @@ __all__ = [
     "an_y_pass_plain",
     "syn_y_pass_plain",
     "syn_x_exp_plain",
+    "syn_x_exp_ordered",
     "KERNELS",
 ]
 
-# Launch geometry, shared with the kernels through their arguments: K4
-# runs one thread per output column, K2/K3 blocks of columns x rows (powers
-# of two, as the block reductions require). K1's is fixed in csrc/band.cu:
-# blocks of 1024 outputs of a row, float32 input's classifier partials per
-# 256 of them; a segment stages at most 2112 inputs, so its band form's
-# starts step by 0-2 per output and K is at most 63 (check_k1_band).
-_ROW_THREADS = 256
+# Launch geometry, shared with the kernels through their arguments: K2/K3
+# run blocks of columns x rows (powers of two, as the block reductions
+# require). K1's and K4's is fixed in csrc/band.cu: blocks of 1024 outputs
+# of a row (K1: float32 input's classifier partials per 256 of them); a K1
+# segment stages at most 2112 inputs, so its band form's starts step by 0-2
+# per output and K is at most 63 (check_k1_band); a K4 segment at most
+# 1088, so its starts step by 0-1 and K is at most 62 (check_k4_band).
 _COLS, _ROWS = 64, 4
 _K1_GROUP = 256
 _K1_SEG, _K1_CAP = 1024, 2 * 1024 + 64
+_K4_SEG, _K4_CAP = 1024, 1024 + 64
 _GRID_MAX = 65535  # grid.y and grid.z
 
 
@@ -152,6 +155,17 @@ def check_k1_band(start: np.ndarray, K: int) -> None:
                          f"output, K <= {_K1_CAP - 2 * _K1_SEG - 1}")
 
 
+def check_k4_band(start: np.ndarray, K: int) -> None:
+    """Raise ValueError unless K4 can take this band form: starts that step
+    by 0 or 1 per output (the synthesis band's), so a segment of its
+    outputs reads a run of inputs that fits the kernel's shared memory."""
+    step = np.diff(np.asarray(start, np.int64))
+    if (step.size and (step.min() < 0 or step.max() > 1)) or (
+            (_K4_SEG - 1) + K + 3 > _K4_CAP):
+        raise ValueError("K4 takes band forms whose starts step by 0-1 per "
+                         f"output, K <= {_K4_CAP - _K4_SEG - 2}")
+
+
 def band_level_forms(an_y, an_x_lo, syn_y, syn_x_lo) -> dict:
     """Band forms of one banded level's four dense operators (numpy):
     ``an_x_lo`` (L_w, W) for K1, ``an_y`` (2 L_h, H) for K2 (lowpass and
@@ -164,6 +178,7 @@ def band_level_forms(an_y, an_x_lo, syn_y, syn_x_lo) -> dict:
     k2_start, (k2_lo, k2_hi) = band_form(an_y[:L_h], an_y[L_h:])
     k3_start, (k3_lo, k3_hi) = band_form(syn_y[:, :L_h], syn_y[:, L_h:])
     k4_start, (k4_coef,) = band_form(syn_x_lo)
+    check_k4_band(k4_start, k4_coef.shape[1])
     return {
         "k1_start": k1_start, "k1_coef": k1_coef,
         "k2_start": k2_start, "k2_lo": k2_lo, "k2_hi": k2_hi,
@@ -374,6 +389,23 @@ def syn_x_exp_plain(stacked, images, s_x_lo, flat=None, dark=None,
                            images, flat, dark, wrap)
 
 
+def syn_x_exp_ordered(stacked, images, start, coef, flat=None, dark=None,
+                      wrap=False):
+    """K4 term by term, on any device, from the band form: each output's K
+    taps summed in k order from 0, one multiply-add (``torch.addcmul``) per
+    term, then the plain twins' epilogue. The kernel sums and finishes each
+    output with the same operations in the same order, so on the card it
+    is bit-equal to this (``chip_smoke.py`` and the card tests hold it
+    so)."""
+    _check_epilogue(images, flat, wrap)
+    idx = start.to(torch.int64)
+    acc = torch.zeros(stacked.shape[:-1] + (coef.shape[0],),
+                      dtype=torch.float32, device=stacked.device)
+    for k in range(coef.shape[1]):
+        acc = torch.addcmul(acc, coef[:, k], stacked[..., idx + k])
+    return _syn_x_epilogue(acc, stacked, images, flat, dark, wrap)
+
+
 def _syn_x_epilogue(corr, stacked, images, flat, dark, wrap):
     """The plain twins' epilogue of K4 on the x-synthesised ``corr``."""
     if images is None:
@@ -432,7 +464,7 @@ def _k4(stacked, images, start, coef, flat, dark, wrap):
         "destripe_k4", dev, stacked.data_ptr(), _ptr(images),
         int(images is not None and images.dtype == torch.uint16),
         _ptr(flat), _ptr(dark), out.data_ptr(), start.data_ptr(),
-        coef.data_ptr(), K, B, Bi, H, L, W, mode, _ROW_THREADS,
+        coef.data_ptr(), K, B, Bi, H, L, W, mode,
     )
     return out
 

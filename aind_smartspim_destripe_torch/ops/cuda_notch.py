@@ -39,6 +39,7 @@ from .cuda_dense import _GRID_MAX, copy_width
 
 __all__ = [
     "row_median",
+    "median_route",
     "row_median_batch",
     "row_median_masked",
     "notch_delta",
@@ -53,7 +54,15 @@ __all__ = [
     "KERNELS",
 ]
 
-_MEDIAN_THREADS = 256
+_SHORT_THREADS = 256  # rows per block of the short route
+# The unmasked median's routes (csrc/notch.cu): rows of up to _SHORT_MAX
+# values take a thread each (keys in registers), rows of up to _STAGE_CAP a
+# block each with their keys staged in shared memory, longer rows a block
+# each read from device memory at every pass. The masked median stages its
+# rows up to _STAGE_CAP too.
+SHORT, STAGED, L2 = 0, 1, 2
+_SHORT_MAX = 32
+_STAGE_CAP = 11264
 _SELECT_TILE = 128  # notch_select's output tile edge (csrc/notch.cu)
 _NOTCH_TILE_ROWS = 64  # the notch tail's tile: 64 x 128 (csrc/notch.cu)
 
@@ -77,26 +86,60 @@ def row_median(x):
 row_median_batch_plain = row_median
 
 
+def _median_threads(n: int) -> int:
+    """Threads of a block that selects in one row of n values: 64 up to
+    2048 values (more rows per SM, fewer threads waiting at each pass's
+    barriers), 256 above."""
+    return 64 if n <= 2048 else 256
+
+
+def median_route(shape, strides):
+    """How ``row_median_batch`` reads an f32 ``(..., n)`` tensor of this
+    shape and these strides (in elements): ``(route, sr, se)``, the route
+    (SHORT, STAGED or L2, by n) and the flattened ``(rows, n)`` view's row
+    and element strides; or None where the kernel cannot read it in place
+    (leading axes that do not flatten to one stride, or a long row whose
+    elements are not adjacent) and the wrapper copies it."""
+    n = shape[-1]
+    route = SHORT if n <= _SHORT_MAX else STAGED if n <= _STAGE_CAP else L2
+    se = strides[-1] if n > 1 else 1
+    lead = [(d, st) for d, st in zip(shape[:-1], strides[:-1]) if d != 1]
+    if any(s0 != s1 * d1 for (_, s0), (d1, s1) in zip(lead, lead[1:])):
+        return None
+    if route != SHORT and se != 1:
+        return None
+    return route, (lead[-1][1] if lead else n), se
+
+
 def row_median_batch(x: torch.Tensor) -> torch.Tensor:
     """Exact median over the last axis of f32 ``(..., n)`` -> ``(..., 1)``:
-    1-D, 2-D and N-D inputs of any layout run as the flattened ``(rows, n)``
-    view of a contiguous copy, one block per row. Even ``n`` averages the
-    k-th and (k+1)-th values as ``(v1 + v2) * 0.5``; NaN sorts above +inf,
-    and -0.0 and +0.0 are equal values, so a median may carry either sign
-    of zero."""
+    1-D, 2-D and N-D inputs run as a flattened ``(rows, n)`` view, read in
+    place where :func:`median_route` allows (any strides for rows of up to
+    32 values: BaSiC's stack with its axis moved last), else from a
+    contiguous copy (counted in ``row_median_batch.copies``). Even ``n``
+    averages the k-th and (k+1)-th values as ``(v1 + v2) * 0.5``; NaN sorts
+    above +inf, and -0.0 and +0.0 are equal values, so a median may carry
+    either sign of zero."""
     if not on_cuda(x):
         return row_median_batch_plain(x)
     n = x.shape[-1] if x.ndim else 0
     if n == 0:
         raise ValueError(f"row_median_batch needs n >= 1, got {tuple(x.shape)}")
-    x = x.contiguous()
+    if x.dtype != torch.float32:
+        raise TypeError(f"x: dtype {x.dtype} not in (torch.float32,)")
+    form = median_route(x.shape, x.stride())
+    if form is None:
+        x = x.contiguous()
+        row_median_batch.copies += 1
+        form = median_route(x.shape, x.stride())
+    route, sr, se = form
     dev = x.device
-    check("x", x, (torch.float32,), dev)
     rows = x.numel() // n
     med = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=dev)
     if rows:
         launch("destripe_row_median_batch", dev, x.data_ptr(), med.data_ptr(),
-               rows, n, _MEDIAN_THREADS)
+               rows, n, sr, se, route,
+               _SHORT_THREADS if route == SHORT else _median_threads(n))
         row_median_batch.launches += 1
     return med
 
@@ -143,7 +186,8 @@ def row_median_masked(
     check("thr", thr, (torch.float32,), dev, (n_out,))
     med = torch.empty((n_out, h, 1), dtype=torch.float32, device=dev)
     launch("destripe_row_median", dev, x.data_ptr(), thr.data_ptr(),
-           med.data_ptr(), n_out, B, h, w, _MEDIAN_THREADS)
+           med.data_ptr(), n_out, B, h, w, _median_threads(w),
+           int(w <= _STAGE_CAP))
     row_median_masked.launches += 1
     return med
 
@@ -298,3 +342,4 @@ def notch_select(
 KERNELS = (row_median_masked, row_median_batch, notch_delta, notch_select)
 for _k in KERNELS:
     _k.launches = 0
+row_median_batch.copies = 0

@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_band, cuda_notch, wavelets
-from ..ops.cuda_band import band_form_taps, check_k1_band
+from ..ops.cuda_band import band_form_taps, check_k1_band, check_k4_band
 from ..ops.cuda_blend import RADIUS, blend_smooth_mix
 from ..ops.cuda_hist import histogram256_batch
 from ..ops.cuda_notch import row_median_masked
@@ -310,7 +310,9 @@ def _k4_taps_band(L_x: int, tw: int, wavelet_name: str):
     j = m + flen - 2 - 2 * cols
     valid = (j >= 0) & (j < flen) & (cols >= 0) & (cols < L_x)
     vals = np.where(valid, wav.rec_lo_arr[np.clip(j, 0, flen - 1)], 0.0)
-    return band_form_taps(np.clip(cols, 0, L_x - 1), vals, L_x)
+    start, coef = band_form_taps(np.clip(cols, 0, L_x - 1), vals, L_x)
+    check_k4_band(start, coef.shape[1])
+    return start, coef
 
 
 def _plan_x_blocks(plan: DestripePlan):

@@ -13,7 +13,8 @@ Phases, each printing its lines:
    every visible card's context (once, so the timed runs below start warm);
 2. the build of the CUDA kernels from ``aind_smartspim_destripe_torch/csrc``,
    with each kernel's registers and spilled bytes (and the shared memory of
-   the shared GEMM tile's instances, which must spill nothing);
+   the shared GEMM tile's, K4's and the row medians' instances, which must
+   spill nothing);
 3. each kernel of the destripe step against its plain PyTorch twin on the
    card, on the same inputs, at the step's shapes for a 64-plane batch of
    1600x2000 planes: the banded DWT passes K1-K4 at levels 0 and 1, and the
@@ -26,12 +27,18 @@ Phases, each printing its lines:
    production caps per half): max error against the stated tolerance, the
    kernel's, the twin's and (where one PyTorch call computes the same
    function) that call's time (CUDA events), and the bound from the bytes
-   and operations of the call; then ``[kernels] row_median_batch``, the
-   unmasked median through ``ops.filter._row_median(x, pallas=True)`` at its
-   main path's shape (BaSiC's darkfield medians in flat estimation), the
+   and operations of the call; K4's lines (``syn_x_exp``, and
+   ``syn_x_exp_chunked`` in step 6) also hold the kernel bit for bit
+   against its k-order witness (``cuda_band.syn_x_exp_ordered``); then
+   ``[kernels] row_median_batch``, the unmasked median through
+   ``ops.filter._row_median(x, pallas=True)`` on its main path's call
+   (BaSiC's darkfield medians in flat estimation: the (12, 128, 128) stack
+   with its axis moved last, as ``models.basic._median0`` passes it, which
+   the kernel must read without a copy), the same values contiguous, the
    plane path's level-0 (even n) and level-1 (odd n) band shapes, a 1-D row
    and a 4-D stack past grid.y's 65535 rows, exactly against its twin, with
-   ``torch.kthvalue`` of the middle ranks as the library call; then
+   ``torch.kthvalue`` of the middle ranks on the same tensor as the library
+   call; then
    ``dense_matmul``, the dense levels' fixed-order product, on the four
    products of every dense level (2-7) against ``torch.matmul`` (its twin
    and the library call), each also bit-equal for one plane alone and in
@@ -211,12 +218,15 @@ PLANE = SINGLE + ("blend_smooth_mix",)
 # the kernels of the row-sharded route (the small bands' tail included)
 HALO = ("an_x_lowpass_chunked", "syn_x_exp_chunked", "notch_select_chunked",
         "histogram256_batch", "row_median_masked")
-# row_median_batch: its main path's shape (flat estimation: BaSiC's
-# darkfield medians over a slide's 12 tiles at working size 128, even n),
-# the plane path's level-0 (even n) and level-1 (odd n) band shapes, one
-# row, and 128 level-0 planes as a 4-D stack (102656 rows)
-MEDIAN_SHAPES = {"path": (128, 128, 12), 0: (64, 802, 1002),
-                 1: (64, 403, 503), "1d": (2000,), "4d": (2, 64, 802, 1002)}
+# row_median_batch: its main path's call (flat estimation: BaSiC's
+# darkfield medians over a slide's 12 tiles at working size 128, even n,
+# on the (12, 128, 128) stack with its axis moved last, as
+# models.basic._median0 passes it), the same values contiguous, the plane
+# path's level-0 (even n) and level-1 (odd n) band shapes, one row, and 128
+# level-0 planes as a 4-D stack (102656 rows)
+MEDIAN_SHAPES = {"path": (12, 128, 128), "path_contiguous": (128, 128, 12),
+                 0: (64, 802, 1002), 1: (64, 403, 503), "1d": (2000,),
+                 "4d": (2, 64, 802, 1002)}
 # the file-batch tree: planes per subdirectory, and the sampled planes
 BATCH_PLANES = (24, 16)
 BATCH_SAMPLED = (0, 1, 24, 39)  # both subdirectories, the tail batch
@@ -288,15 +298,24 @@ def _bound(nbytes, ops):
 
 
 def _compare(rec, name, lvl, kern, plain, scale=None, ins=(), ops=0.0,
-             library=None, tag="kernels", extra=None):
+             library=None, tag="kernels", extra=None, witness=None):
     """Hold one kernel call against its twin, time both (and ``library``,
     one PyTorch call computing the same function, where there is one, and
     each call of ``extra``, {key: call}, recorded as ``<key>_ms``), bound
     the call by the bytes of ``ins`` and of its outputs and by its
-    ``ops``, print and record; raises on a disagreement."""
+    ``ops``, print and record; raises on a disagreement, and, given a
+    ``witness`` (the kernel's own order of operations as tensor code),
+    unless the kernel is bit-equal to it."""
     import torch
 
-    got, want = kern(), plain()
+    got = kern()
+    same = None
+    if witness is not None:
+        same = torch.equal(got, witness())
+        if not same:
+            raise AssertionError(f"{name} level {lvl}: not bit-equal to its "
+                                 f"k-order witness")
+    want = plain()
     bound_ms, bound_by = _bound(_nbytes(ins, got), ops)
     if name == "an_x_lowpass_log1p" and isinstance(got, tuple):
         (got, gs), (want, ws) = got, want
@@ -321,12 +340,15 @@ def _compare(rec, name, lvl, kern, plain, scale=None, ins=(), ops=0.0,
           f"{err:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'}; "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, "
           f"bound {bound_ms:.3f} ms ({bound_by})"
-          + "".join(f", {k} {v:.3f}" for k, v in more.items()))
+          + "".join(f", {k} {v:.3f}" for k, v in more.items())
+          + ("" if same is None else "; bit-equal to its k-order witness"))
     if not ok:
         raise AssertionError(f"{name} level {lvl}: {err} > {tol}")
     rec[name][lvl] = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                           library_ms=library_ms, bound_ms=bound_ms,
                           bound_by=bound_by, shape=list(got.shape), **more)
+    if same is not None:
+        rec[name][lvl]["bit_equal_witness"] = same
 
 
 def _tail_calls(ch, notch_cat, thr_cap, dual=False):
@@ -482,7 +504,9 @@ def phase_kernels(plan, consts, dev, seed):
                  ins=(st, img, bd["k4_start"], bd["k4_coef"], *epi.values()),
                  ops=(2.0 * K4 + (8.0 if img is not None else 0.0)) * n_k4,
                  library=None if img is not None else (
-                     lambda: torch.matmul(st, s_x.t())))
+                     lambda: torch.matmul(st, s_x.t())),
+                 witness=lambda: cb.syn_x_exp_ordered(
+                     st, img, bd["k4_start"], bd["k4_coef"], **epi))
         src = ca
         del corr, delta, st
     # the tail at the deeper (dense) levels, on bands of their shapes
@@ -546,7 +570,9 @@ def phase_dual_kernels(plan, consts, dev, seed):
              lambda: cb.syn_x_exp(st, x, s_x, bd["k4_start"], bd["k4_coef"]),
              lambda: cb.syn_x_exp_plain(st, x, s_x),
              ins=(st, x, bd["k4_start"], bd["k4_coef"]),
-             ops=(2.0 * K4 + 8.0) * 2 * B * H * W)
+             ops=(2.0 * K4 + 8.0) * 2 * B * H * W,
+             witness=lambda: cb.syn_x_exp_ordered(st, x, bd["k4_start"],
+                                                  bd["k4_coef"]))
     del st
     torch.cuda.empty_cache()
 
@@ -575,8 +601,11 @@ def phase_dual_kernels(plan, consts, dev, seed):
 
 def phase_median(dev, seed):
     """``row_median_batch`` through ``ops.filter._row_median(x, pallas=True)``
-    against its twin (the sort), exactly, at MEDIAN_SHAPES; the library
-    call is ``torch.kthvalue`` of the middle rank(s), averaged for even n."""
+    against its twin (the sort), exactly, at MEDIAN_SHAPES (``path``: the
+    ``movedim`` view of the stack, as ``models.basic._median0`` passes it,
+    timed with any copy the wrapper makes; it must make none); the library
+    call is ``torch.kthvalue`` of the middle rank(s) on the same tensor,
+    averaged for even n."""
     import torch
 
     from aind_smartspim_destripe_torch.ops import cuda_notch as tn
@@ -586,7 +615,13 @@ def phase_median(dev, seed):
     rec = {"row_median_batch": {}}
     for key, shape in MEDIAN_SHAPES.items():
         x = torch.randn(shape, generator=g, device=dev) * 0.3
-        k1, k2 = (shape[-1] - 1) // 2, shape[-1] // 2
+        if key == "path":
+            x = x.movedim(0, -1)
+            tn.row_median_batch.copies = 0
+            tf._row_median(x, pallas=True)
+            if tn.row_median_batch.copies:
+                raise AssertionError("the median copied BaSiC's stack")
+        k1, k2 = (x.shape[-1] - 1) // 2, x.shape[-1] // 2
 
         def kthvalue():
             lo = torch.kthvalue(x, k1 + 1, -1, keepdim=True).values
@@ -926,7 +961,9 @@ def phase_halo_kernels(hplan, dense, dev, seed, n_dev):
                 ops=(2.0 * cf4.shape[1] + (8.0 if img is not None else 0.0))
                 * rows * w_in,
                 library=None if img is not None else (
-                    lambda: torch.matmul(stacked, s_x.t())))
+                    lambda: torch.matmul(stacked, s_x.t())),
+                witness=lambda: cb.syn_x_exp_ordered(stacked, img, st4, cf4,
+                                                     **kw))
         del src, stacked, img, epi, kw, a_lo, s_x
         # the cH band shard of this level: the notch product, the histogram
         h_b, w_b = hplan.ladder[i]
@@ -1293,13 +1330,15 @@ def main(argv=None):
     ptxas = {}
     for part in cuda_build.kernel_library.build_log.split(
             "Compiling entry function")[1:]:
-        fn = re.search(r"(k[1-4]|hist|row_median_batch|row_median|"
-                       r"notch_delta|notch_select|blend|dense_matmul)"
-                       r"_kernel(I(.*?)EE)?", part)
+        fn = re.search(r"(k[1-4]|hist|row_median_batch|row_median_short|"
+                       r"row_median|notch_delta|notch_select|blend|"
+                       r"dense_matmul)_kernel(I(.*?)EE)?", part)
         n = re.search(r"Used (\d+) registers", part)
         if not (fn and n):
             continue
-        targs = re.findall(r"L[ib](\d+)", fn.group(3) or "")
+        # template arguments: integers and bools, and the image types
+        targs = [num or {"t": "u16", "f": "f32"}[ty] for num, ty in
+                 re.findall(r"L[ib](\d+)E?|([tf])", fn.group(3) or "")]
         name = fn.group(1) + (f"<{','.join(targs)}>" if targs else "")
         smem = re.search(r"(\d+) bytes smem", part)
         spill = re.search(r"(\d+) bytes spill stores", part)
@@ -1331,6 +1370,23 @@ def main(argv=None):
             f"{sorted(expect - gemm.keys())}: their spills are unchecked")
     if any(v["spill"] for v in gemm.values()):
         raise AssertionError("a GEMM tile instance spills registers")
+    # the redesigned K4 and medians: every instance reported, none spilling
+    rows = {k: v for k, v in ptxas.items()
+            if k.startswith(("k4<", "row_median"))}
+    print("[build] K4 and row-median instances, registers / shared memory "
+          "bytes / spilled bytes: "
+          + " ".join(f"{k}={v['registers']}/{v['smem']}/{v['spill']}"
+                     for k, v in rows.items()))
+    expect = {f"k4<{t},{m}>" for t in ("u16", "f32") for m in range(4)}
+    expect |= {f"row_median<{b}>" for b in (0, 1)}
+    expect |= {f"row_median_batch<{b}>" for b in (0, 1)}
+    expect |= {"row_median_short"}
+    if expect - rows.keys():
+        raise AssertionError(
+            "the build log does not report the instances "
+            f"{sorted(expect - rows.keys())}: their spills are unchecked")
+    if any(v["spill"] for v in rows.values()):
+        raise AssertionError("a K4 or row-median instance spills registers")
 
     # -- 3. kernels vs plain twins ----------------------------------------
     cfg = run_capsule.PRODUCTION_PARAMETERS
@@ -1475,11 +1531,16 @@ def main(argv=None):
             entry.update(parts(first))
             entry["level1"].update(parts(main[1]))
             entry["dual"].update(parts(drec[name][0]))
+        if name in ("syn_x_exp", "syn_x_exp_chunked"):
+            entry["bit_equal_witness"] = all(
+                v.get("bit_equal_witness", False) for r in recs
+                for v in r.values())
         if name == "row_median_batch":
             entry.update({k: main["path"][k] for k in keys
                           if k != "max_abs_err"})
             entry["shapes"] = {lvl: {k: main[lvl][k] for k in keys}
-                               for lvl in (0, 1, "1d", "4d")}
+                               for lvl in ("path_contiguous", 0, 1, "1d",
+                                           "4d")}
         if name == "dense_matmul":
             entry["forms"] = {k: {**{f: v[f] for f in keys},
                                   "cublas_bit_equal": v["cublas_bit_equal"],

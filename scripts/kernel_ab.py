@@ -1,0 +1,179 @@
+#!/usr/bin/env python3
+"""Times of K4 (``syn_x_exp``, ``syn_x_exp_chunked``) and the row medians
+(``row_median_batch``, ``row_median_masked``) for the package of another
+checkout, so that two commits' kernels can be timed in one call on one
+card.
+
+Run from the root of a checkout, on a machine with one card:
+
+    python3 scripts/kernel_ab.py [--root DIR] [--seed N] [--reps N]
+
+DIR holds the ``aind_smartspim_destripe_torch`` package to measure (by
+default this checkout's; for example ``git archive`` of the parent
+commit, unpacked); it is put first on the import path, and the kernels
+are timed with CUDA events (mean of ``--reps`` calls after 2 warm-ups) at
+chip_smoke.py's shapes: K4 at levels 0 (flat-field epilogue, uint16; also
+wrap and bare on the same inputs) and 1 (bare) of a 64-plane batch of
+1600 x 2000 planes, in the dual form (128
+corrections of 64 planes), and on the level-0 (flat-field) and level-1
+(bare) row shards of a 16384 x 18000 plane on two devices; the unmasked
+median on BaSiC's (12, 128, 128) stack with its axis moved last (as
+``models.basic._median0`` passes it, any copy the wrapper makes
+included), the same values contiguous, the level-0 and level-1 band
+shapes and a 4-D stack; the masked median at levels 0 and 1 and in the
+dual form. Each line names the call and its time; the last line is all
+of them as JSON, with the card's name and power limit.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args(argv)
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    from aind_smartspim_destripe_torch import run_capsule
+    from aind_smartspim_destripe_torch.ops import cuda_band as cb
+    from aind_smartspim_destripe_torch.ops import cuda_notch as tn
+    from aind_smartspim_destripe_torch.ops import filter as tf
+    from aind_smartspim_destripe_torch.ops import wavelets as tw
+    from aind_smartspim_destripe_torch.parallel.halo import _k4_taps_band
+
+    if not cb.__file__.startswith(str(root)):
+        raise RuntimeError(f"imported {cb.__file__}, not the package in "
+                           f"{root}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def time_ms(fn):
+        for _ in range(2):
+            fn()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(args.reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / args.reps
+
+    out = {}
+
+    def record(key, fn):
+        out[key] = time_ms(fn)
+        print(f"[kernel-ab] {key}: {out[key]:.4f} ms")
+
+    cfg = run_capsule.PRODUCTION_PARAMETERS
+    plan = tf.build_plan(1600, 2000,
+                         tf.FilterConfig.from_dict(cfg["cells_config"]),
+                         tf.FilterConfig.from_dict(cfg["no_cells_config"]))
+    consts = tf.constants_from_numpy(plan.constants(), dev)
+    n = plan.n_levels
+    B, H, W = 64, 1600, 2000
+    x = torch.randint(0, 4000, (B, H, W), generator=g, device=dev,
+                      dtype=torch.int32).to(torch.uint16)
+    flat = 1.0 + 0.2 * torch.rand((H, W), generator=g, device=dev)
+    dark = torch.full((H, W), 3.0, device=dev)
+    for lvl in (0, 1):
+        bd = consts[f"band{lvl}"]
+        s_x = consts["syn_x_lo"][n - 1 - lvl]
+        h = H if lvl == 0 else plan.ladder[n - 1][0]
+        st = torch.randn((B, h, s_x.shape[1]), generator=g,
+                         device=dev) * 0.01
+        if lvl == 0:
+            record("syn_x_exp level 0", lambda: cb.syn_x_exp(
+                st, x, s_x, bd["k4_start"], bd["k4_coef"], flat=flat,
+                dark=dark))
+            st2 = torch.randn((2 * B, h, s_x.shape[1]), generator=g,
+                              device=dev) * 0.01
+            record("syn_x_exp dual", lambda: cb.syn_x_exp(
+                st2, x, s_x, bd["k4_start"], bd["k4_coef"]))
+            del st2
+            # the same bytes without the flat-field epilogue, and without
+            # the exp/log one: what the epilogue's instructions cost
+            record("syn_x_exp level 0 wrap", lambda: cb.syn_x_exp(
+                st, x, s_x, bd["k4_start"], bd["k4_coef"], wrap=True))
+            record("syn_x_exp level 0 bare", lambda: cb.syn_x_exp(
+                st, None, s_x, bd["k4_start"], bd["k4_coef"]))
+        else:
+            record("syn_x_exp level 1", lambda: cb.syn_x_exp(
+                st, None, s_x, bd["k4_start"], bd["k4_coef"]))
+        del st
+    del x, flat, dark, consts
+    torch.cuda.empty_cache()
+
+    # the row shards of a 16384 x 18000 plane on two devices
+    for lvl, (rows, w) in enumerate(((8192, 18000), (4097, 9002))):
+        L = tw.dwt_coeff_len(w, 6)
+        start, coef = (torch.as_tensor(a, device=dev)
+                       for a in _k4_taps_band(L, w, "db3"))
+        st = torch.randn((1, rows, L), generator=g, device=dev) * 0.01
+        kw, img = {}, None
+        if lvl == 0:
+            img = torch.randint(0, 4000, (1, rows, w), generator=g,
+                                device=dev, dtype=torch.int32).to(
+                                    torch.uint16)
+            kw = dict(flat=1.0 + 0.2 * torch.rand((rows, w), generator=g,
+                                                  device=dev),
+                      dark=torch.full((rows, w), 3.0, device=dev))
+        record(f"syn_x_exp_chunked level {lvl}",
+               lambda: cb.syn_x_exp_chunked(st, img, None, start, coef,
+                                            **kw))
+        del st, img, kw
+    torch.cuda.empty_cache()
+
+    stack = torch.randn((12, 128, 128), generator=g, device=dev) * 0.3
+    record("row_median_batch path (movedim view)",
+           lambda: tf._row_median(stack.movedim(0, -1), pallas=True))
+    moved = stack.movedim(0, -1)
+    k = 6
+    record("kthvalue path (movedim view)", lambda: (torch.kthvalue(
+        moved, k, -1, keepdim=True).values + torch.kthvalue(
+            moved, k + 1, -1, keepdim=True).values) * 0.5)
+    flat_stack = moved.contiguous()
+    record("row_median_batch path contiguous",
+           lambda: tf._row_median(flat_stack, pallas=True))
+    for key, shape in (("level 0", (64, 802, 1002)),
+                       ("level 1", (64, 403, 503)),
+                       ("4d", (2, 64, 802, 1002))):
+        xm = torch.randn(shape, generator=g, device=dev) * 0.3
+        record(f"row_median_batch {key}",
+               lambda: tf._row_median(xm, pallas=True))
+        del xm
+    for key, shape, k_out in (("level 0", (64, 802, 1002), 1),
+                              ("level 1", (64, 403, 503), 1),
+                              ("dual", (64, 802, 1002), 2)):
+        ch = torch.randn(shape, generator=g, device=dev) * 0.5
+        thr = torch.rand((k_out * shape[0],), generator=g,
+                         device=dev) * 0.5 + 0.5
+        record(f"row_median_masked {key}",
+               lambda: tn.row_median_masked(ch, thr))
+        del ch
+    print(json.dumps({"card": smi, "root": str(root), "ms": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

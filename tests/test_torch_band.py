@@ -185,6 +185,101 @@ def test_k4_synthesis_x_epilogues(lvl0, epilogue):
                                    atol=2e-2 if with_img else 1e-5)
 
 
+@pytest.mark.parametrize("epilogue", ["exp", "flat", "wrap", "bare"])
+def test_k4_ordered_witness_matches_jax(lvl0, epilogue):
+    """``syn_x_exp_ordered`` (the term-by-term form the card's K4 is held
+    to bit for bit) against the JAX package's K4 in interpret mode, with
+    the tolerances of test_k4_synthesis_x_epilogues."""
+    jp, spec, bops, ops = lvl0
+    L_w = jp.ladder[-1][1]
+    rng = np.random.default_rng(14)
+    st = (rng.normal(size=(2, H, L_w)) * 0.01).astype(np.float32)
+    img = rng.integers(0, 3000, (2, H, W), np.uint16)
+    flat = (1.0 + 0.3 * rng.random((H, W))).astype(np.float32)
+    dark = rng.uniform(0, 40, (H, W)).astype(np.float32)
+    kw_j, kw_t = {}, {}
+    if epilogue == "flat":
+        kw_j = dict(flat=jnp.asarray(flat), dark=jnp.asarray(dark))
+        kw_t = dict(flat=torch.from_numpy(flat), dark=torch.from_numpy(dark))
+    elif epilogue == "wrap":
+        kw_j = kw_t = dict(wrap=True)
+    with_img = epilogue != "bare"
+    want = np.asarray(pb.syn_x_exp(
+        jnp.asarray(st), jnp.asarray(img) if with_img else None, bops["bk4"],
+        spec["k4"]["starts"], W, interpret=True, **kw_j))
+    got = cb.syn_x_exp_ordered(
+        torch.from_numpy(st), torch.from_numpy(img) if with_img else None,
+        ops["k4_start"], ops["k4_coef"], **kw_t).numpy()
+    assert got.dtype == want.dtype and got.shape == (2, H, W)
+    if epilogue in ("flat", "wrap"):
+        d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+        assert d.max() <= 1
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-4,
+                                   atol=2e-2 if with_img else 1e-5)
+
+
+def test_k4_ordered_witness_dual_form(lvl0):
+    """The witness in the dual-band form (2B corrections of B planes,
+    correction b reading plane b mod B) against the plain twin: the same
+    sums in another order, within the tolerance above."""
+    _, _, _, ops = lvl0
+    L_w = ops["syn_x_lo"].shape[1]
+    rng = np.random.default_rng(15)
+    st = torch.from_numpy((rng.normal(size=(4, H, L_w)) * 0.01).astype(
+        np.float32))
+    img = torch.from_numpy(rng.integers(0, 3000, (2, H, W), np.uint16))
+    got = cb.syn_x_exp_ordered(st, img, ops["k4_start"], ops["k4_coef"])
+    want = cb.syn_x_exp_plain(st, img, ops["syn_x_lo"])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-2)
+
+
+K4_FORMS = ("1600x2000 level 0", "1600x2000 level 1", "1280x1280 level 0",
+            "1280x1280 level 1", "taps 18000", "taps 20480")
+
+
+def _k4_form(name):
+    """A synthesis band form K4 takes: a plane plan's banded level
+    (1600x2000 levels 0-1, 1280x1280) or the row-sharded route's tap-built
+    form at 18000 or 20480 columns (a 16384x18000 plane, and the
+    4096x20480 plane at the dense-x gate)."""
+    from aind_smartspim_destripe_torch.ops import wavelets as tw
+    from aind_smartspim_destripe_torch.parallel.halo import _k4_taps_band
+
+    if name.startswith("taps"):
+        w = int(name.split()[1])
+        return _k4_taps_band(tw.dwt_coeff_len(w, 6), w, "db3")
+    hw, lvl = name.split(" level ")
+    h, w = map(int, hw.split("x"))
+    _, tp = _plans(h, w, None if h == 1600 else 2)
+    band = tp.constants()[f"band{lvl}"]
+    return band["k4_start"], band["k4_coef"]
+
+
+@pytest.mark.parametrize("name", K4_FORMS)
+def test_check_k4_band_accepts_every_synthesis_form(name):
+    start, coef = _k4_form(name)
+    assert coef.shape[0] == start.shape[0] and coef.shape[1] == 3
+    cb.check_k4_band(start, coef.shape[1])
+    assert set(np.diff(start).tolist()) <= {0, 1}
+
+
+@pytest.mark.parametrize("case", ["step 2", "back", "K too wide"])
+def test_check_k4_band_rejects(case):
+    start = np.repeat(np.arange(600, dtype=np.int32), 2)
+    K = 3
+    if case == "step 2":
+        start[700:] += 1
+    elif case == "back":
+        start[701:] -= 2
+    else:
+        K = 63
+    with pytest.raises(ValueError, match="K4 takes band forms"):
+        cb.check_k4_band(start, K)
+    cb.check_k4_band(np.repeat(np.arange(600, dtype=np.int32), 2), 62)
+
+
 def test_level1_chain(lvl1):
     """Level 1 (no log1p): K1 -> K2 and K3 -> bare K4 at 1280x1280."""
     jp, spec, bops, ops = lvl1

@@ -193,15 +193,101 @@ def test_card_row_median_batch_matches_twin(card, shape):
 
 def test_card_row_median_batch_any_layout(card):
     """A strided view (BaSiC's stack axis moved last) launches the kernel
-    on a contiguous copy and equals its twin exactly."""
+    on the view in place, and a view whose leading axes do not flatten on a
+    contiguous copy; both equal their twin exactly."""
     g = torch.Generator(device="cpu").manual_seed(12)
     x = (torch.randn((12, 64, 64), generator=g) * 100).to(card)
-    view = x.movedim(0, -1)
-    assert not view.is_contiguous()
+    for view, copies in ((x.movedim(0, -1), 0), (x.permute(2, 1, 0), 1)):
+        assert not view.is_contiguous()
+        tops.reset_launches()
+        tn.row_median_batch.copies = 0
+        got = tf._row_median(view, pallas=True)
+        assert tn.row_median_batch.launches == 1
+        assert tn.row_median_batch.copies == copies
+        assert torch.equal(got, tn.row_median_batch_plain(view))
+
+
+def _median_keys_witness(x):
+    """The median over the last axis with the kernel's order: the values
+    sorted by their IEEE keys (NaN above +inf, -0.0 below +0.0), the middle
+    key(s) read back as floats, an even row's pair averaged as
+    ``(v1 + v2) * 0.5`` in f32."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    neg = (u & 0x80000000) != 0
+    key = torch.where(neg, u ^ 0xFFFFFFFF, u | 0x80000000)
+    key = torch.sort(key, dim=-1).values
+    n = x.shape[-1]
+
+    def value(k):
+        k = k.clone()
+        pos = (k & 0x80000000) != 0
+        bits = torch.where(pos, k & 0x7FFFFFFF, k ^ 0xFFFFFFFF)
+        return (bits - ((bits >> 31) << 32)).to(torch.int32).view(
+            torch.float32)
+
+    v1 = value(key[..., (n - 1) // 2:(n - 1) // 2 + 1])
+    if n % 2:
+        return v1
+    return (v1 + value(key[..., n // 2:n // 2 + 1])) * 0.5
+
+
+def _median_rows(n, rows, seed):
+    """Rows of n values with ties, both signs of zero, infinities and NaN."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((rows, n), generator=g) * 100
+    x = torch.where(torch.rand((rows, n), generator=g) < 0.3, x.round() / 50,
+                    x)
+    flat = x.view(-1)
+    flat[::7] = 0.0
+    flat[1::11] = -0.0
+    flat[2::37] = float("inf")
+    flat[3::41] = -float("inf")
+    flat[5::53] = float("nan")
+    return x
+
+
+@pytest.mark.parametrize("n", list(range(1, 65)) + [1001, 1002, 2000, 11264,
+                                                 11265])
+def test_card_row_median_batch_routes_bit_equal(card, n):
+    """The unmasked median on its short (n <= 32: a thread per row, keys in
+    registers), staged (keys in shared memory, up to 11264) and device-
+    memory routes: bit-equal to the key-order sort, on rows with ties,
+    +-0.0, +-inf and NaN, contiguous and (short rows) read in place from a
+    stack with its axis moved last."""
+    x = _median_rows(n, 300, n).to(card)
+    want = _median_keys_witness(x)
+    route = tn.median_route(x.shape, x.stride())[0]
+    assert route == (tn.SHORT if n <= 32 else
+                     tn.STAGED if n <= 11264 else tn.L2)
     tops.reset_launches()
-    got = tf._row_median(view, pallas=True)
+    got = tn.row_median_batch(x)
     assert tn.row_median_batch.launches == 1
-    assert torch.equal(got, tn.row_median_batch_plain(view))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    torch.testing.assert_close(got, tn.row_median_batch_plain(x), rtol=0,
+                               atol=0, equal_nan=True)
+    stack = x.t().contiguous().view(n, 20, 15)
+    tn.row_median_batch.copies = 0
+    got = tn.row_median_batch(stack.movedim(0, -1))
+    assert tn.row_median_batch.copies == (0 if n <= 32 else 1)
+    assert torch.equal(got.view(torch.int32),
+                       want.view(20, 15, 1).view(torch.int32))
+
+
+def test_card_row_median_basic_stack_read_in_place(card):
+    """BaSiC's darkfield median as ``models.basic._median0`` calls it, on
+    the ``movedim`` view of a (12, 128, 128) stack: read in place (no
+    copy), bit-equal to the contiguous copy's result."""
+    from aind_smartspim_destripe_torch.models.basic import _median0
+
+    g = torch.Generator(device="cpu").manual_seed(128)
+    x = (torch.randn((12, 128, 128), generator=g) * 0.3).to(card)
+    tops.reset_launches()
+    tn.row_median_batch.copies = 0
+    got = _median0(x)
+    assert tn.row_median_batch.launches == 1
+    assert tn.row_median_batch.copies == 0
+    want = tn.row_median_batch(x.movedim(0, -1).contiguous())[..., 0]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def _sequential(a, b):
@@ -451,6 +537,98 @@ def test_card_k1_fixed_order(card, level, dtype):
     else:
         assert torch.equal(sums, _k1_sums_witness(x, cut, L))
         _close(sums, twin)
+
+
+def _k4_witness(st, img, start, coef, **kw):
+    """K4 term by term (``cuda_band.syn_x_exp_ordered``): each output's
+    taps as sequential multiply-adds in k order from 0, then the plain
+    twins' epilogue ops."""
+    return cb.syn_x_exp_ordered(st, img, start, coef, **kw)
+
+
+def _k4_inputs(rows, W, L, bi, dtype, seed, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    img = torch.randint(0, 4000, (bi, rows, W), generator=g)
+    if dtype == torch.float32:
+        img = img + torch.rand((bi, rows, W), generator=g)
+    flat = 1.0 + 0.2 * torch.rand((rows, W), generator=g)
+    dark = torch.rand((rows, W), generator=g) * 40
+    st = torch.randn((bi, rows, L), generator=g) * 0.01
+    return (img.to(dtype).to(device), flat.to(device), dark.to(device),
+            st.to(device))
+
+
+_K4_MODES = {"bare": None, "exp": {}, "flat": "flat", "wrap": dict(wrap=True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.float32],
+                         ids=["u16", "f32"])
+@pytest.mark.parametrize("mode", list(_K4_MODES))
+@pytest.mark.parametrize("level", [0, 1])
+def test_card_k4_fixed_order(card, level, mode, dtype):
+    """K4 at levels 0 and 1 of a 1600x2000 plan (W = 2000 and 1002: rows
+    of W % 4 != 0 columns take the scalar head of its vector loads and
+    stores), in each mode, on uint16 and float32 images (37 rows: a partial
+    block of rows): bit-equal to its witness; and, with B = 2 Bi, the dual
+    form (correction b reads image plane b mod Bi)."""
+    ops = _ops((1600, 2000), level, card)
+    start, coef = ops["k4_start"], ops["k4_coef"]
+    W, L = ops["syn_x_lo"].shape
+    img, flat, dark, st = _k4_inputs(37, W, L, 3, dtype, 400 + level, card)
+    kw = _K4_MODES[mode]
+    if kw is None:
+        img, kw = None, {}
+    elif kw == "flat":
+        kw = dict(flat=flat, dark=dark)
+    tops.reset_launches()
+    got = cb.syn_x_exp(st, img, ops["syn_x_lo"], start, coef, **kw)
+    assert cb.syn_x_exp.launches == 1
+    assert torch.equal(got, _k4_witness(st, img, start, coef, **kw))
+    if img is not None:
+        st2 = torch.cat([st, st.flip(0) * 2.0])
+        got = cb.syn_x_exp(st2, img, ops["syn_x_lo"], start, coef, **kw)
+        assert torch.equal(got, _k4_witness(st2, img, start, coef, **kw))
+
+
+def test_card_k4_wide_band_fixed_order(card):
+    """K4 on a db6 plan's level 0, whose synthesis band has more taps than
+    the kernel holds in registers (it reads them from device memory):
+    bit-equal to its witness, bare and flat-field on uint16."""
+    cfg = tf.FilterConfig(wavelet="db6", level=None, sigma=64,
+                          max_threshold=3)
+    plan = tf.build_plan(640, 768, cfg, cfg)
+    consts = tf.constants_from_numpy(plan.constants(), card)
+    s_x = consts["syn_x_lo"][plan.n_levels - 1]
+    start, coef = consts["band0"]["k4_start"], consts["band0"]["k4_coef"]
+    assert coef.shape[1] > 3
+    W = coef.shape[0]
+    L = int(start.max()) + coef.shape[1]
+    img, flat, dark, st = _k4_inputs(9, W, L, 2, torch.uint16, 6, card)
+    for im, kw in ((None, {}), (img, dict(flat=flat, dark=dark))):
+        got = cb.syn_x_exp(st, im, s_x, start, coef, **kw)
+        assert torch.equal(got, _k4_witness(st, im, start, coef, **kw))
+
+
+@pytest.mark.parametrize("width", [18000, 20480])
+def test_card_k4_row_shard_fixed_order(card, width):
+    """K4 on a row shard from the route's tap-built band form: a
+    16384x18000 plane's level 0, and rows of the 4096x20480 plane at the
+    dense-x gate (the banded tier); bare, and flat-field on uint16:
+    bit-equal to its witness."""
+    from aind_smartspim_destripe_torch.ops import wavelets as tw
+    from aind_smartspim_destripe_torch.parallel.halo import _k4_taps_band
+
+    L = tw.dwt_coeff_len(width, 6)
+    start_np, coef_np = _k4_taps_band(L, width, "db3")
+    start = torch.from_numpy(start_np).to(card)
+    coef = torch.from_numpy(coef_np).to(card)
+    img, flat, dark, st = _k4_inputs(19, width, L, 1, torch.uint16, width,
+                                     card)
+    for im, kw in ((None, {}), (img, dict(flat=flat, dark=dark))):
+        tops.reset_launches()
+        got = cb.syn_x_exp_chunked(st, im, None, start, coef, **kw)
+        assert cb.syn_x_exp_chunked.launches == 1
+        assert torch.equal(got, _k4_witness(st, im, start, coef, **kw))
 
 
 def test_card_k1_row_shard_fixed_order(card):

@@ -107,3 +107,80 @@ def test_row_median_batch_wrapper_twin_and_launch_count():
     assert tn.row_median_batch.launches == 0
     assert torch.equal(got, tn.row_median_batch_plain(x))
     assert tn.row_median_batch_plain is tn.row_median
+
+
+def test_median0_matches_jax_on_moved_stack():
+    """BaSiC's darkfield median (``models.basic._median0``: the median over
+    a (12, 128, 128) stack's first axis, through ``_row_median`` of its
+    ``movedim`` view) and the wrapper on that view against the JAX kernel
+    on the moved stack, exactly."""
+    from aind_smartspim_destripe_torch.models.basic import _median0
+
+    rng = np.random.default_rng(12)
+    x = (rng.normal(size=(12, 128, 128)) * 100).astype(np.float32)
+    x[:, ::3] = np.round(x[:, ::3])  # ties
+    want = _jax_kernel(np.moveaxis(x, 0, -1))
+    t = torch.from_numpy(x)
+    np.testing.assert_array_equal(_median0(t).numpy(), want[..., 0])
+    view = t.movedim(0, -1)
+    assert not view.is_contiguous()
+    np.testing.assert_array_equal(tn.row_median_batch(view).numpy(), want)
+
+
+@pytest.mark.parametrize("n", [2, 3, 12, 31, 32, 33])
+def test_short_rows_with_ties_and_signed_zeros(n):
+    """Rows of up to 32 values (the kernel's register route) and just past
+    it, with many ties and both signs of zero, against the JAX kernel."""
+    rng = np.random.default_rng(100 + n)
+    x = rng.integers(-2, 3, size=(5, 7, n)).astype(np.float32)
+    x[x == 0] = rng.choice(np.array([0.0, -0.0], np.float32),
+                           size=int((x == 0).sum()))
+    _check(x)
+
+
+_S, _ST, _L2 = tn.SHORT, tn.STAGED, tn.L2
+
+
+def _moved(shape):
+    return torch.empty(shape).movedim(0, -1)
+
+
+@pytest.mark.parametrize("case,t,want", [
+    ("basic stack moved", _moved((12, 128, 128)), (_S, 1, 16384)),
+    ("basic contiguous", torch.empty((128, 128, 12)), (_S, 12, 1)),
+    ("n=32", torch.empty((4, 32)), (_S, 32, 1)),
+    ("n=33", torch.empty((4, 33)), (_ST, 33, 1)),
+    ("n=1", torch.empty((9, 1)), (_S, 1, 1)),
+    ("1-D", torch.empty((2000,)), (_ST, 2000, 1)),
+    ("level 0", torch.empty((64, 802, 1002)), (_ST, 1002, 1)),
+    ("4-D", torch.empty((2, 64, 802, 1002)), (_ST, 1002, 1)),
+    ("stage cap", torch.empty((3, 11264)), (_ST, 11264, 1)),
+    ("past the cap", torch.empty((3, 11265)), (_L2, 11265, 1)),
+    ("unit axes", torch.empty((1, 5, 1, 7)), (_S, 7, 1)),
+    ("strided rows", torch.empty((10, 12))[::2], (_S, 24, 1)),
+    ("strided long rows", torch.empty((10, 1002))[::2], (_ST, 2004, 1)),
+    ("long row moved", torch.empty((1002, 64)).t(), None),
+    ("axes that do not flatten", torch.empty((4, 6, 8)).permute(1, 0, 2),
+     None),
+    ("short axes that do not flatten",
+     torch.empty((12, 4, 6)).permute(2, 1, 0), None),
+], ids=lambda v: v if isinstance(v, str) else "")
+def test_median_route(case, t, want):
+    """The host's choice of route and strides for the unmasked median:
+    short rows by a thread each, read in place at any strides that flatten
+    to one row stride; longer rows by a block each, staged up to the cap,
+    read in place where their elements are adjacent; None (the wrapper
+    copies) otherwise."""
+    assert tn.median_route(t.shape, t.stride()) == want
+    if want is None:
+        c = t.contiguous()
+        assert tn.median_route(c.shape, c.stride()) is not None
+
+
+@pytest.mark.parametrize("n,threads", [(33, 64), (503, 64), (1002, 64),
+                                       (2048, 64), (2049, 256), (9002, 256),
+                                       (11264, 256), (20000, 256)])
+def test_median_block_threads(n, threads):
+    """Threads of a block selecting in one long row: 64 up to 2048 values,
+    256 above."""
+    assert tn._median_threads(n) == threads
