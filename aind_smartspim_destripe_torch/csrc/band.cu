@@ -27,10 +27,17 @@
 // division, no fast math) takes more issue time than its bytes take to
 // move; K4 runs four consecutive outputs per thread with vector loads and
 // stores and takes log(1 + pixel) once for every correction of the pixel.
-// Float reductions are fixed trees in
-// shared memory that write per-block partials (no float atomics); K1's
-// uint16 classifier sums are integers, added with integer atomics, exact in
-// any order; so runs repeat bit for bit.
+// K2 and K3 stage the span of input rows a run of output rows reads, each
+// thread its own columns, with asynchronous copies (all in flight at once,
+// 16-, 8- or 4-byte as the row pitch allows), and the run's band once, and
+// sum every output of the run from shared memory. Every output of K1-K4 is
+// its taps' sum in k order from 0, one fmaf per term (K3: the cH-delta
+// half, then the cA-correction half), so tile and vector width move no
+// bit. Float reductions write per-block partials (no float atomics): K1's
+// float64 sums by fixed trees in shared memory, K2's |cH| range by warp
+// shuffles (min and max, exact in any order); K1's uint16 classifier sums
+// are integers, added with integer atomics, exact in any order; so runs
+// repeat bit for bit.
 //
 // Every entry point launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
@@ -305,104 +312,6 @@ __global__ void __launch_bounds__(kK1Threads)
   }
 }
 
-struct MinOp {
-  __device__ float operator()(float a, float b) const { return fminf(a, b); }
-};
-struct MaxOp {
-  __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
-};
-
-// K2: lo[b, i, c] / hi[b, i, c] = sum_k clo/chi[i, k] * x[b, start[i] + k, c]
-// along rows, threads along columns. With stats, per-block min and max of
-// |hi| (invalid slots hold +inf / -inf).
-__global__ void k2_kernel(const float* __restrict__ x, float* __restrict__ lo,
-                          float* __restrict__ hi, float* __restrict__ mm,
-                          const int* __restrict__ start,
-                          const float* __restrict__ clo,
-                          const float* __restrict__ chi, int K, int H, int Wc,
-                          int L) {
-  extern __shared__ float k2_smem[];
-  const int b = blockIdx.z;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  const bool valid = c < Wc && i < L;
-  float a_hi = 0.0f;
-  if (valid) {
-    const int s = start[i];
-    const float* xs = x + ((size_t)b * H + s) * Wc + c;
-    float a_lo = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const float v = xs[(size_t)k * Wc];
-      a_lo = fmaf(clo[(size_t)i * K + k], v, a_lo);
-      a_hi = fmaf(chi[(size_t)i * K + k], v, a_hi);
-    }
-    const size_t o = ((size_t)b * L + i) * Wc + c;
-    lo[o] = a_lo;
-    hi[o] = a_hi;
-  }
-  if (mm != nullptr) {
-    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-    const int nthreads = blockDim.x * blockDim.y;
-    const float a = fabsf(a_hi);
-    k2_smem[tid] = valid ? a : INFINITY;
-    k2_smem[nthreads + tid] = valid ? a : -INFINITY;
-    block_reduce<float, 1>(k2_smem, tid, nthreads, MinOp());
-    block_reduce<float, 1>(k2_smem + nthreads, tid, nthreads, MaxOp());
-    if (tid == 0) {
-      const size_t p =
-          ((size_t)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-      mm[p * 2] = k2_smem[0];
-      mm[p * 2 + 1] = k2_smem[nthreads];
-    }
-  }
-}
-
-// K3: out[b, i, c] = sum_k chi[i, k] * delta[b, start[i] + k, c]
-//                  + sum_k clo[i, k] * corr[b, start[i] + k, c]  (kCorr)
-template <bool kCorr>
-__global__ void k3_kernel(const float* __restrict__ corr,
-                          const float* __restrict__ delta,
-                          float* __restrict__ out,
-                          const int* __restrict__ start,
-                          const float* __restrict__ clo,
-                          const float* __restrict__ chi, int K, int L, int Wc,
-                          int Ho) {
-  const int b = blockIdx.z;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (c >= Wc || i >= Ho) return;
-  const int s = start[i];
-  const size_t base = ((size_t)b * L + s) * Wc + c;
-  float acc = 0.0f;
-  for (int k = 0; k < K; ++k) {
-    acc = fmaf(chi[(size_t)i * K + k], delta[base + (size_t)k * Wc], acc);
-  }
-  if (kCorr) {
-    for (int k = 0; k < K; ++k) {
-      acc = fmaf(clo[(size_t)i * K + k], corr[base + (size_t)k * Wc], acc);
-    }
-  }
-  out[((size_t)b * Ho + i) * Wc + c] = acc;
-}
-
-enum K4Mode { kBare = 0, kExp = 1, kFlat = 2, kWrap = 3 };
-
-// K4 geometry: a block of kK4Threads computes kK4Seg consecutive outputs
-// (kK4Outs consecutive ones per thread) of kK4Rows rows of one image plane,
-// for every correction of that plane, from the segment of each correction
-// row it reads, which it stages in shared memory once.
-constexpr int kK4Threads = 256;
-constexpr int kK4Outs = 4;
-constexpr int kK4Seg = kK4Threads * kK4Outs;
-constexpr int kK4Rows = 2;
-// Taps per output held in registers (db1-db3's synthesis bands); wider
-// bands read theirs from device memory.
-constexpr int kK4Taps = 3;
-// Floats of a row segment's inputs: the synthesis band form's starts step
-// by 0-1 per output (the host checks it, cuda_band.check_k4_band), so a
-// segment reads at most (kK4Seg - 1) + K inputs, 3 more for alignment.
-constexpr int kK4Cap = kK4Seg + 64;
-
 // The vector of kBytes bytes: 4, 8 or 16.
 template <int kBytes>
 struct VecOf;
@@ -480,6 +389,267 @@ __device__ __forceinline__ void storev(T* p, int n, bool full, const T* v) {
     if (t < n) p[t] = v[t];
   }
 }
+
+// K2 and K3 geometry: a block owns kBandCols consecutive columns of one
+// plane (a thread V consecutive ones, V = 4, 2 or 1 as the row pitch and
+// the base pointers allow 16-, 8- or 4-byte accesses; kBandCols / V
+// threads) and a run of consecutive output rows (kK2Rows, kK3Rows). The
+// run's starts step by 0-2 (K2) or 0-1 (K3) per output, so it reads a
+// contiguous span of input rows, at most 2 (kK2Rows - 1) + K for K2 and,
+// the host checks, kK3Rows / 2 + K for K3 (cuda_band.check_k2_band,
+// check_k3_band); K is at most kBandMaxK.
+constexpr int kBandCols = 256;
+constexpr int kK2Rows = 8;
+constexpr int kK3Rows = 16;
+constexpr int kBandMaxK = 64;
+
+__host__ __device__ constexpr int k2_span_cap(int K) {
+  return 2 * (kK2Rows - 1) + K;
+}
+__host__ __device__ constexpr int k3_span_cap(int K) {
+  return kK3Rows / 2 + K;
+}
+// Floats of the band staged ahead of the rows: R starts (as ints) and two
+// R x K tap arrays, rounded up to 16 bytes.
+__host__ __device__ constexpr int band_floats(int R, int K) {
+  return (2 * R * K + R + 3) / 4 * 4;
+}
+
+// One 4 V-byte copy from device to shared memory, asynchronous (cp.async,
+// cached in L1 and L2); dst and src aligned to 4 V bytes.
+template <int V>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(4 * V)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The thread's n input rows of its V columns from src (row pitch Wc) into
+// rows (pitch kBandCols), all copies in flight at once.
+template <int V>
+__device__ __forceinline__ void stage_rows(float* rows, const float* src,
+                                           int n, int Wc) {
+#pragma unroll 4
+  for (int t = 0; t < n; ++t) {
+    cp_async<V>(rows + t * kBandCols, src + (size_t)t * Wc);
+  }
+}
+
+// V floats of shared memory at p (aligned to 4 V bytes).
+template <int V>
+__device__ __forceinline__ void lds(const float* p, float* v) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else if constexpr (V == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+// K2: lo[b, i, c] = sum_k clo[i, k] * x[b, start[i] + k, c] and hi with
+// chi, each summed in k order, one fmaf per term from 0, and the block's
+// min and max of |hi| in mm (one partial per block; a thread without
+// columns holds +inf / -inf). Block (run, strip, b) copies the span of
+// input rows its run reads, its columns of each, into shared memory once
+// (cp.async, 4 V bytes per copy, every copy of the thread in flight at
+// once), and the run's band (starts and both tap arrays) once; each
+// thread then sums its V columns of every output row of the run from
+// there, reading only the rows it copied itself, and stores them as
+// V-wide vectors. Only the K - 2 halo rows between two runs are read from
+// device memory twice. What bounds it: bytes (2K flops per 8 bytes moved).
+// KT > 0: K = KT, the taps unrolled (db3's 6); KT = 0: K at run time.
+// (The launch bounds ask for at least one resident block per SM: with the
+// block size alone ptxas held k2_kernel<1, 6> to 32 registers and spilled.)
+template <int V, int KT>
+__global__ void __launch_bounds__(kBandCols / V, 1)
+    k2_kernel(const float* __restrict__ x, float* __restrict__ lo,
+              float* __restrict__ hi, float* __restrict__ mm,
+              const int* __restrict__ start, const float* __restrict__ clo,
+              const float* __restrict__ chi, int Kr, int H, int Wc, int L) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[2][kBandCols / 32];
+  const int K = KT > 0 ? KT : Kr;
+  const int tid = threadIdx.x, b = blockIdx.z;
+  const int i0 = blockIdx.x * kK2Rows;
+  const int n_out = min(kK2Rows, L - i0);
+  const int c = blockIdx.y * kBandCols + tid * V;
+  const bool active = c < Wc;  // Wc % V == 0: all V columns or none
+  const int s0 = start[i0];
+  const int span = start[i0 + n_out - 1] + K - s0;
+  if (span > k2_span_cap(K)) __trap();  // a band form the host refuses
+  float* taps = smem;  // [2][kK2Rows][K]: lo, then hi
+  int* off = reinterpret_cast<int*>(smem + 2 * kK2Rows * K);
+  float* rows = smem + band_floats(kK2Rows, K);  // [span][kBandCols]
+
+  if (active) {
+    stage_rows<V>(rows + tid * V, x + ((size_t)b * H + s0) * Wc + c, span,
+                  Wc);
+  }
+  for (int e = tid; e < n_out * K; e += kBandCols / V) {
+    taps[e] = clo[(size_t)i0 * K + e];
+    taps[kK2Rows * K + e] = chi[(size_t)i0 * K + e];
+  }
+  for (int e = tid; e < n_out; e += kBandCols / V) {
+    off[e] = start[i0 + e] - s0;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  float mn = INFINITY, mx = -INFINITY;
+  if (active) {
+    const float* col = rows + tid * V;
+    for (int r = 0; r < n_out; ++r) {
+      const float* in = col + off[r] * kBandCols;
+      const float* tl = taps + r * K;
+      const float* th = tl + kK2Rows * K;
+      float al[V], ah[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) al[j] = ah[j] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        float v[V];
+        lds<V>(in + k * kBandCols, v);
+        const float cl = tl[k], ch = th[k];
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          al[j] = fmaf(cl, v[j], al[j]);
+          ah[j] = fmaf(ch, v[j], ah[j]);
+        }
+      }
+      const size_t o = ((size_t)b * L + i0 + r) * Wc + c;
+      storev<V>(lo + o, V, true, al);
+      storev<V>(hi + o, V, true, ah);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        mn = fminf(mn, fabsf(ah[j]));
+        mx = fmaxf(mx, fabsf(ah[j]));
+      }
+    }
+  }
+  // the block's |hi| range: per warp by shuffles, then across the warps
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    mn = fminf(mn, __shfl_xor_sync(0xFFFFFFFFu, mn, d));
+    mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, d));
+  }
+  if ((tid & 31) == 0) {
+    red[0][tid >> 5] = mn;
+    red[1][tid >> 5] = mx;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < kBandCols / V / 32; ++w) {
+      mn = fminf(mn, red[0][w]);
+      mx = fmaxf(mx, red[1][w]);
+    }
+    const size_t p =
+        ((size_t)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    mm[p * 2] = mn;
+    mm[p * 2 + 1] = mx;
+  }
+}
+
+// K3: out[b, i, c] = sum_k chi[i, k] * delta[b, start[i] + k, c]
+//                  + sum_k clo[i, k] * corr[b, start[i] + k, c]  (kCorr),
+// one accumulator from 0, one fmaf per term: the delta half in k order,
+// then the corr half in k order. Block (run, strip, b) stages the span of
+// delta (and corr) rows its run reads, and the run's band, as K2 does;
+// each thread sums its V columns of every output row of the run from
+// there and stores them as V-wide vectors. Only the K - 1 halo rows
+// between two runs are read twice. What bounds it: bytes.
+// KT > 0: K = KT, the taps unrolled (db3's 3); KT = 0: K at run time.
+template <int V, int KT, bool kCorr>
+__global__ void __launch_bounds__(kBandCols / V, 1)
+    k3_kernel(const float* __restrict__ corr, const float* __restrict__ delta,
+              float* __restrict__ out, const int* __restrict__ start,
+              const float* __restrict__ clo, const float* __restrict__ chi,
+              int Kr, int L, int Wc, int Ho) {
+  extern __shared__ __align__(16) float smem[];
+  const int K = KT > 0 ? KT : Kr;
+  const int tid = threadIdx.x, b = blockIdx.z;
+  const int i0 = blockIdx.x * kK3Rows;
+  const int n_out = min(kK3Rows, Ho - i0);
+  const int c = blockIdx.y * kBandCols + tid * V;
+  const bool active = c < Wc;
+  const int s0 = start[i0];
+  const int span = start[i0 + n_out - 1] + K - s0;
+  const int cap = k3_span_cap(K);
+  if (span > cap) __trap();  // a band form the host refuses
+  float* taps = smem;  // [2][kK3Rows][K]: hi (delta), then lo (corr)
+  int* off = reinterpret_cast<int*>(smem + 2 * kK3Rows * K);
+  float* rows_d = smem + band_floats(kK3Rows, K);  // [cap][kBandCols]
+  float* rows_c = rows_d + cap * kBandCols;
+
+  if (active) {
+    const size_t src = ((size_t)b * L + s0) * Wc + c;
+    stage_rows<V>(rows_d + tid * V, delta + src, span, Wc);
+    if constexpr (kCorr) {
+      stage_rows<V>(rows_c + tid * V, corr + src, span, Wc);
+    }
+  }
+  for (int e = tid; e < n_out * K; e += kBandCols / V) {
+    taps[e] = chi[(size_t)i0 * K + e];
+    if constexpr (kCorr) taps[kK3Rows * K + e] = clo[(size_t)i0 * K + e];
+  }
+  for (int e = tid; e < n_out; e += kBandCols / V) {
+    off[e] = start[i0 + e] - s0;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if (!active) return;
+
+  for (int r = 0; r < n_out; ++r) {
+    const int o_in = off[r] * kBandCols + tid * V;
+    const float* t = taps + r * K;
+    float acc[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] = 0.0f;
+#pragma unroll
+    for (int h = 0; h < (kCorr ? 2 : 1); ++h) {
+      const float* in = (h == 0 ? rows_d : rows_c) + o_in;
+      const float* th = t + h * kK3Rows * K;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        float v[V];
+        lds<V>(in + k * kBandCols, v);
+        const float ck = th[k];
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[j] = fmaf(ck, v[j], acc[j]);
+      }
+    }
+    storev<V>(out + ((size_t)b * Ho + i0 + r) * Wc + c, V, true, acc);
+  }
+}
+
+enum K4Mode { kBare = 0, kExp = 1, kFlat = 2, kWrap = 3 };
+
+// K4 geometry: a block of kK4Threads computes kK4Seg consecutive outputs
+// (kK4Outs consecutive ones per thread) of kK4Rows rows of one image plane,
+// for every correction of that plane, from the segment of each correction
+// row it reads, which it stages in shared memory once.
+constexpr int kK4Threads = 256;
+constexpr int kK4Outs = 4;
+constexpr int kK4Seg = kK4Threads * kK4Outs;
+constexpr int kK4Rows = 2;
+// Taps per output held in registers (db1-db3's synthesis bands); wider
+// bands read theirs from device memory.
+constexpr int kK4Taps = 3;
+// Floats of a row segment's inputs: the synthesis band form's starts step
+// by 0-1 per output (the host checks it, cuda_band.check_k4_band), so a
+// segment reads at most (kK4Seg - 1) + K inputs, 3 more for alignment.
+constexpr int kK4Cap = kK4Seg + 64;
 
 // K4: corr[b, h, j] = sum_k coef[j, k] * st[b, h, start[j] + k], summed in
 // k order, one fmaf per term from 0, then
@@ -677,6 +847,58 @@ __global__ void __launch_bounds__(kK4Threads, 3)
 }
 
 
+// The widest V of 4, 2, 1 floats that divides the row pitch Wc and to
+// whose 4 V bytes every given base pointer (null: none) is aligned.
+int vec_width(int Wc, const void* a, const void* b, const void* c) {
+  const void* ptrs[3] = {a, b, c};
+  for (int v = 4; v > 1; v >>= 1) {
+    bool ok = Wc % v == 0;
+    for (const void* p : ptrs) {
+      ok = ok && (reinterpret_cast<size_t>(p) % (4 * v) == 0);
+    }
+    if (ok) return v;
+  }
+  return 1;
+}
+
+// Launch a K2/K3 instance with smem bytes of dynamic shared memory,
+// raising the instance's limit first where it is above the default 48 KB
+// (wide bands under the run-time K instances).
+template <typename... P, typename... A>
+cudaError_t launch_band(void (*kern)(P...), dim3 grid, int threads,
+                        size_t smem, cudaStream_t s, A... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<grid, threads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t launch_k2(dim3 grid, size_t smem, cudaStream_t s, const float* x,
+                      float* lo, float* hi, float* mm, const int* start,
+                      const float* clo, const float* chi, int K, int H,
+                      int Wc, int L) {
+  auto kern = K == 6 ? k2_kernel<V, 6> : k2_kernel<V, 0>;
+  return launch_band(kern, grid, kBandCols / V, smem, s, x, lo, hi, mm,
+                     start, clo, chi, K, H, Wc, L);
+}
+
+template <int V>
+cudaError_t launch_k3(dim3 grid, size_t smem, cudaStream_t s,
+                      const float* corr, const float* delta, float* out,
+                      const int* start, const float* clo, const float* chi,
+                      int K, int L, int Wc, int Ho) {
+  auto kern = corr ? (K == 3 ? k3_kernel<V, 3, true> : k3_kernel<V, 0, true>)
+                   : (K == 3 ? k3_kernel<V, 3, false>
+                             : k3_kernel<V, 0, false>);
+  return launch_band(kern, grid, kBandCols / V, smem, s, corr, delta, out,
+                     start, clo, chi, K, L, Wc, Ho);
+}
+
 template <typename TI>
 void launch_k4(dim3 grid, cudaStream_t s, const float* st, const void* img,
                const float* flat, const float* dark, void* out,
@@ -755,36 +977,61 @@ int destripe_k1(const void* x, int x_u16, float* out, unsigned long long* sums,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (B, H, Wc) f32 -> lo, hi (B, L, Wc) f32; mm (B, gy, gx, 2) f32 or null
-// with gx = ceil(Wc / cols), gy = ceil(L / rows); cols * rows a power of 2.
+// x (B, H, Wc) f32 -> lo, hi (B, L, Wc) f32 and mm (B, gy, gx, 2) f32,
+// gx = ceil(Wc / kBandCols), gy = ceil(L / kK2Rows). start steps by 0-2
+// per output; 1 <= K <= kBandMaxK.
 int destripe_k2(const float* x, float* lo, float* hi, float* mm,
                 const int* start, const float* clo, const float* chi, int K,
-                int B, int H, int Wc, int L, int cols, int rows,
-                void* stream) {
-  const dim3 block(cols, rows);
-  const dim3 grid((Wc + cols - 1) / cols, (L + rows - 1) / rows, B);
-  const size_t smem = mm ? 2 * cols * rows * sizeof(float) : 0;
-  k2_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, lo, hi, mm, start, clo, chi, K, H, Wc, L);
-  return static_cast<int>(cudaGetLastError());
+                int B, int H, int Wc, int L, void* stream) {
+  if (K < 1 || K > kBandMaxK || mm == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((L + kK2Rows - 1) / kK2Rows,
+                  (Wc + kBandCols - 1) / kBandCols, B);
+  const size_t smem =
+      sizeof(float) * (band_floats(kK2Rows, K) + k2_span_cap(K) * kBandCols);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int V = vec_width(Wc, x, lo, hi);
+  cudaError_t e;
+  if (V == 4) {
+    e = launch_k2<4>(grid, smem, s, x, lo, hi, mm, start, clo, chi, K, H, Wc,
+                     L);
+  } else if (V == 2) {
+    e = launch_k2<2>(grid, smem, s, x, lo, hi, mm, start, clo, chi, K, H, Wc,
+                     L);
+  } else {
+    e = launch_k2<1>(grid, smem, s, x, lo, hi, mm, start, clo, chi, K, H, Wc,
+                     L);
+  }
+  return static_cast<int>(e);
 }
 
 // corr (B, L, Wc) f32 or null, delta (B, L, Wc) f32 -> out (B, Ho, Wc) f32.
+// start steps by 0-1 per output, at most kK3Rows / 2 times in each run of
+// kK3Rows outputs; 1 <= K <= kBandMaxK.
 int destripe_k3(const float* corr, const float* delta, float* out,
                 const int* start, const float* clo, const float* chi, int K,
-                int B, int L, int Wc, int Ho, int cols, int rows,
-                void* stream) {
-  const dim3 block(cols, rows);
-  const dim3 grid((Wc + cols - 1) / cols, (Ho + rows - 1) / rows, B);
+                int B, int L, int Wc, int Ho, void* stream) {
+  if (K < 1 || K > kBandMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((Ho + kK3Rows - 1) / kK3Rows,
+                  (Wc + kBandCols - 1) / kBandCols, B);
+  const size_t smem =
+      sizeof(float) * (band_floats(kK3Rows, K) +
+                       (corr ? 2 : 1) * k3_span_cap(K) * kBandCols);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (corr) {
-    k3_kernel<true><<<grid, block, 0, s>>>(corr, delta, out, start, clo, chi,
-                                           K, L, Wc, Ho);
+  const int V = vec_width(Wc, corr, delta, out);
+  cudaError_t e;
+  if (V == 4) {
+    e = launch_k3<4>(grid, smem, s, corr, delta, out, start, clo, chi, K, L,
+                     Wc, Ho);
+  } else if (V == 2) {
+    e = launch_k3<2>(grid, smem, s, corr, delta, out, start, clo, chi, K, L,
+                     Wc, Ho);
   } else {
-    k3_kernel<false><<<grid, block, 0, s>>>(corr, delta, out, start, clo,
-                                            chi, K, L, Wc, Ho);
+    e = launch_k3<1>(grid, smem, s, corr, delta, out, start, clo, chi, K, L,
+                     Wc, Ho);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }
 
 // st (B, H, L) f32 -> out (B, H, W): f32 for modes 0-1, uint16 for 2-3.

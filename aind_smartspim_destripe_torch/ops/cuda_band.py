@@ -39,6 +39,8 @@ __all__ = [
     "band_form",
     "band_form_taps",
     "check_k1_band",
+    "check_k2_band",
+    "check_k3_band",
     "check_k4_band",
     "band_dense",
     "band_level_forms",
@@ -50,23 +52,28 @@ __all__ = [
     "syn_x_exp_chunked",
     "an_x_lowpass_log1p_plain",
     "an_y_pass_plain",
+    "an_y_pass_ordered",
     "syn_y_pass_plain",
+    "syn_y_pass_ordered",
     "syn_x_exp_plain",
     "syn_x_exp_ordered",
     "KERNELS",
 ]
 
-# Launch geometry, shared with the kernels through their arguments: K2/K3
-# run blocks of columns x rows (powers of two, as the block reductions
-# require). K1's and K4's is fixed in csrc/band.cu: blocks of 1024 outputs
-# of a row (K1: float32 input's classifier partials per 256 of them); a K1
-# segment stages at most 2112 inputs, so its band form's starts step by 0-2
-# per output and K is at most 63 (check_k1_band); a K4 segment at most
-# 1088, so its starts step by 0-1 and K is at most 62 (check_k4_band).
-_COLS, _ROWS = 64, 4
+# Launch geometry, fixed in csrc/band.cu: K1 and K4 run blocks of 1024
+# outputs of a row (K1: float32 input's classifier partials per 256 of
+# them); a K1 segment stages at most 2112 inputs, so its band form's starts
+# step by 0-2 per output and K is at most 63 (check_k1_band); a K4 segment
+# at most 1088, so its starts step by 0-1 and K is at most 62
+# (check_k4_band). K2 and K3 run blocks of 256 columns by a run of 8 (K2)
+# or 16 (K3) output rows, staging the span of input rows the run reads:
+# K2's starts step by 0-2 per output, K3's by 0-1 and at most 8 times in a
+# run, and K is at most 64 (check_k2_band, check_k3_band); K2 writes one
+# |cH| range partial per block.
 _K1_GROUP = 256
 _K1_SEG, _K1_CAP = 1024, 2 * 1024 + 64
 _K4_SEG, _K4_CAP = 1024, 1024 + 64
+_BAND_COLS, _K2_ROWS, _K3_ROWS, _BAND_MAX_K = 256, 8, 16, 64
 _GRID_MAX = 65535  # grid.y and grid.z
 
 
@@ -166,6 +173,39 @@ def check_k4_band(start: np.ndarray, K: int) -> None:
                          f"output, K <= {_K4_CAP - _K4_SEG - 2}")
 
 
+def check_k2_band(start: np.ndarray, K: int, stride: int = 2) -> None:
+    """Raise ValueError unless K2 can take this band form: starts that
+    step by 0 to ``stride`` per output (the analysis band's: ``stride``
+    where the window moves, less where it is clamped at an edge, 1 at the
+    end of an odd height), a stride of at most 2 and 1 <= K <= 64, so a
+    run of its outputs reads a span of input rows that fits the kernel's
+    shared memory."""
+    step = np.diff(np.asarray(start, np.int64))
+    if (step.size and (step.min() < 0 or step.max() > stride)) or not (
+            0 < stride <= 2 and 1 <= K <= _BAND_MAX_K):
+        raise ValueError("K2 takes band forms whose starts step by 0 to a "
+                         f"stride of at most 2 per output, 1 <= K <= "
+                         f"{_BAND_MAX_K}")
+
+
+def check_k3_band(start: np.ndarray, K: int) -> None:
+    """Raise ValueError unless K3 can take this band form: starts that
+    step by 0 or 1 per output (the synthesis band's: two outputs per input
+    row), at most 8 times in each run of 16 outputs (runs from output 0),
+    and 1 <= K <= 64, so a run reads a span of input rows that fits the
+    kernel's shared memory."""
+    start = np.asarray(start, np.int64)
+    step = np.diff(start)
+    runs = np.arange(0, start.size, _K3_ROWS)
+    ends = np.minimum(runs + _K3_ROWS, start.size) - 1
+    if (step.size and (step.min() < 0 or step.max() > 1)) or (
+            (start[ends] - start[runs]).max(initial=0) > _K3_ROWS // 2) or (
+            not 1 <= K <= _BAND_MAX_K):
+        raise ValueError("K3 takes band forms whose starts step by 0 or 1 "
+                         f"per output, at most {_K3_ROWS // 2} times in a "
+                         f"run of {_K3_ROWS}, 1 <= K <= {_BAND_MAX_K}")
+
+
 def band_level_forms(an_y, an_x_lo, syn_y, syn_x_lo) -> dict:
     """Band forms of one banded level's four dense operators (numpy):
     ``an_x_lo`` (L_w, W) for K1, ``an_y`` (2 L_h, H) for K2 (lowpass and
@@ -176,7 +216,9 @@ def band_level_forms(an_y, an_x_lo, syn_y, syn_x_lo) -> dict:
     k1_start, (k1_coef,) = band_form(an_x_lo)
     check_k1_band(k1_start, k1_coef.shape[1])
     k2_start, (k2_lo, k2_hi) = band_form(an_y[:L_h], an_y[L_h:])
+    check_k2_band(k2_start, k2_lo.shape[1])
     k3_start, (k3_lo, k3_hi) = band_form(syn_y[:, :L_h], syn_y[:, L_h:])
+    check_k3_band(k3_start, k3_lo.shape[1])
     k4_start, (k4_coef,) = band_form(syn_x_lo)
     check_k4_band(k4_start, k4_coef.shape[1])
     return {
@@ -288,6 +330,24 @@ def an_y_pass_plain(x, a_y):
     return lo, hi, (a.amin(dim=(1, 2)), a.amax(dim=(1, 2)))
 
 
+def an_y_pass_ordered(x, start, coef_lo, coef_hi):
+    """K2 term by term, on any device, from the band form: each output's
+    K taps summed in k order from 0, one multiply-add (``torch.addcmul``)
+    per term, lowpass and highpass alike, and the per-plane range of
+    ``|cH|``. The kernel sums each output with the same operations in the
+    same order, so on the card it is bit-equal to this."""
+    idx = start.to(torch.int64)
+    shape = (x.shape[0], coef_lo.shape[0], x.shape[2])
+    lo = torch.zeros(shape, dtype=torch.float32, device=x.device)
+    hi = torch.zeros_like(lo)
+    for k in range(coef_lo.shape[1]):
+        rows = x[:, idx + k, :]
+        lo = torch.addcmul(lo, coef_lo[:, k, None], rows)
+        hi = torch.addcmul(hi, coef_hi[:, k, None], rows)
+    a = hi.abs()
+    return lo, hi, (a.amin(dim=(1, 2)), a.amax(dim=(1, 2)))
+
+
 def an_y_pass(
     x: torch.Tensor,  # (B, H, Wc) float32 — the x-pass output
     a_y: torch.Tensor,  # (2L, H) dense analysis operator [lowpass; highpass]
@@ -308,17 +368,28 @@ def an_y_pass(
     check("start", start, (torch.int32,), dev, (L,))
     check("coef_lo", coef_lo, (torch.float32,), dev)
     check("coef_hi", coef_hi, (torch.float32,), dev, (L, K))
+    _check_band_launch("K2", B, Wc, K)
     lo = torch.empty((B, L, Wc), dtype=torch.float32, device=dev)
     hi = torch.empty_like(lo)
-    gx, gy = _cdiv(Wc, _COLS), _cdiv(L, _ROWS)
-    mm = torch.empty((B, gy * gx, 2), dtype=torch.float32, device=dev)
+    # one |cH| range partial per block: runs of rows by strips of columns
+    mm = torch.empty((B, _cdiv(L, _K2_ROWS) * _cdiv(Wc, _BAND_COLS), 2),
+                     dtype=torch.float32, device=dev)
     launch(
         "destripe_k2", dev, x.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         mm.data_ptr(), start.data_ptr(), coef_lo.data_ptr(),
-        coef_hi.data_ptr(), K, B, H, Wc, L, _COLS, _ROWS,
+        coef_hi.data_ptr(), K, B, H, Wc, L,
     )
     an_y_pass.launches += 1
     return lo, hi, (mm[..., 0].amin(dim=1), mm[..., 1].amax(dim=1))
+
+
+def _check_band_launch(name, B, Wc, K):
+    """Raise ValueError for a K2/K3 call the kernel's grid or shared memory
+    cannot take."""
+    if B > _GRID_MAX or _cdiv(Wc, _BAND_COLS) > _GRID_MAX:
+        raise ValueError(f"{B} planes of {Wc} columns exceed {name}'s grid")
+    if not 1 <= K <= _BAND_MAX_K:
+        raise ValueError(f"{name} takes 1 <= K <= {_BAND_MAX_K}, not {K}")
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +403,22 @@ def syn_y_pass_plain(corr, delta, s_y):
     if corr is None:
         return torch.matmul(s_y[:, L:], delta)
     return torch.matmul(s_y, torch.cat([corr, delta], dim=1))
+
+
+def syn_y_pass_ordered(corr, delta, start, coef_lo, coef_hi):
+    """K3 term by term, on any device, from the band form: one accumulator
+    from 0, one multiply-add (``torch.addcmul``) per term, the cH-delta
+    half in k order and then (unless ``corr`` is None) the cA-correction
+    half in k order. The kernel sums each output with the same operations
+    in the same order, so on the card it is bit-equal to this."""
+    idx = start.to(torch.int64)
+    acc = torch.zeros((delta.shape[0], coef_hi.shape[0], delta.shape[2]),
+                      dtype=torch.float32, device=delta.device)
+    halves = [(coef_hi, delta)] + ([] if corr is None else [(coef_lo, corr)])
+    for coef, src in halves:
+        for k in range(coef.shape[1]):
+            acc = torch.addcmul(acc, coef[:, k, None], src[:, idx + k, :])
+    return acc
 
 
 def syn_y_pass(
@@ -356,11 +443,12 @@ def syn_y_pass(
     check("start", start, (torch.int32,), dev, (Ho,))
     check("coef_lo", coef_lo, (torch.float32,), dev, (Ho, K))
     check("coef_hi", coef_hi, (torch.float32,), dev)
+    _check_band_launch("K3", B, Wc, K)
     out = torch.empty((B, Ho, Wc), dtype=torch.float32, device=dev)
     launch(
         "destripe_k3", dev, _ptr(corr), delta.data_ptr(), out.data_ptr(),
         start.data_ptr(), coef_lo.data_ptr(), coef_hi.data_ptr(),
-        K, B, L, Wc, Ho, _COLS, _ROWS,
+        K, B, L, Wc, Ho,
     )
     syn_y_pass.launches += 1
     return out

@@ -60,9 +60,9 @@ def find_nvcc() -> Optional[str]:
 _SIGNATURES = {
     "destripe_k1": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
-    "destripe_k2": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    "destripe_k2": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
-    "destripe_k3": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    "destripe_k3": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
     "destripe_k4": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
     + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],

@@ -13,8 +13,8 @@ Phases, each printing its lines:
    every visible card's context (once, so the timed runs below start warm);
 2. the build of the CUDA kernels from ``aind_smartspim_destripe_torch/csrc``,
    with each kernel's registers and spilled bytes (and the shared memory of
-   the shared GEMM tile's, K4's and the row medians' instances, which must
-   spill nothing);
+   the shared GEMM tile's, K2's, K3's, K4's and the row medians' instances,
+   which must spill nothing);
 3. each kernel of the destripe step against its plain PyTorch twin on the
    card, on the same inputs, at the step's shapes for a 64-plane batch of
    1600x2000 planes: the banded DWT passes K1-K4 at levels 0 and 1, and the
@@ -22,14 +22,17 @@ Phases, each printing its lines:
    real level-0 and level-1 bands); then the dual-band forms: the Otsu
    histogram of the blend centres on the raw uint16 planes, the blend
    kernel on uint16 planes and the stacked (128, 1600, 2000) band pair, K4
-   wrapped at level 0 (128 corrections, 64 planes), and the wrapped median
+   wrapped at level 0 (128 corrections, 64 planes), K3 on 128 corrections
+   at levels 0 and 1, and the wrapped median
    and notch at every level with 128 thresholds and operator choices (the
    production caps per half): max error against the stated tolerance, the
    kernel's, the twin's and (where one PyTorch call computes the same
    function) that call's time (CUDA events), and the bound from the bytes
-   and operations of the call; K4's lines (``syn_x_exp``, and
-   ``syn_x_exp_chunked`` in step 6) also hold the kernel bit for bit
-   against its k-order witness (``cuda_band.syn_x_exp_ordered``); then
+   and operations of the call; K2's, K3's and K4's lines (``an_y_pass``,
+   ``syn_y_pass``, ``syn_x_exp``, and ``syn_x_exp_chunked`` in step 6)
+   also hold the kernel bit for bit against its k-order witness
+   (``cuda_band.an_y_pass_ordered``, ``syn_y_pass_ordered``,
+   ``syn_x_exp_ordered``; K2's bands and their |cH| range); then
    ``[kernels] row_median_batch``, the unmasked median through
    ``ops.filter._row_median(x, pallas=True)`` on its main path's call
    (BaSiC's darkfield medians in flat estimation: the (12, 128, 128) stack
@@ -241,8 +244,8 @@ MH_TILES = ("471300_461360", "471320_461360", "471340_461360",
             "471360_461360")
 MH_Z = 16
 # the wrapped forms, and the histogram of the blend centres (raw uint16)
-DUAL = ("syn_x_exp", "histogram256_batch", "row_median_masked",
-        "notch_delta")
+DUAL = ("syn_y_pass", "syn_x_exp", "histogram256_batch",
+        "row_median_masked", "notch_delta")
 
 
 def _time_ms(fn, reps=10):
@@ -297,6 +300,17 @@ def _bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _bit_equal(got, want):
+    """Are ``got`` and ``want`` (tensors, or nested tuples of them, as K2
+    returns its bands and their |cH| range) equal bit for bit?"""
+    import torch
+
+    if isinstance(got, (tuple, list)):
+        return len(got) == len(want) and all(
+            _bit_equal(a, b) for a, b in zip(got, want))
+    return torch.equal(got, want)
+
+
 def _compare(rec, name, lvl, kern, plain, scale=None, ins=(), ops=0.0,
              library=None, tag="kernels", extra=None, witness=None):
     """Hold one kernel call against its twin, time both (and ``library``,
@@ -311,7 +325,7 @@ def _compare(rec, name, lvl, kern, plain, scale=None, ins=(), ops=0.0,
     got = kern()
     same = None
     if witness is not None:
-        same = torch.equal(got, witness())
+        same = _bit_equal(got, witness())
         if not same:
             raise AssertionError(f"{name} level {lvl}: not bit-equal to its "
                                  f"k-order witness")
@@ -469,7 +483,9 @@ def phase_kernels(plan, consts, dev, seed):
                  lambda: cb.an_y_pass_plain(k1, a_y),
                  ins=(k1, bd["k2_start"], bd["k2_lo"], bd["k2_hi"]),
                  ops=4.0 * K2 * k1.shape[0] * (a_y.shape[0] // 2) * k1.shape[2],
-                 library=lambda: torch.matmul(a_y, k1))
+                 library=lambda: torch.matmul(a_y, k1),
+                 witness=lambda: cb.an_y_pass_ordered(
+                     k1, bd["k2_start"], bd["k2_lo"], bd["k2_hi"]))
         ca, ch, _ = cb.an_y_pass(k1, a_y, bd["k2_start"], bd["k2_lo"],
                                  bd["k2_hi"])
         del k1
@@ -489,7 +505,9 @@ def phase_kernels(plan, consts, dev, seed):
                  lambda: cb.syn_y_pass_plain(corr, delta, s_y),
                  ins=(corr, delta, bd["k3_start"], bd["k3_lo"], bd["k3_hi"]),
                  ops=4.0 * K3 * B * s_y.shape[0] * corr.shape[2],
-                 library=lambda: torch.matmul(s_y, up))
+                 library=lambda: torch.matmul(s_y, up),
+                 witness=lambda: cb.syn_y_pass_ordered(
+                     corr, delta, bd["k3_start"], bd["k3_lo"], bd["k3_hi"]))
         del up
         st = cb.syn_y_pass(corr, delta, s_y, bd["k3_start"], bd["k3_lo"],
                            bd["k3_hi"])
@@ -525,7 +543,8 @@ def phase_dual_kernels(plan, consts, dev, seed):
     """The dual-band forms vs their twins at the dual step's shapes (B=64):
     the centres' histogram of the raw uint16 planes, the blend on those
     planes and the stacked (2B, H, W) pair, K4 wrapped
-    at level 0 (2B corrections, B raw planes), and the wrapped median and
+    at level 0 (2B corrections, B raw planes), K3 on 2B corrections at
+    levels 0 and 1, and the wrapped median and
     notch at every level (2B thresholds and operator choices with the
     production caps per half; the real level-0 and level-1 bands)."""
     import torch
@@ -575,6 +594,26 @@ def phase_dual_kernels(plan, consts, dev, seed):
                                                   bd["k4_coef"]))
     del st
     torch.cuda.empty_cache()
+    # K3 on the 2B corrections of the dual step, levels 0 and 1
+    for lvl in (0, 1):
+        bd = consts[f"band{lvl}"]
+        s_y = consts["syn_y"][n - 1 - lvl]
+        shape = (2 * B,) + plan.ladder[n - 1 - lvl]
+        corr = torch.randn(shape, generator=g, device=dev) * 0.01
+        delta = torch.randn(shape, generator=g, device=dev) * 0.01
+        up = torch.cat([corr, delta], dim=1)
+        K3 = bd["k3_hi"].shape[1]
+        _compare(rec, "syn_y_pass", lvl,
+                 lambda: cb.syn_y_pass(corr, delta, s_y, bd["k3_start"],
+                                       bd["k3_lo"], bd["k3_hi"]),
+                 lambda: cb.syn_y_pass_plain(corr, delta, s_y),
+                 ins=(corr, delta, bd["k3_start"], bd["k3_lo"], bd["k3_hi"]),
+                 ops=4.0 * K3 * 2 * B * s_y.shape[0] * shape[2],
+                 library=lambda: torch.matmul(s_y, up),
+                 witness=lambda: cb.syn_y_pass_ordered(
+                     corr, delta, bd["k3_start"], bd["k3_lo"], bd["k3_hi"]))
+        del corr, delta, up
+        torch.cuda.empty_cache()
 
     src = x
     for lvl in range(n):
@@ -1370,14 +1409,18 @@ def main(argv=None):
             f"{sorted(expect - gemm.keys())}: their spills are unchecked")
     if any(v["spill"] for v in gemm.values()):
         raise AssertionError("a GEMM tile instance spills registers")
-    # the redesigned K4 and medians: every instance reported, none spilling
+    # the redesigned K2, K3, K4 and medians: every instance reported, none
+    # spilling (K2/K3: vector width, K (0: at run time), correction half)
     rows = {k: v for k, v in ptxas.items()
-            if k.startswith(("k4<", "row_median"))}
-    print("[build] K4 and row-median instances, registers / shared memory "
-          "bytes / spilled bytes: "
+            if k.startswith(("k2<", "k3<", "k4<", "row_median"))}
+    print("[build] K2, K3, K4 and row-median instances, registers / shared "
+          "memory bytes / spilled bytes: "
           + " ".join(f"{k}={v['registers']}/{v['smem']}/{v['spill']}"
                      for k, v in rows.items()))
-    expect = {f"k4<{t},{m}>" for t in ("u16", "f32") for m in range(4)}
+    expect = {f"k2<{v},{k}>" for v in (1, 2, 4) for k in (0, 6)}
+    expect |= {f"k3<{v},{k},{c}>" for v in (1, 2, 4) for k in (0, 3)
+               for c in (0, 1)}
+    expect |= {f"k4<{t},{m}>" for t in ("u16", "f32") for m in range(4)}
     expect |= {f"row_median<{b}>" for b in (0, 1)}
     expect |= {f"row_median_batch<{b}>" for b in (0, 1)}
     expect |= {"row_median_short"}
@@ -1386,7 +1429,8 @@ def main(argv=None):
             "the build log does not report the instances "
             f"{sorted(expect - rows.keys())}: their spills are unchecked")
     if any(v["spill"] for v in rows.values()):
-        raise AssertionError("a K4 or row-median instance spills registers")
+        raise AssertionError("a K2, K3, K4 or row-median instance spills "
+                             "registers")
 
     # -- 3. kernels vs plain twins ----------------------------------------
     cfg = run_capsule.PRODUCTION_PARAMETERS
@@ -1524,6 +1568,8 @@ def main(argv=None):
             entry["level1"] = {k: main[1][k] for k in keys}
         if name in DUAL:
             entry["dual"] = {k: drec[name][0][k] for k in keys}
+        if name == "syn_y_pass":
+            entry["dual_level1"] = {k: drec[name][1][k] for k in keys}
         if name == "notch_delta":  # its GEMM launch and the product alone
             def parts(r):
                 return {k: v for k, v in r.items() if k.startswith(
@@ -1531,7 +1577,8 @@ def main(argv=None):
             entry.update(parts(first))
             entry["level1"].update(parts(main[1]))
             entry["dual"].update(parts(drec[name][0]))
-        if name in ("syn_x_exp", "syn_x_exp_chunked"):
+        if name in ("an_y_pass", "syn_y_pass", "syn_x_exp",
+                    "syn_x_exp_chunked"):
             entry["bit_equal_witness"] = all(
                 v.get("bit_equal_witness", False) for r in recs
                 for v in r.values())

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Times of K4 (``syn_x_exp``, ``syn_x_exp_chunked``) and the row medians
-(``row_median_batch``, ``row_median_masked``) for the package of another
-checkout, so that two commits' kernels can be timed in one call on one
-card.
+"""Times of K2 (``an_y_pass``), K3 (``syn_y_pass``), K4 (``syn_x_exp``,
+``syn_x_exp_chunked``) and the row medians (``row_median_batch``,
+``row_median_masked``) for the package of another checkout, so that two
+commits' kernels can be timed in one call on one card.
 
 Run from the root of a checkout, on a machine with one card:
 
     python3 scripts/kernel_ab.py [--root DIR] [--seed N] [--reps N]
+                                 [--only REGEX]
 
 DIR holds the ``aind_smartspim_destripe_torch`` package to measure (by
 default this checkout's; for example ``git archive`` of the parent
 commit, unpacked); it is put first on the import path, and the kernels
 are timed with CUDA events (mean of ``--reps`` calls after 2 warm-ups) at
-chip_smoke.py's shapes: K4 at levels 0 (flat-field epilogue, uint16; also
+chip_smoke.py's shapes: K2 and K3 at levels 0 and 1 of a 64-plane batch
+of 1600 x 2000 planes, and K3 in the dual form (128 corrections) at both
+levels; K4 at levels 0 (flat-field epilogue, uint16; also
 wrap and bare on the same inputs) and 1 (bare) of a 64-plane batch of
 1600 x 2000 planes, in the dual form (128
 corrections of 64 planes), and on the level-0 (flat-field) and level-1
@@ -21,12 +24,14 @@ median on BaSiC's (12, 128, 128) stack with its axis moved last (as
 ``models.basic._median0`` passes it, any copy the wrapper makes
 included), the same values contiguous, the level-0 and level-1 band
 shapes and a 4-D stack; the masked median at levels 0 and 1 and in the
-dual form. Each line names the call and its time; the last line is all
-of them as JSON, with the card's name and power limit.
+dual form. ``--only`` times the calls whose name matches REGEX alone.
+Each line names the call and its time; the last line is all of them as
+JSON, with the card's name and power limit.
 """
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -39,6 +44,7 @@ def main(argv=None):
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", default="")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -82,6 +88,8 @@ def main(argv=None):
     out = {}
 
     def record(key, fn):
+        if not re.search(args.only, key):
+            return
         out[key] = time_ms(fn)
         print(f"[kernel-ab] {key}: {out[key]:.4f} ms")
 
@@ -92,6 +100,25 @@ def main(argv=None):
     consts = tf.constants_from_numpy(plan.constants(), dev)
     n = plan.n_levels
     B, H, W = 64, 1600, 2000
+    # K2 and K3 on inputs of the step's shapes; K3 also on 2B corrections
+    h_in = H
+    for lvl in (0, 1):
+        bd = consts[f"band{lvl}"]
+        a_y, s_y = consts["an_y"][lvl], consts["syn_y"][n - 1 - lvl]
+        L, wc = plan.ladder[n - 1 - lvl]
+        xk = torch.randn((B, h_in, wc), generator=g, device=dev)
+        record(f"an_y_pass level {lvl}", lambda: cb.an_y_pass(
+            xk, a_y, bd["k2_start"], bd["k2_lo"], bd["k2_hi"]))
+        del xk
+        for key, nb in (("", B), (" dual", 2 * B)):
+            corr = torch.randn((nb, L, wc), generator=g, device=dev) * 0.01
+            delta = torch.randn((nb, L, wc), generator=g, device=dev) * 0.01
+            record(f"syn_y_pass{key} level {lvl}", lambda: cb.syn_y_pass(
+                corr, delta, s_y, bd["k3_start"], bd["k3_lo"], bd["k3_hi"]))
+            del corr, delta
+        h_in = L
+    torch.cuda.empty_cache()
+
     x = torch.randint(0, 4000, (B, H, W), generator=g, device=dev,
                       dtype=torch.int32).to(torch.uint16)
     flat = 1.0 + 0.2 * torch.rand((H, W), generator=g, device=dev)

@@ -5,15 +5,17 @@ bit for bit against each other on one card.
 
 Run from the root of a checkout, on a machine with one card:
 
-    python3 scripts/step_hash.py --root DIR [--seed N]
+    python3 scripts/step_hash.py --root DIR [--seed N] [--repeat N]
 
 DIR holds the ``aind_smartspim_destripe_torch`` package to measure (for
 example ``git archive`` of the parent commit, unpacked); it is put first
 on the import path, and this checkout's chip_smoke.py builds the same
 64-plane batch of 1600 x 2000 uint16 planes from the seed and runs its
-``[step]`` and ``[step-dual]`` measurements (step_ms) with that package.
-The ``[step] sha256`` and ``[step-dual] sha256`` lines it prints compare
-with chip_smoke.py's own; the last line is both digests as JSON.
+``[step]`` and ``[step-dual]`` measurements (step_ms) with that package,
+``--repeat`` times each (the step's time moves with the host's launch
+time, so one reading does not give its spread). The ``[step] sha256`` and
+``[step-dual] sha256`` lines it prints compare with chip_smoke.py's own;
+the last line is both digests as JSON.
 """
 
 import argparse
@@ -29,6 +31,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--repeat", type=int, default=1)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
 
@@ -49,12 +52,13 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     plan = smoke.tf_build_plan(*smoke.SHAPE[1:])
     vol, flats, dark = smoke.synthetic_tile(dev, args.seed)
-    digests = {
-        "step": smoke.step_ms("step", plan, vol, flats[0], dark, dev,
-                              seed=args.seed),
-        "step-dual": smoke.step_ms("step-dual", plan, vol, flats[0], dark,
-                                   dev, dual=True, seed=args.seed),
-    }
+    digests = {}
+    for tag, dual in (("step", False), ("step-dual", True)):
+        got = {smoke.step_ms(tag, plan, vol, flats[0], dark, dev, dual=dual,
+                             seed=args.seed) for _ in range(args.repeat)}
+        if len(got) != 1:
+            raise AssertionError(f"[{tag}] output differs between runs")
+        digests[tag] = got.pop()
     print(json.dumps(digests))
     return 0
 

@@ -155,6 +155,133 @@ def test_k3_synthesis_y(lvl0, with_corr):
                                rtol=2e-5, atol=2e-4)
 
 
+# K2/K3 witnesses: the production-like 640x768 level 0 (both starts'
+# clamps), an odd height (1001 rows: a K2 step of 1 at its end, a partial
+# run of both kernels) with an odd width (391 columns), and level 1
+WITNESS_GEOMETRIES = {
+    "640x768 level 0": (640, 768, 1, 0),
+    "1001x777 level 0": (1001, 777, 1, 0),
+    "1280x1280 level 1": (1280, 1280, 2, 1),
+}
+
+
+@pytest.fixture(scope="module", params=list(WITNESS_GEOMETRIES))
+def witness_level(request):
+    h, w, level, lvl = WITNESS_GEOMETRIES[request.param]
+    return _level(h, w, level, lvl)
+
+
+def test_k2_ordered_witness_matches_jax_and_twin(witness_level):
+    """``an_y_pass_ordered`` (the term-by-term form the card's K2 is held
+    to bit for bit) against the JAX package's K2 in interpret mode, with
+    the tolerances of test_k2_bands_and_abs_range, and against the plain
+    twin; the |cH| range exactly on its own band."""
+    jp, spec, bops, ops = witness_level
+    h = ops["an_y"].shape[1]
+    L_h = ops["k2_start"].shape[0]
+    w = ops["an_x_lo"].shape[0]
+    x = (np.random.default_rng(21).normal(size=(2, h, w)) * 3).astype(
+        np.float32)
+    lo_j, hi_j, _ = pb.an_y_pass(
+        jnp.asarray(x), bops["bk2"], spec["k2"]["stride"], spec["k2"]["pad"],
+        L_h, stats=True, interpret=True)
+    xt = torch.from_numpy(x)
+    lo, hi, (mn, mx) = cb.an_y_pass_ordered(xt, ops["k2_start"],
+                                            ops["k2_lo"], ops["k2_hi"])
+    lo_t, hi_t, _ = cb.an_y_pass_plain(xt, ops["an_y"])
+    for got, want in ((lo, lo_j), (hi, hi_j), (lo, lo_t), (hi, hi_t)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-5, atol=2e-4)
+    a = np.abs(hi.numpy())
+    np.testing.assert_array_equal(mn.numpy(), a.min((1, 2)))
+    np.testing.assert_array_equal(mx.numpy(), a.max((1, 2)))
+
+
+@pytest.mark.parametrize("with_corr", [True, False])
+def test_k3_ordered_witness_matches_jax_and_twin(witness_level, with_corr):
+    """``syn_y_pass_ordered`` (delta half, then corr half, as the card's
+    K3 sums) against the JAX package's K3 in interpret mode and the plain
+    twin, with the tolerances of test_k3_synthesis_y."""
+    jp, spec, bops, ops = witness_level
+    Ho = ops["k3_start"].shape[0]
+    L_h = ops["k2_start"].shape[0]
+    w = ops["an_x_lo"].shape[0]
+    rng = np.random.default_rng(22)
+    corr = rng.normal(size=(2, L_h, w)).astype(np.float32)
+    delta = rng.normal(size=(2, L_h, w)).astype(np.float32)
+    want = pb.syn_y_pass(
+        jnp.asarray(corr) if with_corr else None, jnp.asarray(delta),
+        bops["bk3_lo"] if with_corr else None, bops["bk3_hi"],
+        spec["k3"]["stride"], spec["k3"]["pad"], Ho, interpret=True)
+    ct = torch.from_numpy(corr) if with_corr else None
+    dt = torch.from_numpy(delta)
+    got = cb.syn_y_pass_ordered(ct, dt, ops["k3_start"], ops["k3_lo"],
+                                ops["k3_hi"])
+    assert got.shape == (2, Ho, w)
+    for ref in (np.asarray(want),
+                cb.syn_y_pass_plain(ct, dt, ops["syn_y"]).numpy()):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-4)
+
+
+# every band form a plan of the repo builds: the production geometries
+# (1600x2000 and 2048x2048, db3), the test geometries, odd sizes and the
+# other wavelets' widths (db1: K2 K=2; db6: 12; db20: 40)
+Y_FORMS = ("1600x2000 db3", "2048x2048 db3", "640x768 db3", "1280x1280 db3",
+           "1001x777 db3", "1601x2001 db3", "1600x2000 db1", "1600x2000 db2",
+           "1600x2000 db6", "1600x2000 db20")
+
+
+@pytest.mark.parametrize("name", Y_FORMS)
+def test_check_k2_k3_band_accept_every_plan(name):
+    hw, wav = name.split()
+    h, w = map(int, hw.split("x"))
+    cfg = tf.FilterConfig(wavelet=wav, level=None, sigma=64, max_threshold=3)
+    consts = tf.build_plan(h, w, cfg, cfg).constants()
+    levels = [k for k in consts if k.startswith("band")]
+    assert levels
+    for key in levels:
+        bd = consts[key]
+        cb.check_k2_band(bd["k2_start"], bd["k2_lo"].shape[1])
+        cb.check_k3_band(bd["k3_start"], bd["k3_lo"].shape[1])
+
+
+@pytest.mark.parametrize("case", ["step 3", "back", "K too wide",
+                                  "stride 3"])
+def test_check_k2_band_rejects(case):
+    start = np.arange(0, 1600, 2, dtype=np.int32)
+    K, stride = 6, 2
+    if case == "step 3":
+        start[300:] += 1
+    elif case == "back":
+        start[301:] -= 4
+    elif case == "K too wide":
+        K = 65
+    else:
+        stride = 3
+    with pytest.raises(ValueError, match="K2 takes band forms"):
+        cb.check_k2_band(start, K, stride)
+    cb.check_k2_band(np.arange(0, 1600, 2, dtype=np.int32), 64)
+
+
+@pytest.mark.parametrize("case", ["step 2", "back", "K too wide",
+                                  "run too long"])
+def test_check_k3_band_rejects(case):
+    start = np.repeat(np.arange(800, dtype=np.int32), 2)
+    K = 3
+    if case == "step 2":
+        start[700:] += 1
+    elif case == "back":
+        start[701:] -= 2
+    elif case == "K too wide":
+        K = 65
+    else:  # a step of 1 at every output of the run from output 64
+        start[64:96] = start[64] + np.arange(32)
+        start[96:] += 16
+    with pytest.raises(ValueError, match="K3 takes band forms"):
+        cb.check_k3_band(start, K)
+    cb.check_k3_band(np.repeat(np.arange(800, dtype=np.int32), 2), 64)
+
+
 @pytest.mark.parametrize("epilogue", ["exp", "flat", "wrap", "bare"])
 def test_k4_synthesis_x_epilogues(lvl0, epilogue):
     jp, spec, bops, ops = lvl0

@@ -539,6 +539,90 @@ def test_card_k1_fixed_order(card, level, dtype):
         _close(sums, twin)
 
 
+def _y_band(hw, lvl, device, wavelet="db3"):
+    """K2's and K3's band forms of analysis level ``lvl`` of an (h, w)
+    plan, their input heights (H for K2, L for K3) and the level's width
+    after its x pass."""
+    cfg = tf.FilterConfig(wavelet=wavelet, level=None, sigma=64,
+                          max_threshold=3)
+    plan = tf.build_plan(*hw, cfg, cfg)
+    bd = tf.constants_from_numpy(plan.constants(), device)[f"band{lvl}"]
+    H = plan.height if lvl == 0 else plan.ladder[plan.n_levels - lvl][0]
+    return bd, H, bd["k2_start"].shape[0], plan.ladder[-1 - lvl][1]
+
+
+def _check_y_kernels(bd, H, L, B, Wc, card, seed):
+    """K2 and K3 (with and without the correction half) on (B, ., Wc)
+    inputs, each launched once, bit-equal to their k-order witnesses."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = (torch.randn((B, H, Wc), generator=g) * 3).to(card)
+    corr = (torch.randn((B, L, Wc), generator=g) * 0.01).to(card)
+    delta = (torch.randn((B, L, Wc), generator=g) * 0.01).to(card)
+    tops.reset_launches()
+    # the dense operators are read by the plain twins only
+    got = cb.an_y_pass(x, None, bd["k2_start"], bd["k2_lo"], bd["k2_hi"])
+    assert cb.an_y_pass.launches == 1
+    want = cb.an_y_pass_ordered(x, bd["k2_start"], bd["k2_lo"], bd["k2_hi"])
+    for a, b in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+        assert torch.equal(a, b)
+    for c in (corr, None):
+        got = cb.syn_y_pass(c, delta, None, bd["k3_start"], bd["k3_lo"],
+                            bd["k3_hi"])
+        assert torch.equal(got, cb.syn_y_pass_ordered(
+            c, delta, bd["k3_start"], bd["k3_lo"], bd["k3_hi"]))
+    assert cb.syn_y_pass.launches == 2
+
+
+@pytest.mark.parametrize("hw,level", [((1600, 2000), 0), ((1600, 2000), 1),
+                                      ((1001, 777), 0), ((640, 768), 0)],
+                         ids=str)
+def test_card_k2_k3_fixed_order(card, hw, level):
+    """K2 and K3 at levels 0 and 1 of a 1600x2000 plan (rows of 1002 and
+    503 columns: 8- and 4-byte vectors), at an odd height (1001 rows: a K2
+    step of 1, partial runs of both) and at 640x768 (K2: 322 outputs, a
+    partial run of 8; 386 columns): bit-equal to their witnesses."""
+    bd, H, L, Wc = _y_band(hw, level, card)
+    _check_y_kernels(bd, H, L, 3, Wc, card, 500 + level)
+
+
+@pytest.mark.parametrize("width", [1000, 1002, 1001, 4, 3])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_card_k2_k3_vector_widths(card, width, batch):
+    """K2 and K3 on rows of 0, 2 and 1 columns mod 4 (16-, 8- and 4-byte
+    vectors) and on rows narrower than a warp, one and two planes, with
+    the 640x768 plan's level-0 band: bit-equal to their witnesses."""
+    bd, H, L, _ = _y_band((640, 768), 0, card)
+    _check_y_kernels(bd, H, L, batch, width, card, width + batch)
+
+
+def test_card_k2_k3_unaligned_views(card):
+    """Contiguous views that start 4 bytes past an aligned address take
+    4-byte copies whatever the row pitch: bit-equal to their witnesses."""
+    bd, H, L, _ = _y_band((640, 768), 0, card)
+    g = torch.Generator(device="cpu").manual_seed(9)
+    x = (torch.randn((2 * H * 1000 + 1,), generator=g) * 3).to(card)
+    x = x[1:].view(2, H, 1000)
+    d = (torch.randn((2 * L * 1000 + 1,), generator=g) * 0.01).to(card)
+    d = d[1:].view(2, L, 1000)
+    got = cb.an_y_pass(x, None, bd["k2_start"], bd["k2_lo"], bd["k2_hi"])
+    want = cb.an_y_pass_ordered(x, bd["k2_start"], bd["k2_lo"], bd["k2_hi"])
+    for a, b in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+        assert torch.equal(a, b)
+    got = cb.syn_y_pass(d, d, None, bd["k3_start"], bd["k3_lo"], bd["k3_hi"])
+    assert torch.equal(got, cb.syn_y_pass_ordered(
+        d, d, bd["k3_start"], bd["k3_lo"], bd["k3_hi"]))
+
+
+@pytest.mark.parametrize("wavelet", ["db1", "db2", "db6", "db20"])
+def test_card_k2_k3_other_wavelets(card, wavelet):
+    """The run-time K instances: db1 (K2 K=2, K3 K=1), db2, db6 and db20
+    (K2 K=40: more than 48 KB of shared memory per block) at level 0 of a
+    1600x2000 plan, on 130 columns: bit-equal to their witnesses."""
+    bd, H, L, _ = _y_band((1600, 2000), 0, card, wavelet)
+    assert bd["k2_lo"].shape[1] != 6
+    _check_y_kernels(bd, H, L, 2, 130, card, 7)
+
+
 def _k4_witness(st, img, start, coef, **kw):
     """K4 term by term (``cuda_band.syn_x_exp_ordered``): each output's
     taps as sequential multiply-adds in k order from 0, then the plain
