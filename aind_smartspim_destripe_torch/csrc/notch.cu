@@ -52,22 +52,36 @@
 // sorts above +inf and -0.0 below +0.0 (equal values, distinct keys); even
 // rows average their two middle values as (v1 + v2) * 0.5 in f32, as the
 // plain twin and numpy do. Both medians are bound by their bytes (each
-// value read once, one float written per row). A row of up to kShortMax
-// values (BaSiC's stack of tiles) takes one thread, which holds its keys in
-// registers and ranks each by counting the keys below it: many rows per
-// block, no shared memory, no barrier, read in place at any strides. A
-// longer row takes a block (64 threads up to 2048 values, where fewer
-// threads per row and more rows per SM measured faster, 256 above: the
-// host picks), which stages its keys in shared memory once (up to
-// kStageCap; wider rows read device memory at every pass) and runs
-// a radix select over them (4 passes of 8 bits, counts in a shared-memory
-// histogram with integer atomics) for the lower middle value; an even row's
-// upper middle value is found in one more pass, as the TPU kernel finds it.
-// The select is templated on the mask, as the TPU kernel's _make_kernel is:
-// destripe_row_median_batch runs its unmasked instance, which reads no
-// threshold and makes no stripe compare, one block per row of the
-// flattened (rows, n) input with the rows on grid.x (grid.y stops at 65535
-// blocks).
+// value read once, one float written per row) in principle; in practice by
+// the select's instructions and shared-memory atomics after the loads.
+//
+// The unmasked median (destripe_row_median_batch): a row of up to
+// kShortMax values (BaSiC's stack of tiles) takes one thread, which holds
+// its keys in registers and ranks each by counting the keys below it: many
+// rows per block, no shared memory, no barrier, read in place at any
+// strides. A longer row takes a block (64 threads up to 2048 values, where
+// fewer threads per row and more rows per SM measured faster, 256 above:
+// the host picks), which stages its keys in shared memory once (up to
+// kStageCap; wider rows read device memory at every pass) and runs a radix
+// select over them (4 passes of 8 bits, counts in a shared-memory histogram
+// with integer atomics) for the lower middle value; an even row's upper
+// middle value is found in one more pass, as the TPU kernel finds it. The
+// rows are on grid.x (grid.y stops at 65535 blocks).
+//
+// The masked median (destripe_row_median) of a row of up to kWarpMax
+// values (every level of the plane step) takes one warp per output row,
+// the row's keys in registers (at most 32 per lane), the mask applied as a
+// compare of the square against the plane's stripe_cut. A block per row
+// spent its time in barriers and in the first radix pass, whose bins the
+// keys crowd (one sign and a few exponents); the warp instead makes one
+// pass of counts and extremes: a rank that falls among the +0.0 keys (the
+// masked values, which sit at the middle of a row's order) is +0.0 itself,
+// and settles the row; any other rank is selected within its side's key
+// range [min, max], whose 8-bit bins split the side's binades finely, so
+// the atomics spread and one pass usually leaves at most 32 candidates,
+// ranked directly from a gather in shared memory. __syncwarp only: no
+// block barrier. Longer rows (the row-sharded route's shards) keep the
+// block select of the unmasked median, masked as the keys are read.
 //
 // Every entry point launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
@@ -90,16 +104,39 @@ __device__ __forceinline__ float key_float(unsigned int k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
 }
 
-__device__ __forceinline__ bool stripe(float v, float t) {
-  return __fsqrt_rn(__fmul_rn(v, v)) > t;
+// The unmasked median's short rows (n <= kShortMax) take a thread each,
+// their keys in registers; the masked median's rows of up to kWarpMax
+// values a warp each (at most 32 keys per lane, in registers), kWarpRows
+// warps per block; longer rows a block each, their keys staged in shared
+// memory up to kStageCap (44 KiB of the 48 KiB a block gets without opting
+// in), read from device memory (L2) at every pass above it.
+constexpr int kShortMax = 32;
+constexpr int kWarpMax = 1024;
+constexpr int kWarpRows = 4;
+constexpr int kStageCap = 11264;
+constexpr unsigned int kAll = 0xFFFFFFFFu;
+
+// The stripe test of a plane as one compare of the square: the largest
+// float y with __fsqrt_rn(y) <= t, so that (__fsqrt_rn(v * v) > t) ==
+// (__fmul_rn(v, v) > stripe_cut(t)) for every v (the rounded square root
+// is monotone; a NaN square compares false both ways). A negative t cuts
+// at -inf (every square but NaN is a stripe), a NaN or +inf t at +inf.
+__device__ __forceinline__ float stripe_cut(float t) {
+  if (!(t >= 0.0f)) return t < 0.0f ? -INFINITY : INFINITY;
+  if (isinf(t)) return INFINITY;
+  float y = __fmul_rn(t, t);
+  while (__fsqrt_rn(y) > t) y = nextafterf(y, -INFINITY);
+  for (float up = nextafterf(y, INFINITY); __fsqrt_rn(up) <= t;
+       up = nextafterf(y, INFINITY)) {
+    y = up;
+  }
+  return y;
 }
 
-// Short rows (n <= kShortMax) take a thread each, their keys in registers;
-// longer rows a block each, their keys staged in shared memory up to
-// kStageCap (44 KiB of the 48 KiB a block gets without opting in), read
-// from device memory (L2) at every pass above it.
-constexpr int kShortMax = 32;
-constexpr int kStageCap = 11264;
+// The key of v with the stripe mask of cut applied: a stripe reads as +0.0.
+__device__ __forceinline__ unsigned int masked_key(float v, float cut) {
+  return __fmul_rn(v, v) > cut ? 0x80000000u : sort_key(v);
+}
 
 // Key of the k-th smallest (0-based) of the n keys key_of(0..n-1). Every
 // thread of the block calls it and gets the result. Each 8-bit pass counts
@@ -189,17 +226,15 @@ __device__ float median_of(const Keys& key_of, int n, unsigned int* hist,
 }
 
 // Keys of a row of floats, read from device memory at every call, with
-// kMasked the values over t read as 0.
+// kMasked the values whose square is over cut (stripe_cut) read as 0.
 template <bool kMasked>
 struct RowKeys {
   const float* __restrict__ row;
   long long step;
-  float t;
+  float cut;
   __device__ __forceinline__ unsigned int operator()(int i) const {
-    float v = row[i * step];
-    if constexpr (kMasked) {
-      if (stripe(v, t)) v = 0.0f;
-    }
+    const float v = row[i * step];
+    if constexpr (kMasked) return masked_key(v, cut);
     return sort_key(v);
   }
 };
@@ -228,8 +263,9 @@ __device__ float row_median_of(RowKeys<kMasked> src, int n) {
   }
 }
 
-// med[b, r] = median of row r of band plane b % n_in, masked against
-// thr[b].
+// The masked median's block route (rows over kWarpMax values: the
+// row-sharded route's shards): med[b, r] = median of row r of band plane
+// b % n_in, masked against thr[b], one block per output row.
 template <bool kStaged>
 __global__ void row_median_kernel(const float* __restrict__ x,
                                   const float* __restrict__ thr,
@@ -237,8 +273,8 @@ __global__ void row_median_kernel(const float* __restrict__ x,
                                   int w) {
   const int b = blockIdx.y, r = blockIdx.x;
   const float* row = x + ((size_t)(b % n_in) * h + r) * w;
-  const float m =
-      row_median_of<kStaged>(RowKeys<true>{row, 1, thr[b]}, w);
+  const float m = row_median_of<kStaged>(
+      RowKeys<true>{row, 1, stripe_cut(thr[b])}, w);
   if (threadIdx.x == 0) med[(size_t)b * h + r] = m;
 }
 
@@ -292,32 +328,229 @@ __global__ void __launch_bounds__(256)
   med[r] = k1 == k2 ? m1 : __fmul_rn(__fadd_rn(m1, key_float(v2)), 0.5f);
 }
 
-// The stripe test of a plane as one compare of the square: the largest
-// float y with __fsqrt_rn(y) <= t, so that stripe(v, t) ==
-// (__fmul_rn(v, v) > stripe_cut(t)) for every v (the rounded square root
-// is monotone; a NaN square compares false both ways). A negative t cuts
-// at -inf (every square but NaN is a stripe), a NaN or +inf t at +inf.
-__device__ __forceinline__ float stripe_cut(float t) {
-  if (!(t >= 0.0f)) return t < 0.0f ? -INFINITY : INFINITY;
-  if (isinf(t)) return INFINITY;
-  float y = __fmul_rn(t, t);
-  while (__fsqrt_rn(y) > t) y = nextafterf(y, -INFINITY);
-  for (float up = nextafterf(y, INFINITY); __fsqrt_rn(up) <= t;
-       up = nextafterf(y, INFINITY)) {
-    y = up;
+// The key of +0.0: what a masked value reads as.
+constexpr unsigned int kZeroKey = 0x80000000u;
+
+// The k-th smallest (0-based, k < count) of the count <= 32 candidates of
+// a warp's row, the valid keys in [lo, lo + width] (key_of(j): the key of
+// the lane's slot j, element j * 32 + lane, valid below n): gathered into
+// hist[0..count) in lane order, each ranked against the others (ties
+// broken by position, so the ranks are a permutation), the one of rank k
+// broadcast to every lane.
+template <int KPL, class Keys>
+__device__ __forceinline__ unsigned int warp_rank(
+    const Keys& key_of, int n, unsigned int lo, unsigned int width,
+    unsigned int k, unsigned int count, unsigned int* hist, int lane) {
+  unsigned int take = 0u;  // bit j: slot j is a candidate
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    take |= j * 32 + lane < n && key_of(j) - lo <= width ? 1u << j : 0u;
   }
-  return y;
+  const unsigned int mine = __popc(take);
+  unsigned int pos = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned int up = __shfl_up_sync(kAll, pos, o);
+    if (lane >= o) pos += up;
+  }
+  pos -= mine;
+  __syncwarp();  // every lane is done with hist
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    if (take & (1u << j)) hist[pos++] = key_of(j);
+  }
+  __syncwarp();
+  unsigned int v = 0u;
+  bool hit = false;
+  if (lane < static_cast<int>(count)) {
+    v = hist[lane];
+    unsigned int below = 0u;
+    for (int i = 0; i < static_cast<int>(count); ++i) {
+      const unsigned int o = hist[i];
+      below += (o < v || (o == v && i < lane)) ? 1u : 0u;
+    }
+    hit = below == k;
+  }
+  return __shfl_sync(kAll, v, __ffs(__ballot_sync(kAll, hit)) - 1);
 }
 
-// The notch tail's hooks into gemm_f32.cuh's tile. Inpaint, the
-// A-element transform, maps v -> stripe(v, t) ? med[row] : v, the row being
-// the thread's line of the load (fixed across K-steps); it reads the
-// medians of the thread's lines once per block, into registers where a
-// thread has two lines (8-byte loads), else into shared memory for the
-// tile's BM rows (at 4-byte loads a thread has four, and four registers
-// more spill under the tile's 128-register cap). DeltaStore, the epilogue,
-// writes stripe(x, t) ? 0 : acc - x for each output. Both test the stripe
-// as v * v > cut, cut = stripe_cut(t), the same decision as stripe(v, t).
+// The k-th smallest (0-based) of the count candidates of a warp's row, the
+// valid keys in [lo, lo + width] (see warp_rank), in the warp's own 256-bin
+// histogram `hist` (16-byte aligned). While more than 32 candidates span
+// more than one key, a pass counts them by the 8 bits of (key - lo) below
+// the width's top bit with shared atomics (the range is one sign's, so the
+// bins split its binades finely instead of crowding into the few of a top
+// byte), and the warp finds the bin of rank k by an inclusive scan of its
+// lanes' 8 bins each (shuffles) and a ballot; the range shrinks to that bin
+// (by 8 bits or more a pass). 32 candidates or fewer are ranked directly.
+// __syncwarp only: no block barrier.
+template <int KPL, class Keys>
+__device__ __forceinline__ unsigned int warp_select(
+    const Keys& key_of, int n, unsigned int lo, unsigned int width,
+    unsigned int k, unsigned int count, unsigned int* hist, int lane) {
+  uint4* h4 = reinterpret_cast<uint4*>(hist);
+#pragma unroll 1
+  while (count > 32u && width != 0u) {
+    const int s = max(0, 24 - __clz(width));  // (width >> s) < 256
+    __syncwarp();  // every lane is done with hist
+    h4[lane] = make_uint4(0u, 0u, 0u, 0u);
+    h4[lane + 32] = make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const unsigned int off = key_of(j) - lo;
+      if (j * 32 + lane < n && off <= width) {
+        atomicAdd(hist + (off >> s), 1u);
+      }
+    }
+    __syncwarp();
+    const uint4 a = h4[2 * lane], b = h4[2 * lane + 1];
+    const unsigned int bins[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    unsigned int sum = 0u;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sum += bins[i];
+    unsigned int inc = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned int up = __shfl_up_sync(kAll, inc, o);
+      if (lane >= o) inc += up;
+    }
+    unsigned int c = inc - sum;
+    // the one lane whose bins hold rank k finds its bin
+    const bool here = c <= k && k < inc;
+    unsigned int digit = 0u, rest = 0u, cnt = 0u;
+    bool found = false;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (here && !found && k < c + bins[i]) {
+        found = true;
+        digit = lane * 8 + i;
+        rest = k - c;
+        cnt = bins[i];
+      }
+      c += bins[i];
+    }
+    const int src = __ffs(__ballot_sync(kAll, here)) - 1;
+    const unsigned int start = __shfl_sync(kAll, digit, src) << s;
+    lo += start;
+    width = min(width - start, (1u << s) - 1u);
+    k = __shfl_sync(kAll, rest, src);
+    count = __shfl_sync(kAll, cnt, src);
+  }
+  if (width == 0u) return lo;
+  return warp_rank<KPL>(key_of, n, lo, width, k, count, hist, lane);
+}
+
+// The median of a warp's row of n keys (key_of(j): slot j's key, element
+// j * 32 + lane, kAll past n), in every lane. One pass over the keys counts
+// those below +0.0's key and equal to it (the masked values) and finds the
+// extremes of either side; a rank among the +0.0 keys is +0.0 itself, which
+// settles most masked rows (the zeros sit at the middle of the row's
+// order), and any other rank is selected by warp_select within its side's
+// key range. An even row averages the (n - 1) / 2-th and n / 2-th keys as
+// (v1 + v2) * 0.5 in f32; v2 is found as median_of finds it where the
+// counts do not give it.
+template <int KPL, class Keys>
+__device__ __forceinline__ float warp_median(const Keys& key_of, int n,
+                                             unsigned int* hist, int lane) {
+  unsigned int below = 0u, zeros = 0u, gmin = kAll, gmax = 0u, negmax = 0u,
+               posmin = kAll;
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    const unsigned int v = key_of(j);  // kAll past n: above every side
+    below += v < kZeroKey ? 1u : 0u;
+    zeros += v == kZeroKey ? 1u : 0u;
+    gmin = min(gmin, v);
+    if (j * 32 + lane < n) gmax = max(gmax, v);
+    if (v < kZeroKey) negmax = max(negmax, v);
+    if (v > kZeroKey) posmin = min(posmin, v);
+  }
+  below = __reduce_add_sync(kAll, below);
+  zeros = __reduce_add_sync(kAll, zeros);
+  gmin = __reduce_min_sync(kAll, gmin);
+  gmax = __reduce_max_sync(kAll, gmax);
+  negmax = __reduce_max_sync(kAll, negmax);
+  posmin = __reduce_min_sync(kAll, posmin);
+  const unsigned int top = below + zeros;  // ranks below top: <= +0.0
+  const unsigned int k1 = (n - 1) / 2, k2 = n / 2;
+  unsigned int v1 = kZeroKey;
+  if (k1 < below || k1 >= top) {  // one side's range: one select inlined
+    const bool neg = k1 < below;
+    v1 = warp_select<KPL>(key_of, n, neg ? gmin : posmin,
+                          neg ? negmax - gmin : gmax - posmin,
+                          neg ? k1 : k1 - top,
+                          neg ? below : static_cast<unsigned int>(n) - top,
+                          hist, lane);
+  }
+  const float m1 = key_float(v1);
+  if (k2 == k1) return m1;
+  unsigned int v2;
+  if (k2 >= below && k2 < top) {
+    v2 = kZeroKey;
+  } else if (k2 == top) {
+    v2 = posmin;
+  } else {
+    unsigned int le = 0u, above = kAll;
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const unsigned int v = key_of(j);
+      le += v <= v1 ? 1u : 0u;  // a pad only when v1 is the largest key
+      if (v > v1) above = min(above, v);
+    }
+    le = __reduce_add_sync(kAll, le);
+    above = __reduce_min_sync(kAll, above);
+    v2 = le > k2 ? v1 : above;
+  }
+  return __fmul_rn(__fadd_rn(m1, key_float(v2)), 0.5f);
+}
+
+// The masked median's warp route (n <= KPL * 32 <= kWarpMax): one warp per
+// output row, kWarpRows warps per block; warp w takes band row w / k_out
+// of the (n_in * h, n) band and its output o = w % k_out, plane b = row / h
+// + o * n_in, so the k_out warps of one band row are neighbours and the
+// dual form's second read of a row hits L2 (a warp that read the row once
+// for both outputs held more registers and lost). Lane l loads elements
+// j * 32 + l (coalesced), makes their keys under the mask of thr[b] once,
+// and warp_median writes the median. The warp's rows are not chunked:
+// warps that prefetched their next row, in registers or in shared memory,
+// held more registers, fitted fewer warps on an SM and lost.
+template <int KPL>
+__global__ void __launch_bounds__(kWarpRows * 32)
+    row_median_masked_warp_kernel(const float* __restrict__ x,
+                                  const float* __restrict__ thr,
+                                  float* __restrict__ med, int n_in, int h,
+                                  int n, int k_out) {
+  __shared__ __align__(16) unsigned int hist[kWarpRows][256];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long w = (long long)blockIdx.x * kWarpRows + warp;
+  const long long r = w / k_out;
+  if (r >= (long long)n_in * h) return;  // the whole warp
+  const int o = static_cast<int>(w - r * k_out);
+  const int bi = static_cast<int>(r / h);
+  const int b = bi + o * n_in;
+  const float* row = x + r * n;
+  const float cut = stripe_cut(thr[b]);
+  unsigned int key[KPL];
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    key[j] = j * 32 + lane < n ? masked_key(__ldg(row + j * 32 + lane), cut)
+                               : kAll;
+  }
+  const float m = warp_median<KPL>([&](int j) { return key[j]; }, n,
+                                   hist[warp], lane);
+  if (lane == 0) med[(size_t)b * h + (r - (long long)bi * h)] = m;
+}
+
+// The notch tail's hooks into gemm_f32.cuh's tile; a stripe is a value v
+// with sqrt(v * v) > t. Inpaint, the A-element transform, maps v ->
+// stripe ? med[row] : v, the row being the thread's line of the load (fixed
+// across K-steps); it reads the medians of the thread's lines once per
+// block, into registers where a thread has two lines (8-byte loads), else
+// into shared memory for the tile's BM rows (at 4-byte loads a thread has
+// four, and four registers more spill under the tile's 128-register cap).
+// DeltaStore, the epilogue, writes stripe ? 0 : acc - x for each output.
+// Both test the stripe as v * v > cut, cut = stripe_cut(t), the same
+// decision as the rounded square root's.
 template <int BM, class Loader>
 struct Inpaint {
   static constexpr bool kInRegisters = Loader::kLoads <= 2;
@@ -419,21 +652,60 @@ __global__ void __launch_bounds__(
 extern "C" {
 
 // x (n_in, h, w) f32, thr (n_out,) f32 -> med (n_out, h) f32, the median of
-// each row of plane b % n_in with the values over thr[b] read as 0; n_out a
-// multiple of n_in. threads a multiple of 32; staged: the rows' keys in
-// shared memory (w <= kStageCap).
+// each row of plane b % n_in with the values whose square is over
+// stripe_cut(thr[b]) read as +0.0; n_out a multiple of n_in, w >= 1. route
+// 3: a warp per output row, `param` keys per lane (1, 2, 4, ..., 32; w <=
+// param * 32), kWarpRows warps per block, a band row's outputs on
+// neighbouring warps; 1: a block of `param` threads (a multiple of 32) per
+// output row, its keys staged in shared memory (w <= kStageCap); 2: the
+// same, read from device memory at every pass.
 int destripe_row_median(const float* x, const float* thr, float* med,
-                        int n_out, int n_in, int h, int w, int threads,
-                        int staged, void* stream) {
+                        int n_out, int n_in, int h, int w, int route,
+                        int param, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(h, n_out);
-  if (staged) {
-    if (w > kStageCap) return static_cast<int>(cudaErrorInvalidValue);
-    row_median_kernel<true><<<grid, threads, w * sizeof(unsigned int), s>>>(
-        x, thr, med, n_in, h, w);
-  } else {
-    row_median_kernel<false><<<grid, threads, 0, s>>>(x, thr, med, n_in, h,
+  if (w < 1 || n_in < 1 || h < 1 || n_out % n_in) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int k_out = n_out / n_in;
+  if (route == 3) {
+    const long long blocks =
+        ((long long)n_out * h + kWarpRows - 1) / kWarpRows;
+    if (w > param * 32 || w > kWarpMax || blocks > 0x7FFFFFFFll) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const unsigned int grid = static_cast<unsigned int>(blocks);
+    const int threads = kWarpRows * 32;
+#define DESTRIPE_WARP_MEDIAN(KPL)                                          \
+  case KPL:                                                                \
+    row_median_masked_warp_kernel<KPL>                                     \
+        <<<grid, threads, 0, s>>>(x, thr, med, n_in, h, w, k_out);         \
+    break;
+    switch (param) {
+      DESTRIPE_WARP_MEDIAN(1)
+      DESTRIPE_WARP_MEDIAN(2)
+      DESTRIPE_WARP_MEDIAN(4)
+      DESTRIPE_WARP_MEDIAN(8)
+      DESTRIPE_WARP_MEDIAN(16)
+      DESTRIPE_WARP_MEDIAN(32)
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef DESTRIPE_WARP_MEDIAN
+  } else if (route == 1 || route == 2) {
+    if (n_out > 65535 || (route == 1 && w > kStageCap) || param % 32 ||
+        param < 32 || param > 1024) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const dim3 grid(h, n_out);
+    if (route == 1) {
+      row_median_kernel<true><<<grid, param, w * sizeof(unsigned int), s>>>(
+          x, thr, med, n_in, h, w);
+    } else {
+      row_median_kernel<false><<<grid, param, 0, s>>>(x, thr, med, n_in, h,
                                                       w);
+    }
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

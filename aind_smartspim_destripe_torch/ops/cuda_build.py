@@ -68,7 +68,7 @@ _SIGNATURES = {
     + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "destripe_hist": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
     + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "destripe_row_median": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
     "destripe_row_median_batch": [ctypes.c_void_p] * 2

@@ -12,6 +12,7 @@ kernel or raises. It counts its kernel launches in
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -20,15 +21,39 @@ from .cuda_build import check, launch, on_cuda
 
 __all__ = [
     "bin_index",
+    "hist_blocks",
     "histogram256_batch",
     "histogram256_batch_plain",
     "KERNELS",
 ]
 
-_THREADS = 256
-_ELEMS_PER_THREAD = 16  # a block covers at least this many values per thread
-_MAX_BLOCKS = 64  # blocks per plane
-_MAX_BINS = 1024  # shared memory holds one copy of the bins per warp
+_THREADS = 256  # threads per block (csrc/hist.cu kThreads)
+_PER_THREAD = 256  # values a thread counts, where the grid allows
+_BLOCKS_PER_SM = 8  # the grid's least fill: blocks of all planes per SM
+_MIN_PER_THREAD = 32  # no more blocks than give a thread this many values
+_MAX_BINS = 256  # the kernel's striped copies hold 256 bins
+_MAX_PLANES = 65535  # grid.y
+
+
+def hist_blocks(B: int, n_valid: int, sms: int) -> int:
+    """Blocks per plane of the histogram's launch for B planes of
+    ``n_valid`` values each on a card of ``sms`` SMs: about
+    ``_PER_THREAD`` values per thread, and at least enough for the B
+    planes to put ``_BLOCKS_PER_SM`` blocks on every SM (a single plane of
+    a row shard fills the card) while a thread keeps ``_MIN_PER_THREAD``
+    values; at least 1."""
+    if B < 1 or sms < 1 or n_valid < 0:
+        raise ValueError(f"hist_blocks needs B >= 1, sms >= 1 and n_valid >= "
+                         f"0, got {B}, {sms}, {n_valid}")
+    need = -(-n_valid // (_THREADS * _PER_THREAD))
+    fill = -(-sms * _BLOCKS_PER_SM // B)
+    work = -(-n_valid // (_THREADS * _MIN_PER_THREAD))
+    return max(1, need, min(fill, work))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def bin_index(x, lo, span, nbins):
@@ -90,6 +115,9 @@ def histogram256_batch(
     dev = x.device
     if not 0 < nbins <= _MAX_BINS:
         raise ValueError(f"nbins {nbins} outside 1..{_MAX_BINS}")
+    if B > _MAX_PLANES:
+        raise ValueError(f"{B} planes exceed the kernel's grid "
+                         f"({_MAX_PLANES})")
     check("x", x, (torch.float32, torch.uint16), dev)
     check("lo", lo, (torch.float32,), dev, (B,))
     check("span", span, (torch.float32,), dev, (B,))
@@ -97,12 +125,13 @@ def histogram256_batch(
     row_len = n if row_bound is None else n // max(x.shape[1], 1)
     n_valid = rows * row_len
     counts = torch.zeros((B, nbins), dtype=torch.int32, device=dev)
-    blocks = max(1, min(_MAX_BLOCKS,
-                        -(-n_valid // (_THREADS * _ELEMS_PER_THREAD))))
+    if B == 0 or n_valid == 0:
+        return counts
+    blocks = hist_blocks(B, n_valid, _sm_count(dev.index))
     launch(
         "destripe_hist", dev, x.data_ptr(), int(x.dtype == torch.uint16),
         lo.data_ptr(), span.data_ptr(), counts.data_ptr(), B, n, rows,
-        row_len, nbins, int(square), _THREADS, blocks,
+        row_len, nbins, int(square), blocks,
     )
     histogram256_batch.launches += 1
     return counts

@@ -40,6 +40,7 @@ from .cuda_dense import _GRID_MAX, copy_width
 __all__ = [
     "row_median",
     "median_route",
+    "masked_median_route",
     "row_median_batch",
     "row_median_masked",
     "notch_delta",
@@ -55,14 +56,18 @@ __all__ = [
 ]
 
 _SHORT_THREADS = 256  # rows per block of the short route
-# The unmasked median's routes (csrc/notch.cu): rows of up to _SHORT_MAX
-# values take a thread each (keys in registers), rows of up to _STAGE_CAP a
-# block each with their keys staged in shared memory, longer rows a block
-# each read from device memory at every pass. The masked median stages its
-# rows up to _STAGE_CAP too.
-SHORT, STAGED, L2 = 0, 1, 2
+# The medians' routes (csrc/notch.cu): the unmasked median's rows of up to
+# _SHORT_MAX values take a thread each (keys in registers), the masked
+# median's rows of up to _WARP_MAX a warp each (at most 32 keys per lane in
+# registers, _WARP_ROWS warps per block); longer rows a block each with their
+# keys staged in shared memory up to _STAGE_CAP, read from device memory at
+# every pass above it.
+SHORT, STAGED, L2, WARP = 0, 1, 2, 3
 _SHORT_MAX = 32
+_WARP_MAX = 1024
+_WARP_ROWS = 4
 _STAGE_CAP = 11264
+_INT_MAX = 2**31 - 1
 _SELECT_TILE = 128  # notch_select's output tile edge (csrc/notch.cu)
 _NOTCH_TILE_ROWS = 64  # the notch tail's tile: 64 x 128 (csrc/notch.cu)
 
@@ -170,13 +175,41 @@ def row_median_masked_plain(x, thr):
     return row_median(x * (1.0 - _stripe_mask(x, thr)))
 
 
+def masked_median_route(w: int):
+    """``(route, param)`` of ``row_median_masked``'s launch for rows of w
+    values: WARP (a warp per output row, ``param`` keys per lane, the least
+    power of two that holds the row) up to 1024 values; above, STAGED up to
+    11264 values and L2 beyond (a block of ``param`` threads per output
+    row, as :func:`_median_threads` gives it). Raises ValueError for
+    w < 1."""
+    if w < 1:
+        raise ValueError(f"row_median_masked needs rows of w >= 1, got {w}")
+    if w <= _WARP_MAX:
+        return WARP, 1 << (-(-w // 32) - 1).bit_length()
+    return (STAGED if w <= _STAGE_CAP else L2), _median_threads(w)
+
+
+def _check_masked_grid(route, n_out, h):
+    """Raise ValueError where a route's grid cannot hold the rows: WARP puts
+    the n_out * h output rows on grid.x (_WARP_ROWS per block), the block
+    routes h rows on grid.x and n_out planes on grid.y (at most 65535)."""
+    if (h > _INT_MAX or n_out > _INT_MAX
+            or (route == WARP and -(-n_out * h // _WARP_ROWS) > _INT_MAX)
+            or (route != WARP and n_out > _GRID_MAX)):
+        raise ValueError(f"{n_out} output planes of {h} rows exceed the "
+                         f"kernel's grid")
+
+
 def row_median_masked(
     x: torch.Tensor,  # (B, h, w) float32
     thr: torch.Tensor,  # (kB,) float32 per-output-plane stripe threshold
 ) -> torch.Tensor:
     """Per-row median (kB, h, 1) of ``where(sqrt(x*x) > thr[b], 0, x)``
     over band plane ``b mod B``: the inpainting background median, with the
-    mask applied as the row is read."""
+    mask applied as the row is read. On the card the route follows the row
+    length (:func:`masked_median_route`); the warp route puts a band row's
+    k outputs on neighbouring warps, so the row comes from device memory
+    once."""
     if not on_cuda(x):
         return row_median_masked_plain(x, thr)
     B, h, w = x.shape
@@ -184,11 +217,13 @@ def row_median_masked(
     dev = x.device
     check("x", x, (torch.float32,), dev)
     check("thr", thr, (torch.float32,), dev, (n_out,))
+    route, param = masked_median_route(w)
+    _check_masked_grid(route, n_out, h)
     med = torch.empty((n_out, h, 1), dtype=torch.float32, device=dev)
-    launch("destripe_row_median", dev, x.data_ptr(), thr.data_ptr(),
-           med.data_ptr(), n_out, B, h, w, _median_threads(w),
-           int(w <= _STAGE_CAP))
-    row_median_masked.launches += 1
+    if med.numel():
+        launch("destripe_row_median", dev, x.data_ptr(), thr.data_ptr(),
+               med.data_ptr(), n_out, B, h, w, route, param)
+        row_median_masked.launches += 1
     return med
 
 

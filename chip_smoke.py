@@ -28,7 +28,9 @@ Phases, each printing its lines:
    production caps per half): max error against the stated tolerance, the
    kernel's, the twin's and (where one PyTorch call computes the same
    function) that call's time (CUDA events), and the bound from the bytes
-   and operations of the call; K2's, K3's and K4's lines (``an_y_pass``,
+   and operations of the call; the histogram's and the masked median's
+   times and bounds summed over the 8 levels of a step (the median's also
+   over the dual step's); K2's, K3's and K4's lines (``an_y_pass``,
    ``syn_y_pass``, ``syn_x_exp``, and ``syn_x_exp_chunked`` in step 6)
    also hold the kernel bit for bit against its k-order witness
    (``cuda_band.an_y_pass_ordered``, ``syn_y_pass_ordered``,
@@ -82,12 +84,14 @@ Phases, each printing its lines:
    kernel calls against their twins at the route's level-0 and level-1
    shard shapes of a 16384 x 18000 plane (K1 and K4 on row shards, the
    per-plane notch product with each operator choice, the histogram with a
-   row bound); ``[slice-halo]``
+   row bound, the masked median of the shard); ``[slice-halo]``
    ``run_capsule.run`` on a tile of 4 x 16384 x 18000 uint16 planes with
    flats and dark, on the mesh, through the row-sharded route (the plane
    alone passes ``DESTRIPE_HALO_THRESHOLD_BYTES``); ``[step-halo]`` /
-   ``[step-dual-halo]`` the row-sharded step alone on one resident plane,
-   and ``[check-halo]`` / ``[check-dual-halo]`` its output against the
+   ``[step-dual-halo]`` the row-sharded step alone on one resident plane
+   and the sha256 of its output (``scripts/step_hash.py`` computes the
+   single-band one for another commit's package), and ``[check-halo]`` /
+   ``[check-dual-halo]`` its output against the
    single-device plane path on the card, within 1 LSB outside the flip
    budget at PSNR >= 100 dB; ``[check-banded]`` the same plane through
    the row-sharded step with the dense-x gate forced to 64 columns (the
@@ -363,6 +367,19 @@ def _compare(rec, name, lvl, kern, plain, scale=None, ins=(), ops=0.0,
                           bound_by=bound_by, shape=list(got.shape), **more)
     if same is not None:
         rec[name][lvl]["bit_equal_witness"] = same
+
+
+def _per_step(recs, name, what):
+    """One kernel's kernel, twin and bound times summed over the levels of
+    a step (its records at integer levels), printed and returned."""
+    levels = sorted(k for k in recs if isinstance(k, int))
+    tot = {k: sum(recs[lvl][k] for lvl in levels)
+           for k in ("ms", "plain_ms", "bound_ms")}
+    tot["levels"] = len(levels)
+    print(f"[kernels] {name} per {what} step ({len(levels)} levels): kernel "
+          f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound "
+          f"{tot['bound_ms']:.3f} ms")
+    return tot
 
 
 def _tail_calls(ch, notch_cat, thr_cap, dual=False):
@@ -931,8 +948,8 @@ def phase_halo_kernels(hplan, dense, dev, seed, n_dev):
     level-0 and level-1 shard shapes (one plane): K1 and K4 from the band
     form alone (u16 with log1p at level 0, f32 at level 1; K4 with the
     flat-field epilogue at level 0, bare at level 1), the per-plane notch
-    product on the cH band shard, and the histogram of that shard with the
-    row bound the route gives it."""
+    product on the cH band shard, the histogram of that shard with the
+    row bound the route gives it, and the masked median of the shard."""
     import numpy as np
     import torch
 
@@ -940,6 +957,7 @@ def phase_halo_kernels(hplan, dense, dev, seed, n_dev):
     from aind_smartspim_destripe_torch.ops import cuda_hist as th
     from aind_smartspim_destripe_torch.ops import cuda_notch as tn
     from aind_smartspim_destripe_torch.ops.cuda_build import launch
+    from aind_smartspim_destripe_torch.ops.otsu import threshold_otsu_batch
     from aind_smartspim_destripe_torch.parallel.halo import _plan_x_blocks
 
     g = torch.Generator(device=dev).manual_seed(seed + 11)
@@ -1056,7 +1074,16 @@ def phase_halo_kernels(hplan, dense, dev, seed, n_dev):
                                                     row_bound=bound),
                 ins=(ch[:, :bound], lo, span), ops=5.0 * bound * w_b)
         rec["histogram256_batch"][lvl]["row_bound"] = [bound, rows_b]
-        del ch, bank
+        # the masked median of the whole shard (the route's call), under
+        # the shard's Otsu threshold capped by the cells configuration's
+        thr = torch.minimum(
+            torch.full((1,), float(hplan.cells.max_threshold), device=dev),
+            torch.sqrt(threshold_otsu_batch(ch[:, :bound], square=True)))
+        compare(rec, "row_median_masked", lvl,
+                lambda: tn.row_median_masked(ch, thr),
+                lambda: tn.row_median_masked_plain(ch, thr),
+                ins=(ch, thr), ops=4.0 * ch.numel())
+        del ch, bank, thr
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return rec
@@ -1064,7 +1091,18 @@ def phase_halo_kernels(hplan, dense, dev, seed, n_dev):
 
 def halo_capsule(work, dev, seed):
     """A synthetic capsule of one tile of HALO_SHAPE uint16 planes with
-    flats and dark (every other plane bright, as the cells branch)."""
+    flats and dark (:func:`halo_tile`)."""
+    vol, flats, dark = halo_tile(dev, seed)
+    t0 = time.perf_counter()
+    data, results, tile = build_capsule(work, vol, flats, dark)
+    print(f"[capsule] synthetic tile {HALO_SHAPE} uint16 written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return vol, flats[0], dark, data, results, tile
+
+
+def halo_tile(dev, seed):
+    """HALO_SHAPE uint16 planes (every other plane bright, as the cells
+    branch), the two sides' flats and the dark, made from the seed."""
     import numpy as np
     import torch
 
@@ -1081,57 +1119,24 @@ def halo_capsule(work, dev, seed):
         np.float32) for side in (0, 1)]
     dark = (3 + (np.arange(W) % 3)[None, :] * np.ones((H, 1))).astype(
         np.uint16)
-    t0 = time.perf_counter()
-    data, results, tile = build_capsule(work, vol, flats, dark)
-    print(f"[capsule] synthetic tile {HALO_SHAPE} uint16 written in "
-          f"{time.perf_counter() - t0:.1f} s")
-    return vol, flats[0], dark, data, results, tile
+    return vol, flats, dark
 
 
 def step_check_halo(tag, plan, vol, flat, dark, dev, mesh, dual=False):
     """The row-sharded step alone on one resident plane (host clock around
-    synchronised calls, peak device memory), then its output against the
-    single-device plane path on the card: within 1 LSB outside the flip
-    budget, PSNR >= 100 dB."""
+    synchronised calls, peak device memory; the sha256 of its output, which
+    scripts/step_hash.py computes for another commit's package), then its
+    output against the single-device plane path on the card: within 1 LSB
+    outside the flip budget, PSNR >= 100 dB. Returns the output and its
+    sha256."""
     import numpy as np
-    import torch
 
-    from aind_smartspim_destripe_torch.runtime.pipeline import (
-        make_device_step,
-    )
-
-    _, H, W = HALO_SHAPE
-    outs = []
-    for devices in (mesh, [dev]):
-        step = make_device_step(plan, 2500.0, True, devices=devices,
-                                dual=dual, crossover=CROSSOVER)
-        if getattr(step, "shards_rows", False) != (len(devices) > 1):
-            raise AssertionError(f"{tag}: the wrong route was selected")
-        args = (step.put(vol[:1]), step.put_const(flat),
-                step.put_const(dark.astype(np.float32)))
-        res = step(*args)
-        _sync(devices)
-        if len(devices) > 1:
-            del res
-            torch.cuda.empty_cache()
-            for d in dict.fromkeys(devices):
-                torch.cuda.reset_peak_memory_stats(d)
-            reps = 3
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                res = step(*args)
-            _sync(devices)
-            ms = (time.perf_counter() - t0) * 1e3 / reps
-            peak = max(torch.cuda.max_memory_allocated(d)
-                       for d in dict.fromkeys(devices))
-            mode = "dual-band blend, " if dual else ""
-            print(f"[step-{tag}] row-sharded step (1, {H}, {W}) uint16 -> "
-                  f"uint16 on {len(devices)} entries, {mode}flat-field "
-                  f"epilogue: {ms:.1f} ms per plane = {H * W / 1e3 / ms:.1f} "
-                  f"MPix/s; peak device memory {peak / 2**30:.2f} GiB")
-        outs.append(step.to_host(res))
-        del step, args, res
-        torch.cuda.empty_cache()
+    outs = [halo_step(tag, plan, vol, flat, dark, mesh, dual),
+            halo_step(tag, plan, vol, flat, dark, [dev], dual)]
+    digest = hashlib.sha256(np.ascontiguousarray(outs[0]).tobytes()
+                            ).hexdigest()
+    print(f"[step-{tag}] sha256 of the row-sharded step's output on plane 0 "
+          f"of the halo tile: {digest}")
     d = np.abs(outs[0].astype(np.int64) - outs[1].astype(np.int64))
     flips = int((d > 1).sum())
     mse = float((d.astype(np.float64) ** 2).mean())
@@ -1142,7 +1147,51 @@ def step_check_halo(tag, plan, vol, flat, dark, dev, mesh, dual=False):
           f"(min {PSNR_MIN})")
     if flips > FLIP_BUDGET * d.size or psnr < PSNR_MIN:
         raise AssertionError(f"check-{tag}: the row-sharded step disagrees")
-    return outs[0]
+    return outs[0], digest
+
+
+def halo_step(tag, plan, vol, flat, dark, devices, dual=False):
+    """Plane 0 of ``vol`` through the step made for ``devices`` (the
+    row-sharded route on a mesh, timed over 3 calls; the plane path on one
+    device); its output on the host."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch.runtime.pipeline import (
+        make_device_step,
+    )
+
+    _, H, W = HALO_SHAPE
+    step = make_device_step(plan, 2500.0, True, devices=devices, dual=dual,
+                            crossover=CROSSOVER)
+    if getattr(step, "shards_rows", False) != (len(devices) > 1):
+        raise AssertionError(f"{tag}: the wrong route was selected")
+    args = (step.put(vol[:1]), step.put_const(flat),
+            step.put_const(dark.astype(np.float32)))
+    res = step(*args)
+    _sync(devices)
+    if len(devices) > 1:
+        del res
+        torch.cuda.empty_cache()
+        for d in dict.fromkeys(devices):
+            torch.cuda.reset_peak_memory_stats(d)
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            res = step(*args)
+        _sync(devices)
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        peak = max(torch.cuda.max_memory_allocated(d)
+                   for d in dict.fromkeys(devices))
+        mode = "dual-band blend, " if dual else ""
+        print(f"[step-{tag}] row-sharded step (1, {H}, {W}) uint16 -> "
+              f"uint16 on {len(devices)} entries, {mode}flat-field "
+              f"epilogue: {ms:.1f} ms per plane = {H * W / 1e3 / ms:.1f} "
+              f"MPix/s; peak device memory {peak / 2**30:.2f} GiB")
+    out = step.to_host(res)
+    del step, args, res
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_banded(plan, vol, flat, dark, mesh, ref):
@@ -1370,6 +1419,7 @@ def main(argv=None):
     for part in cuda_build.kernel_library.build_log.split(
             "Compiling entry function")[1:]:
         fn = re.search(r"(k[1-4]|hist|row_median_batch|row_median_short|"
+                       r"row_median_masked_warp|"
                        r"row_median|notch_delta|notch_select|blend|"
                        r"dense_matmul)_kernel(I(.*?)EE)?", part)
         n = re.search(r"Used (\d+) registers", part)
@@ -1409,12 +1459,14 @@ def main(argv=None):
             f"{sorted(expect - gemm.keys())}: their spills are unchecked")
     if any(v["spill"] for v in gemm.values()):
         raise AssertionError("a GEMM tile instance spills registers")
-    # the redesigned K2, K3, K4 and medians: every instance reported, none
-    # spilling (K2/K3: vector width, K (0: at run time), correction half)
+    # the redesigned K2, K3, K4, medians and histogram: every instance
+    # reported, none spilling (K2/K3: vector width, K (0: at run time),
+    # correction half; the masked median's warp route: keys per lane, one
+    # output per band row; the histogram: image type, squared)
     rows = {k: v for k, v in ptxas.items()
-            if k.startswith(("k2<", "k3<", "k4<", "row_median"))}
-    print("[build] K2, K3, K4 and row-median instances, registers / shared "
-          "memory bytes / spilled bytes: "
+            if k.startswith(("k2<", "k3<", "k4<", "row_median", "hist<"))}
+    print("[build] K2, K3, K4, row-median and histogram instances, "
+          "registers / shared memory bytes / spilled bytes: "
           + " ".join(f"{k}={v['registers']}/{v['smem']}/{v['spill']}"
                      for k, v in rows.items()))
     expect = {f"k2<{v},{k}>" for v in (1, 2, 4) for k in (0, 6)}
@@ -1424,13 +1476,15 @@ def main(argv=None):
     expect |= {f"row_median<{b}>" for b in (0, 1)}
     expect |= {f"row_median_batch<{b}>" for b in (0, 1)}
     expect |= {"row_median_short"}
+    expect |= {f"row_median_masked_warp<{k}>" for k in (1, 2, 4, 8, 16, 32)}
+    expect |= {f"hist<{t},{q}>" for t in ("u16", "f32") for q in (0, 1)}
     if expect - rows.keys():
         raise AssertionError(
             "the build log does not report the instances "
             f"{sorted(expect - rows.keys())}: their spills are unchecked")
     if any(v["spill"] for v in rows.values()):
-        raise AssertionError("a K2, K3, K4 or row-median instance spills "
-                             "registers")
+        raise AssertionError("a K2, K3, K4, row-median or histogram "
+                             "instance spills registers")
 
     # -- 3. kernels vs plain twins ----------------------------------------
     cfg = run_capsule.PRODUCTION_PARAMETERS
@@ -1441,6 +1495,15 @@ def main(argv=None):
     rec = phase_kernels(plan, consts, dev, args.seed)
     torch.cuda.empty_cache()
     drec = phase_dual_kernels(plan, consts, dev, args.seed)
+    per_step = {
+        "histogram256_batch": {"per_step": _per_step(
+            rec["histogram256_batch"], "histogram256_batch", "single-band")},
+        "row_median_masked": {
+            "per_step": _per_step(rec["row_median_masked"],
+                                  "row_median_masked", "single-band"),
+            "dual_per_step": _per_step(drec["row_median_masked"],
+                                       "row_median_masked", "dual-band")},
+    }
     del consts
     torch.cuda.empty_cache()
     mrec = phase_median(dev, args.seed)
@@ -1526,10 +1589,10 @@ def main(argv=None):
         check_store(hresults, htile, HALO_SHAPE)
     finally:
         shutil.rmtree(work_halo, ignore_errors=True)
-    dense_out = step_check_halo("halo", hplan, hvol, hflat, hdark, dev,
-                                mesh)
-    step_check_halo("dual-halo", hplan, hvol, hflat, hdark, dev, mesh,
-                    dual=True)
+    dense_out, hashes["step-halo"] = step_check_halo(
+        "halo", hplan, hvol, hflat, hdark, dev, mesh)
+    hashes["step-dual-halo"] = step_check_halo(
+        "dual-halo", hplan, hvol, hflat, hdark, dev, mesh, dual=True)[1]
     check_banded(hplan, hvol, hflat, hdark, mesh, dense_out)
     del dense_out, hvol
     banded = step_banded(mesh, dev, args.seed)
@@ -1609,6 +1672,10 @@ def main(argv=None):
             entry["row_bound"] = {
                 f"level{lvl}": {k: r[k] for k in keys + ("row_bound",)}
                 for lvl, r in hrec[name].items()}
+        if name == "row_median_masked":
+            entry["halo"] = {f"level{lvl}": {k: r[k] for k in keys}
+                             for lvl, r in hrec[name].items()}
+        entry.update(per_step.get(name, {}))
         kernels.append(entry)
     print(json.dumps({"steps_sha256": hashes, "check_every": every,
                       "step_banded": banded}))

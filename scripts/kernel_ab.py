@@ -23,9 +23,19 @@ corrections of 64 planes), and on the level-0 (flat-field) and level-1
 median on BaSiC's (12, 128, 128) stack with its axis moved last (as
 ``models.basic._median0`` passes it, any copy the wrapper makes
 included), the same values contiguous, the level-0 and level-1 band
-shapes and a 4-D stack; the masked median at levels 0 and 1 and in the
-dual form. ``--only`` times the calls whose name matches REGEX alone.
-Each line names the call and its time; the last line is all of them as
+shapes and a 4-D stack; then the Otsu histogram and the masked median at
+every level of the plane step (levels 0 and 1 on the real bands of random
+uint16 planes, levels 2-7 on random bands of their shapes; histogram of
+the squared band over its range, median under the step's capped Otsu
+thresholds), the histogram of the raw uint16 planes (the dual centres),
+the median's dual form (two thresholds per plane, levels 0 and 1), and
+both on the level-0 and level-1 cH shards of a 16384 x 18000 plane on two
+devices (histogram with the route's row bound), each also summed over the
+step's 8 levels. These calls are also timed as a CUDA graph of ``--reps``
+calls (``graph``: the device's time without the host's launch time, which
+bounds the small levels' back-to-back wrapper calls). ``--only`` times
+the calls whose name matches REGEX alone. Each line names the call and
+its time; the last line is all of them as
 JSON, with the card's name and power limit.
 """
 
@@ -57,7 +67,6 @@ def main(argv=None):
         return 2
     from aind_smartspim_destripe_torch import run_capsule
     from aind_smartspim_destripe_torch.ops import cuda_band as cb
-    from aind_smartspim_destripe_torch.ops import cuda_notch as tn
     from aind_smartspim_destripe_torch.ops import filter as tf
     from aind_smartspim_destripe_torch.ops import wavelets as tw
     from aind_smartspim_destripe_torch.parallel.halo import _k4_taps_band
@@ -85,13 +94,43 @@ def main(argv=None):
         torch.cuda.synchronize()
         return a.elapsed_time(b) / args.reps
 
+    def graph_ms(fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(args.reps):
+                fn()
+        graph.replay()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        del graph
+        return a.elapsed_time(b) / args.reps
+
     out = {}
 
     def record(key, fn):
         if not re.search(args.only, key):
-            return
+            return None
         out[key] = time_ms(fn)
         print(f"[kernel-ab] {key}: {out[key]:.4f} ms")
+        return out[key]
+
+    def record_graph(key, fn):
+        """Time ``fn`` both ways: back to back, and as a CUDA graph."""
+        if record(key, fn) is None:
+            return None, None
+        out[f"{key} graph"] = graph_ms(fn)
+        print(f"[kernel-ab] {key} graph: {out[f'{key} graph']:.4f} ms")
+        return out[key], out[f"{key} graph"]
 
     cfg = run_capsule.PRODUCTION_PARAMETERS
     plan = tf.build_plan(1600, 2000,
@@ -189,17 +228,114 @@ def main(argv=None):
         record(f"row_median_batch {key}",
                lambda: tf._row_median(xm, pallas=True))
         del xm
-    for key, shape, k_out in (("level 0", (64, 802, 1002), 1),
-                              ("level 1", (64, 403, 503), 1),
-                              ("dual", (64, 802, 1002), 2)):
-        ch = torch.randn(shape, generator=g, device=dev) * 0.5
-        thr = torch.rand((k_out * shape[0],), generator=g,
-                         device=dev) * 0.5 + 0.5
-        record(f"row_median_masked {key}",
-               lambda: tn.row_median_masked(ch, thr))
-        del ch
+    del stack, moved, flat_stack
+    torch.cuda.empty_cache()
+    tail_calls(out, record_graph, plan, dev, g)
     print(json.dumps({"card": smi, "root": str(root), "ms": out}))
     return 0
+
+
+def tail_calls(out, record_graph, plan, dev, g):
+    """The histogram and the masked median at every level of the plane
+    step, in the dual form, on raw uint16 planes and on halo shards; sums
+    over the step's levels recorded as ``... per step``."""
+    import torch
+
+    from aind_smartspim_destripe_torch import run_capsule
+    from aind_smartspim_destripe_torch.ops import cuda_band as cb
+    from aind_smartspim_destripe_torch.ops import cuda_hist as th
+    from aind_smartspim_destripe_torch.ops import cuda_notch as tn
+    from aind_smartspim_destripe_torch.ops import filter as tf
+    from aind_smartspim_destripe_torch.ops.otsu import threshold_otsu_batch
+
+    caps = (plan.cells.max_threshold, plan.no_cells.max_threshold)
+
+    def inputs(ch, k_out=1):
+        """The step's histogram range and capped Otsu thresholds (per
+        plane alternating caps; k_out = 2: the cells caps, then the
+        no-cells ones)."""
+        B = ch.shape[0]
+        a = ch.abs()
+        lo = a.amin(dim=(1, 2)) ** 2
+        span = a.amax(dim=(1, 2)) ** 2 - lo
+        span = torch.where(span > 0, span, torch.ones_like(span))
+        otsu = torch.sqrt(threshold_otsu_batch(ch, square=True))
+        idx = torch.arange(k_out * B, device=ch.device)
+        sel = (idx >= B) if k_out == 2 else (idx % 2 == 1)
+        cap = torch.where(sel, caps[1], caps[0]).to(torch.float32)
+        return lo, span, torch.minimum(cap, otsu.repeat(k_out))
+
+    sums = {}
+
+    def add(key, times):
+        ms, gms = times
+        if ms is not None:
+            sums.setdefault(key, [0.0, 0.0])
+            sums[key][0] += ms
+            sums[key][1] += gms
+
+    B, H, W = 64, 1600, 2000
+    n = plan.n_levels
+    consts = tf.constants_from_numpy(plan.constants(), dev)
+    x = torch.randint(0, 4000, (B, H, W), generator=g, device=dev,
+                      dtype=torch.int32).to(torch.uint16)
+    xi = x.to(torch.int32)
+    lo16 = xi.amin(dim=(1, 2)).to(torch.float32)
+    span16 = xi.amax(dim=(1, 2)).to(torch.float32) - lo16
+    del xi
+    record_graph("histogram256_batch raw uint16",
+                 lambda: th.histogram256_batch(x, lo16, span16))
+    src = x
+    for lvl in range(n):
+        if lvl < 2:  # the real bands of the banded levels
+            bd = consts[f"band{lvl}"]
+            k1 = cb.an_x_lowpass_log1p(src, consts["an_x_lo"][lvl],
+                                       bd["k1_start"], bd["k1_coef"],
+                                       log1p=lvl == 0)
+            src, ch, _ = cb.an_y_pass(k1, consts["an_y"][lvl],
+                                      bd["k2_start"], bd["k2_lo"],
+                                      bd["k2_hi"])
+            del k1
+        else:
+            h, w = plan.ladder[n - 1 - lvl]
+            ch = torch.randn((B, h, w), generator=g, device=dev) * 0.5
+        lo, span, thr = inputs(ch)
+        add("histogram256_batch", record_graph(
+            f"histogram256_batch level {lvl}",
+            lambda: th.histogram256_batch(ch, lo, span, square=True)))
+        add("row_median_masked", record_graph(
+            f"row_median_masked level {lvl}",
+            lambda: tn.row_median_masked(ch, thr)))
+        _, _, thr2 = inputs(ch, 2)
+        add("row_median_masked dual", record_graph(
+            f"row_median_masked dual level {lvl}",
+            lambda: tn.row_median_masked(ch, thr2)))
+        del ch
+    for key, (ms, gms) in sums.items():
+        out[f"{key} per step"], out[f"{key} per step graph"] = ms, gms
+        print(f"[kernel-ab] {key} per step (sum over {n} levels): "
+              f"{ms:.4f} ms, graph {gms:.4f} ms")
+    del x, src, consts
+    torch.cuda.empty_cache()
+
+    # the level-0 and level-1 cH shards of a 16384 x 18000 plane on two
+    # devices: the largest shard's rows, the fewest valid ones as its bound
+    cfg = run_capsule.PRODUCTION_PARAMETERS
+    hplan = tf.build_plan(16384, 18000,
+                          tf.FilterConfig.from_dict(cfg["cells_config"]),
+                          tf.FilterConfig.from_dict(cfg["no_cells_config"]))
+    for lvl in (0, 1):
+        h_b, w_b = hplan.ladder[hplan.n_levels - 1 - lvl]
+        rows, bound = -(-h_b // 2), h_b // 2
+        ch = torch.randn((1, rows, w_b), generator=g, device=dev) * 0.5
+        lo, span, thr = inputs(ch[:, :bound])
+        record_graph(f"histogram256_batch row bound level {lvl}",
+                     lambda: th.histogram256_batch(ch, lo, span, square=True,
+                                                   row_bound=bound))
+        record_graph(f"row_median_masked halo level {lvl}",
+                     lambda: tn.row_median_masked(ch, thr))
+        del ch
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -13,16 +13,23 @@ on the import path, and this checkout's chip_smoke.py builds the same
 64-plane batch of 1600 x 2000 uint16 planes from the seed and runs its
 ``[step]`` and ``[step-dual]`` measurements (step_ms) with that package,
 ``--repeat`` times each (the step's time moves with the host's launch
-time, so one reading does not give its spread). The ``[step] sha256`` and
-``[step-dual] sha256`` lines it prints compare with chip_smoke.py's own;
-the last line is both digests as JSON.
+time, so one reading does not give its spread), then the row-sharded
+step on plane 0 of chip_smoke.py's 16384 x 18000 halo tile on a mesh of
+two entries on ``cuda:0`` (halo_step, as chip_smoke.py's ``[step-halo]``
+runs it on one card), ``--repeat`` times, and prints the sha256 of its
+output. The ``[step] sha256``, ``[step-dual] sha256`` and ``[step-halo]
+sha256`` lines compare with chip_smoke.py's own; the last line is the
+digests as JSON.
 """
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import sys
 from pathlib import Path
+
+import numpy as np
 
 HERE = Path(__file__).resolve().parents[1]
 
@@ -59,6 +66,21 @@ def main(argv=None):
         if len(got) != 1:
             raise AssertionError(f"[{tag}] output differs between runs")
         digests[tag] = got.pop()
+    del vol, flats, dark
+    hplan = smoke.tf_build_plan(*smoke.HALO_SHAPE[1:])
+    vol, flats, dark = smoke.halo_tile(dev, args.seed)
+    got = set()
+    for _ in range(args.repeat):
+        out = smoke.halo_step("halo", hplan, vol, flats[0], dark,
+                              [dev, dev])
+        got.add(hashlib.sha256(np.ascontiguousarray(out).tobytes())
+                .hexdigest())
+        del out
+    if len(got) != 1:
+        raise AssertionError("[step-halo] output differs between runs")
+    digests["step-halo"] = got.pop()
+    print(f"[step-halo] sha256 of the row-sharded step's output on plane 0 "
+          f"of the halo tile: {digests['step-halo']}")
     print(json.dumps(digests))
     return 0
 

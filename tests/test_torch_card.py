@@ -1046,3 +1046,163 @@ def test_card_plane_step_never_waits_on_host(card, dual):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert step.to_host(res).shape == x.shape
+
+
+def _masked_keys_witness(x, thr):
+    """The masked median with the kernel's order, on the CPU: output plane
+    b reads band plane b mod B with ``sqrt(x*x) > thr[b]`` read as +0.0,
+    then :func:`_median_keys_witness`."""
+    x, thr = x.cpu(), thr.cpu()
+    c = x.repeat(thr.shape[0] // x.shape[0], 1, 1)
+    stripes = torch.sqrt(c * c) > thr[:, None, None]
+    return _median_keys_witness(torch.where(stripes, torch.zeros_like(c), c))
+
+
+def _masked_rows(B, h, w, seed):
+    """B planes of h rows of w values, each row of one kind: normal values,
+    integer ties with both signs of zero, a constant row, or half zeros."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((B, h, w), generator=g) * 0.5
+    kind = torch.randint(0, 4, (B, h, 1), generator=g)
+    ties = torch.round(torch.randn((B, h, w), generator=g) * 2)
+    ties = torch.where(torch.rand((B, h, w), generator=g) < 0.3, -ties, ties)
+    x = torch.where(kind == 1, ties, x)
+    x = torch.where(kind == 2, torch.full_like(x, 0.375), x)
+    half = torch.rand((B, h, w), generator=g) < 0.5
+    x = torch.where((kind == 3) & half, torch.zeros_like(x), x)
+    x.view(-1)[1::13] = -0.0
+    return x
+
+
+# every route: warp (<= 1024: 1..32 keys per lane), block staged (<= 11264)
+# and block from device memory, and the edges between
+@pytest.mark.parametrize("w", [1, 2, 12, 20, 31, 32, 33, 36, 64, 65, 67,
+                               129, 254, 503, 1002, 1023, 1024, 1025, 2049,
+                               4503, 11264, 11265])
+@pytest.mark.parametrize("k_out", [1, 2])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_card_row_median_masked_routes_bit_equal(card, w, k_out, offset):
+    """The masked median on every route, plain (B thresholds) and wrapped
+    (2B), from a base one element past an aligned one (a slice): bit-equal
+    to the key-order witness (a masked value reads as +0.0) and equal to
+    the plain twin. Thresholds per output plane: finite ones, NaN and +inf
+    (nothing masked), negative (everything masked) and 0."""
+    B, h = 4, 37
+    x = _masked_rows(B, h, w, w + 7 * k_out)
+    buf = torch.empty(B * h * w + 1)
+    buf[offset:offset + x.numel()] = x.view(-1)
+    xc = buf.to(card)[offset:offset + x.numel()].view(B, h, w)
+    thr = torch.tensor([0.3, float("nan"), -1.0, float("inf"), 0.0, 0.6,
+                        2.0, 1e-3][:k_out * B], device=card)
+    route = tn.masked_median_route(w)[0]
+    assert route == (tn.WARP if w <= 1024 else
+                     tn.STAGED if w <= 11264 else tn.L2)
+    tops.reset_launches()
+    got = tn.row_median_masked(xc, thr)
+    assert tn.row_median_masked.launches == 1
+    assert got.shape == (k_out * B, h, 1)
+    want = _masked_keys_witness(xc, thr)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got, tn.row_median_masked_plain(xc, thr))
+
+
+@pytest.mark.parametrize("w", [20, 503, 1002, 9002])
+def test_card_row_median_masked_value_classes(card, w):
+    """Rows with +-inf and NaN values (NaN above +inf, never masked), all
+    masked rows and rows past 32 equal keys at the median, on the warp
+    route (1, 16 and 32 keys per lane) and the block route: bit-equal to
+    the key-order witness."""
+    B, h = 2, 9
+    x = _masked_rows(B, h, w, 3 * w)
+    flat = x.view(-1)
+    flat[2::37] = float("inf")
+    flat[3::41] = -float("inf")
+    flat[5::53] = float("nan")
+    x[:, 0] = 7.0  # all over 0.3: wholly masked
+    x[:, 1, : w // 2 + 2] = -0.25  # more than half one key
+    xc = x.to(card)
+    thr = torch.tensor([0.3, float("inf"), 0.3, -1.0], device=card)
+    got = tn.row_median_masked(xc, thr)
+    want = _masked_keys_witness(xc, thr)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_card_row_median_masked_refusals(card):
+    """Shapes the routes cannot take raise on the host: rows of no values,
+    and more output planes than the block route's grid.y holds."""
+    with pytest.raises(ValueError, match="w >= 1"):
+        tn.row_median_masked(torch.empty((2, 3, 0), device=card),
+                             torch.zeros(2, device=card))
+    with pytest.raises(ValueError, match="grid"):
+        tn.row_median_masked(torch.zeros((1, 1, 2000), device=card),
+                             torch.zeros(65536, device=card))
+
+
+def _offset(t, offset, card):
+    """``t`` on the card, its base ``offset`` elements past an aligned one:
+    a contiguous slice of a flat buffer."""
+    buf = torch.zeros(t.numel() + offset, dtype=t.dtype)
+    buf[offset:] = t.reshape(-1)
+    return buf.to(card)[offset:].view(t.shape)
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 203), (2, 403, 503), (1, 1, 7),
+                                   (5, 11, 12), (64, 17, 20), (1, 3, 2),
+                                   (2, 802, 1002)], ids=str)
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_card_histogram_forms_exact(card, shape, offset):
+    """The histogram on f32 (plain and squared) and raw uint16 planes of odd
+    and even lengths, from bases 0, 1 and 3 elements past an aligned one
+    (16-byte loads after a scalar head, a scalar tail): equal to the twin.
+    Ranges leave values outside [lo, lo + span] on both sides; uint16 0 and
+    65535 included."""
+    B = shape[0]
+    g = torch.Generator(device="cpu").manual_seed(sum(shape) + offset)
+    x = torch.randn(shape, generator=g) * 3.0
+    xc = _offset(x, offset, card)
+    lo = torch.linspace(-2.0, 0.5, B, device=card)
+    span = torch.linspace(4.0, 0.01, B, device=card)
+    for square in (False, True):
+        assert torch.equal(
+            th.histogram256_batch(xc, lo, span, square=square),
+            th.histogram256_batch_plain(xc, lo, span, square=square))
+    u16 = torch.randint(0, 65536, shape, generator=g, dtype=torch.int32)
+    u16.view(-1)[:2] = torch.tensor([0, 65535])
+    uc = _offset(u16.to(torch.uint16), offset, card)
+    lo16 = torch.linspace(0.0, 20000.0, B, device=card)
+    span16 = torch.linspace(65535.0, 100.0, B, device=card)
+    got = th.histogram256_batch(uc, lo16, span16)
+    assert torch.equal(got, th.histogram256_batch_plain(uc, lo16, span16))
+    assert bool((got.sum(1) == shape[1] * shape[2]).all())
+
+
+@pytest.mark.parametrize("shape,bound", [((1, 4097, 9002), 4097),
+                                         ((1, 2050, 4503), 2049),
+                                         ((1, 517, 2048), 200),
+                                         ((3, 259, 1026), 0)], ids=str)
+def test_card_histogram_row_bound_one_plane(card, shape, bound):
+    """One wide plane (a halo shard, the grid filling the card) and a few,
+    each with a row bound: equal to the twin, the counts summing to the
+    bound's values."""
+    g = torch.Generator(device="cpu").manual_seed(bound)
+    ch = (torch.randn(shape, generator=g) * 0.5).to(card)
+    a = ch[:, :max(bound, 1)].abs()
+    lo = a.amin(dim=(1, 2)) ** 2
+    span = a.amax(dim=(1, 2)) ** 2 - lo
+    tops.reset_launches()
+    got = th.histogram256_batch(ch, lo, span, square=True, row_bound=bound)
+    assert th.histogram256_batch.launches == (1 if bound else 0)
+    assert torch.equal(got, th.histogram256_batch_plain(
+        ch, lo, span, square=True, row_bound=bound))
+    assert int(got.sum()) == shape[0] * bound * shape[2]
+
+
+def test_card_histogram_refusals(card):
+    """More planes than the grid's 65535 and more bins than the kernel's
+    byte counters hold raise on the host."""
+    x = torch.zeros((65536, 1, 1), device=card)
+    t = torch.zeros(65536, device=card)
+    with pytest.raises(ValueError, match="grid"):
+        th.histogram256_batch(x, t, t + 1)
+    with pytest.raises(ValueError, match="nbins"):
+        th.histogram256_batch(x[:1], t[:1], t[:1] + 1, nbins=257)

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from aind_smartspim_destripe_tpu.ops import filter as jf  # noqa: E402
+from aind_smartspim_destripe_tpu.ops import pallas_median as pm  # noqa: E402
 from aind_smartspim_destripe_tpu.ops.pallas_median import (  # noqa: E402
     row_median_batch as jax_row_median_batch,
 )
@@ -184,3 +185,90 @@ def test_median_block_threads(n, threads):
     """Threads of a block selecting in one long row: 64 up to 2048 values,
     256 above."""
     assert tn._median_threads(n) == threads
+
+
+# ---------------------------------------------------------------------------
+# The masked median (cuda_notch.row_median_masked)
+# ---------------------------------------------------------------------------
+
+_W = tn.WARP
+
+
+@pytest.mark.parametrize("w,want", [
+    (1, (_W, 1)), (2, (_W, 1)), (12, (_W, 1)), (31, (_W, 1)), (32, (_W, 1)),
+    (33, (_W, 2)), (64, (_W, 2)), (65, (_W, 4)), (129, (_W, 8)),
+    (503, (_W, 16)), (1002, (_W, 32)), (1024, (_W, 32)),
+    (1025, (_ST, 64)), (2048, (_ST, 64)), (9002, (_ST, 256)),
+    (11264, (_ST, 256)), (11265, (_L2, 256)),
+])
+def test_masked_median_route(w, want):
+    """The host's route for the masked median by row length: a warp per row
+    (the least power-of-two keys per lane that hold the row) up to 1024
+    values, a block per output row above (staged up to 11264 values, 64
+    threads up to 2048 values)."""
+    route, param = tn.masked_median_route(w)
+    assert (route, param) == want
+    if route == _W:
+        assert (param // 2) * 32 < w <= param * 32
+
+
+@pytest.mark.parametrize("w", [0, -3])
+def test_masked_median_route_refuses_empty_rows(w):
+    with pytest.raises(ValueError, match="w >= 1"):
+        tn.masked_median_route(w)
+
+
+@pytest.mark.parametrize("route,n_out,h", [
+    (_ST, 65536, 4),  # grid.y holds 65535 output planes
+    (_L2, 131072, 1),
+    (_W, 5, 2**31 - 1),  # over 2**31 - 1 blocks of 4 output rows
+    (_W, 1, 2**31),  # h past an int
+])
+def test_masked_median_grid_refusals(route, n_out, h):
+    with pytest.raises(ValueError, match="grid"):
+        tn._check_masked_grid(route, n_out, h)
+
+
+@pytest.mark.parametrize("route,n_out,h", [
+    (_ST, 65535, 4), (_W, 128, 802), (_W, 128, 11), (_L2, 2, 2**31 - 1),
+    (_W, 4, 2**31 - 1),
+])
+def test_masked_median_grid_accepts(route, n_out, h):
+    tn._check_masked_grid(route, n_out, h)
+
+
+def _masked_case(w, seed):
+    """Two band planes of 3 rows of w values: row 0 wholly over the
+    threshold of every plane but the unmasked ones, row 1 with none
+    over it, row 2 mixed with ties and both signs of zero; thresholds per
+    output plane: a finite one, NaN and +inf (nothing masked), a negative
+    one (everything masked)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(scale=1.0, size=(2, 3, w)).astype(np.float32)
+    x[:, 0] = rng.choice([-1.0, 1.0], size=(2, w)) * (
+        5.0 + rng.random(size=(2, w)))  # over 2.0 everywhere
+    x[:, 1] = rng.uniform(-0.5, 0.5, size=(2, w))  # under 2.0 everywhere
+    x[:, 2] = np.round(rng.normal(scale=3.0, size=(2, w)))
+    x[:, 2, ::5] = -0.0
+    thr = np.array([2.0, np.nan, np.inf, -1.0], np.float32)
+    return x, thr
+
+
+@pytest.mark.parametrize("w", [1, 2, 31, 32, 33, 1024, 1025, 11264, 11265])
+def test_row_median_masked_plain_matches_jax(w):
+    """The masked median's plain twin against the JAX kernel (interpret
+    mode, as test_torch_notch.py runs it) at the route edges' widths, odd
+    and even, with wholly masked, unmasked and mixed rows, plain (B
+    thresholds) and wrapped (2B: the dual form)."""
+    x, thr = _masked_case(w, w)
+    for t in (thr[:2], thr):
+        got = tn.row_median_masked(torch.from_numpy(x), torch.from_numpy(t))
+        xs = x if len(t) == 2 else np.concatenate([x, x])
+        want = np.asarray(pm.row_median_masked(
+            jnp.asarray(xs), jnp.asarray(t), interpret=True))
+        assert got.shape == (len(t), 3, 1)
+        np.testing.assert_array_equal(got.numpy(), want)
+        plain = tn.row_median_masked_plain(torch.from_numpy(x),
+                                           torch.from_numpy(t))
+        np.testing.assert_array_equal(plain.numpy(), want)
+
