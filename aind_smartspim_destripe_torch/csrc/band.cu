@@ -19,10 +19,11 @@
 // of its input and one write of its output, with the side channels fused:
 // K1 reads raw uint16 and fuses log(1+x) and the classifier's sums, K2
 // emits the per-plane |cH| range, K4 fuses exp(.)+1 and the flat-field or
-// wrap epilogue into the uint16 store. Neighbouring threads touch
-// neighbouring addresses. K1 and K4 stage each row segment once in shared
-// memory (16-byte loads; K1 takes log(1+x) once per input rather than once
-// per tap) and compute their outputs from there, each output's band read
+// wrap epilogue (epilogue.cuh, which the blend shares) into the uint16
+// store. Neighbouring threads touch neighbouring addresses. K1 and K4
+// stage each row segment once in shared memory (16-byte loads; K1 takes
+// log(1+x) once per input rather than once per tap) and compute their
+// outputs from there, each output's band read
 // once for all the block's rows. K4's epilogue (IEEE logf, expf and
 // division, no fast math) takes more issue time than its bytes take to
 // move; K4 runs four consecutive outputs per thread with vector loads and
@@ -46,6 +47,8 @@
 #include <math.h>
 
 #include <type_traits>
+
+#include "epilogue.cuh"
 
 namespace {
 
@@ -829,14 +832,9 @@ __global__ void __launch_bounds__(kK4Threads, 3)
             if constexpr (kMode == kExp) {
               y[t] = e;
             } else if constexpr (kMode == kFlat) {
-              float u = (e <= dk[r][t]) ? 0.0f : e - dk[r][t];
-              u = u / fl[r][t];
-              u = fminf(fmaxf(u, 0.0f), 65535.0f);
-              y[t] = (unsigned short)__float2int_rz(u);
+              y[t] = destripe::epi_flat(e, dk[r][t], fl[r][t]);
             } else {
-              int m = __float2int_rz(e) % 65536;
-              if (m < 0) m += 65536;
-              y[t] = (unsigned short)m;
+              y[t] = destripe::epi_wrap(e);
             }
           }
         }

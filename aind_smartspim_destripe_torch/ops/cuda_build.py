@@ -5,7 +5,8 @@ The CUDA sources in ``csrc/`` of this package (``band.cu``: K1-K4,
 ``hist.cu``: the Otsu histogram, ``notch.cu``: row medians (masked and
 plain), the notch tail and the per-plane notch product, ``blend.cu``: the
 dual-band blend, ``dense.cu``: the dense levels' fixed-order products;
-``notch.cu`` and ``dense.cu`` share the GEMM tile of ``gemm_f32.cuh``) are
+``notch.cu`` and ``dense.cu`` share the GEMM tile of ``gemm_f32.cuh``,
+``band.cu`` and ``blend.cu`` the uint16 epilogues of ``epilogue.cuh``) are
 compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
 together, and linked into one shared library with a plain C interface,
 loaded with ``ctypes``. The build happens at first use, into
@@ -78,8 +79,9 @@ _SIGNATURES = {
     + [ctypes.c_void_p],
     "destripe_notch_select": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
-    "destripe_blend": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "destripe_blend": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "destripe_div17_check": [ctypes.c_uint] + [ctypes.c_void_p] * 3,
     "destripe_dense_matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
     + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
 }
@@ -88,7 +90,8 @@ _SIGNATURES = {
 def digest_inputs() -> tuple:
     """The files the library's name is keyed by: the sources and every
     header beside them (``gemm_f32.cuh``, which ``notch.cu`` and
-    ``dense.cu`` include), so an edited header never loads a stale
+    ``dense.cu`` include; ``epilogue.cuh``, which ``band.cu`` and
+    ``blend.cu`` include), so an edited header never loads a stale
     library."""
     return SOURCES + tuple(sorted(CSRC.glob("*.cuh")))
 

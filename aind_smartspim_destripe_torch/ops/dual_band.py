@@ -8,7 +8,8 @@ background one (aggressive sigma) from one shared decomposition
 blended per pixel by a smoothed sigmoid foreground fraction centred on the
 plane's Otsu threshold (or a fixed centre): :func:`.cuda_blend.
 blend_smooth_mix`, the Hopper kernel for CUDA tensors and its plain twin
-:func:`blend_bands` for CPU tensors.
+:func:`blend_bands` for CPU tensors, with the step's flat-field or wrap
+epilogue fused into the blend's store.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from .filter import (
     constants_from_numpy,
     destripe_batch,
     f32_matmul,
+    normalize_flat_dark,
 )
 from .otsu import threshold_otsu_batch
 
@@ -53,9 +55,15 @@ def dual_band_destripe_batch(
     threshold: float = -1.0,
     smooth_radius: int = RADIUS,
     consts: Optional[dict] = None,
+    flat=None,
+    dark=None,
+    wrap: bool = False,
 ) -> torch.Tensor:
     """Blend two destripe bands per pixel from one shared decomposition, on
-    the device of ``images`` (B, H, W); returns (B, H, W) float32.
+    the device of ``images`` (B, H, W); returns (B, H, W) float32, or
+    uint16 through the flat-field correction (``flat``/``dark``) or the
+    zarr-store wrap cast (``wrap=True``), which the blend kernel fuses into
+    its store.
 
     - ``plan``: a dual plan whose ``cells`` slot holds the foreground config
       and ``no_cells`` the background config (:func:`_dual_plan`);
@@ -66,14 +74,19 @@ def dual_band_destripe_batch(
     Raw uint16 planes stay uint16 into the Otsu histogram and the blend
     kernel, which convert exactly as they read."""
     check_crossover(crossover)
+    if flat is not None and wrap:
+        raise ValueError("flat-field and wrap epilogues are exclusive")
     x = images if images.dtype == torch.uint16 else images.to(torch.float32)
+    flat, dark = normalize_flat_dark(plan.height, plan.width, flat, dark,
+                                     x.device)
     both = destripe_batch(plan, images, -math.inf, consts, dual=True)
     if threshold < 0:
         centers = threshold_otsu_batch(x)
     else:
         centers = torch.full((x.shape[0],), float(threshold),
                              dtype=torch.float32, device=x.device)
-    return blend_smooth_mix(x, both, None, centers, crossover, smooth_radius)
+    return blend_smooth_mix(x, both, None, centers, crossover, smooth_radius,
+                            flat=flat, dark=dark, wrap=wrap)
 
 
 @lru_cache(maxsize=8)

@@ -817,7 +817,8 @@ def dual_band_destripe_y_sharded(
     on a window widened by ``smooth_radius`` rows from each neighbour and
     cropped back to the shard's rows, so the box smooth sees the same rows
     as on the whole plane and clamps only at its true top and bottom.
-    The flat-field or wrap epilogue applies to the blended rows."""
+    The blend emits only the shard's rows of the window, through the
+    flat-field or wrap epilogue (fused into its store) when asked."""
     check_crossover(crossover)
     if flat is not None and wrap:
         raise ValueError("flat-field and wrap epilogues are exclusive")
@@ -850,17 +851,18 @@ def dual_band_destripe_y_sharded(
     for d, dev in enumerate(mesh):
         g0, g1 = min(d * q, H), min((d + 1) * q, H)
         a, b = max(0, g0 - smooth_radius), min(H, g1 + smooth_radius)
+        epi = dict(wrap=wrap)
+        if flat is not None:
+            epi = dict(flat=_rows(flat, g0, g1, dev),
+                       dark=_rows(dark, g0, g1, dev))
         if g1 > g0:
             out = blend_smooth_mix(_rows(x, a, b, dev), _rows(both, a, b, dev),
                                    None, centers.to(dev), crossover,
-                                   smooth_radius)[:, g0 - a:g1 - a]
+                                   smooth_radius, out_rows=(g0 - a, g1 - g0),
+                                   **epi)
         else:
-            out = torch.empty((B, 0, plan.width), device=dev)
-        if flat is not None:
-            out = flatfield_correction(out, _rows(flat, g0, g1, dev),
-                                       _rows(dark, g0, g1, dev))
-        elif wrap:
-            out = wrap_cast(out)
-        parts.append(out.contiguous())
+            out = torch.empty((B, 0, plan.width), device=dev, dtype=(
+                torch.uint16 if flat is not None or wrap else torch.float32))
+        parts.append(out)
         valid.append(g1 - g0)
     return RowShards(tuple(parts), tuple(valid))

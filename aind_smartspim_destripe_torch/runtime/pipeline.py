@@ -45,7 +45,6 @@ from ..ops.filter import (
     destripe_batch,
     f32_matmul,
 )
-from ..ops.flatfield import flatfield_correction, wrap_cast
 from ..parallel.halo import (
     destripe_y_sharded,
     dual_band_destripe_y_sharded,
@@ -119,8 +118,8 @@ def make_device_step(plan: DestripePlan, microscope_high_int: float,
     (:func:`..ops.dual_band.dual_band_destripe_batch`: both of the plan's
     configurations from one decomposition, blended per pixel by the
     smoothed sigmoid foreground fraction of width ``crossover`` and centre
-    ``dual_threshold``, < 0 for the per-plane Otsu); the flat-field or wrap
-    epilogue then applies to the blended float32 plane.
+    ``dual_threshold``, < 0 for the per-plane Otsu), with the flat-field or
+    wrap epilogue fused into the blend's store.
 
     ``devices``: the mesh (:func:`resolve_device`). With more than one
     entry the batch is split over the entries' planes (each entry runs the
@@ -155,11 +154,10 @@ def make_device_step(plan: DestripePlan, microscope_high_int: float,
     def one(images, flat, dark):
         c = consts[images.device]
         if dual:
-            blended = dual_band_destripe_batch(
-                plan, images, crossover, dual_threshold, consts=c)
-            if with_flatfield:
-                return flatfield_correction(blended, flat, dark)
-            return wrap_cast(blended)
+            epi = (dict(flat=flat, dark=dark) if with_flatfield
+                   else dict(wrap=True))
+            return dual_band_destripe_batch(
+                plan, images, crossover, dual_threshold, consts=c, **epi)
         if with_flatfield:
             return destripe_batch(plan, images, microscope_high_int, c,
                                   flat=flat, dark=dark)

@@ -13,15 +13,18 @@ Phases, each printing its lines:
    every visible card's context (once, so the timed runs below start warm);
 2. the build of the CUDA kernels from ``aind_smartspim_destripe_torch/csrc``,
    with each kernel's registers and spilled bytes (and the shared memory of
-   the shared GEMM tile's, K2's, K3's, K4's and the row medians' instances,
-   which must spill nothing);
+   the shared GEMM tile's, K2's, K3's, K4's, the row medians', the
+   histogram's and the blend's instances, which must spill nothing);
 3. each kernel of the destripe step against its plain PyTorch twin on the
    card, on the same inputs, at the step's shapes for a 64-plane batch of
    1600x2000 planes: the banded DWT passes K1-K4 at levels 0 and 1, and the
    Otsu histogram, masked row median and notch tail at every level (on the
    real level-0 and level-1 bands); then the dual-band forms: the Otsu
-   histogram of the blend centres on the raw uint16 planes, the blend
-   kernel on uint16 planes and the stacked (128, 1600, 2000) band pair, K4
+   histogram of the blend centres on the raw uint16 planes, the blend's
+   division by 17 against IEEE division on every float32 from +0 to 17.0,
+   the blend kernel on uint16 planes and the stacked (128, 1600, 2000)
+   band pair, bare and with each fused epilogue (flat-field, wrap; each
+   bit-equal to the bare kernel followed by the epilogue), K4
    wrapped at level 0 (128 corrections, 64 planes), K3 on 128 corrections
    at levels 0 and 1, and the wrapped median
    and notch at every level with 128 thresholds and operator choices (the
@@ -84,7 +87,9 @@ Phases, each printing its lines:
    kernel calls against their twins at the route's level-0 and level-1
    shard shapes of a 16384 x 18000 plane (K1 and K4 on row shards, the
    per-plane notch product with each operator choice, the histogram with a
-   row bound, the masked median of the shard); ``[slice-halo]``
+   row bound, the masked median of the shard, and the dual route's blend
+   on the level-0 window of the second shard, emitting the shard's rows
+   through the fused flat-field epilogue); ``[slice-halo]``
    ``run_capsule.run`` on a tile of 4 x 16384 x 18000 uint16 planes with
    flats and dark, on the mesh, through the row-sharded route (the plane
    alone passes ``DESTRIPE_HALO_THRESHOLD_BYTES``); ``[step-halo]`` /
@@ -268,14 +273,18 @@ def _time_ms(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
-def _err(got, want, exact=False, scale=None):
+def _err(got, want, exact=False, scale=None, modulo=False):
     """(max abs error, allowed) of a kernel output against its twin;
-    ``scale``: the operands' largest magnitude (default: the twin's)."""
+    ``scale``: the operands' largest magnitude (default: the twin's);
+    ``modulo``: uint16 outputs of the wrap cast, whose 65535 and 0 are
+    1 LSB apart."""
     import torch
 
     if want.dtype == torch.uint16:
-        d = (got.to(torch.int32) - want.to(torch.int32)).abs().max().item()
-        return float(d), float(U16_LSB)
+        d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+        if modulo:
+            d = torch.minimum(d, 65536 - d)
+        return float(d.max().item()), float(U16_LSB)
     err = (got - want).abs().max().item()
     if exact:
         return err, 0.0
@@ -316,14 +325,16 @@ def _bit_equal(got, want):
 
 
 def _compare(rec, name, lvl, kern, plain, scale=None, ins=(), ops=0.0,
-             library=None, tag="kernels", extra=None, witness=None):
+             library=None, tag="kernels", extra=None, witness=None,
+             witness_name="its k-order witness", modulo=False):
     """Hold one kernel call against its twin, time both (and ``library``,
     one PyTorch call computing the same function, where there is one, and
     each call of ``extra``, {key: call}, recorded as ``<key>_ms``), bound
     the call by the bytes of ``ins`` and of its outputs and by its
     ``ops``, print and record; raises on a disagreement, and, given a
-    ``witness`` (the kernel's own order of operations as tensor code),
-    unless the kernel is bit-equal to it."""
+    ``witness`` (the kernel's own order of operations as tensor code, or
+    what a fused kernel must equal: ``witness_name`` says which), unless
+    the kernel is bit-equal to it."""
     import torch
 
     got = kern()
@@ -331,8 +342,8 @@ def _compare(rec, name, lvl, kern, plain, scale=None, ins=(), ops=0.0,
     if witness is not None:
         same = _bit_equal(got, witness())
         if not same:
-            raise AssertionError(f"{name} level {lvl}: not bit-equal to its "
-                                 f"k-order witness")
+            raise AssertionError(f"{name} level {lvl}: not bit-equal to "
+                                 f"{witness_name}")
     want = plain()
     bound_ms, bound_by = _bound(_nbytes(ins, got), ops)
     if name == "an_x_lowpass_log1p" and isinstance(got, tuple):
@@ -346,7 +357,7 @@ def _compare(rec, name, lvl, kern, plain, scale=None, ins=(), ops=0.0,
                 raise AssertionError(f"K2 |cH| range: {err} > {tol}")
         got = torch.cat([got[0], got[1]], dim=1)
         want = torch.cat([want[0], want[1]], dim=1)
-    err, tol = _err(got, want, name in EXACT, scale)
+    err, tol = _err(got, want, name in EXACT, scale, modulo)
     del want
     ms, plain_ms = _time_ms(kern), _time_ms(plain)
     library_ms = None if library is None else _time_ms(library)
@@ -359,7 +370,7 @@ def _compare(rec, name, lvl, kern, plain, scale=None, ins=(), ops=0.0,
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, "
           f"bound {bound_ms:.3f} ms ({bound_by})"
           + "".join(f", {k} {v:.3f}" for k, v in more.items())
-          + ("" if same is None else "; bit-equal to its k-order witness"))
+          + ("" if same is None else f"; bit-equal to {witness_name}"))
     if not ok:
         raise AssertionError(f"{name} level {lvl}: {err} > {tol}")
     rec[name][lvl] = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
@@ -589,12 +600,18 @@ def phase_dual_kernels(plan, consts, dev, seed):
              lambda: th.histogram256_batch(x, lo, span),
              lambda: th.histogram256_batch_plain(x, lo, span),
              ins=(x, lo, span), ops=4.0 * x.numel())
-    _compare(rec, "blend_smooth_mix", 0,
-             lambda: tbl.blend_smooth_mix(x, both, None, centers, CROSSOVER),
-             lambda: tbl.blend_bands(x, both[:B], both[B:], centers,
-                                     CROSSOVER),
-             scale=both.abs().max().item(), ins=(x, both, centers),
-             ops=45.0 * x.numel())
+    # the blend's division by 17 against IEEE division, every float from
+    # +0 to 17.0, then the blend bare and with each fused epilogue
+    bad, first_bad = tbl.div17_mismatches(dev)
+    n_bits = int(torch.tensor([17.0]).view(torch.int32).item()) + 1
+    print(f"[kernels] blend_smooth_mix div17: {bad} of {n_bits} float32 bit "
+          f"patterns from +0 to 17.0 differ from IEEE division"
+          + ("" if bad == 0 else f" (first 0x{first_bad:08x})"))
+    if bad:
+        raise AssertionError("the blend's division by 17 is not IEEE's")
+    rec["div17"] = dict(patterns=n_bits, mismatches=bad)
+    _blend_modes(rec, 0, x, both, centers, *_fields_of(seed + 13, dev, H, W),
+                 tag="kernels")
     del both
     torch.cuda.empty_cache()
 
@@ -653,6 +670,61 @@ def phase_dual_kernels(plan, consts, dev, seed):
         del ch
     torch.cuda.synchronize()
     return rec
+
+
+def _fields_of(seed, dev, h, w):
+    """A flat-field and a darkfield of (h, w) rows, from ``seed``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    flat = 1.0 + 0.2 * torch.rand((h, w), generator=g, device=dev)
+    return flat, torch.full((h, w), 3.0, device=dev)
+
+
+def _blend_modes(rec, lvl, x, both, centers, flat, dark, tag,
+                 out_rows=None, modes=("bare", "flat", "wrap")):
+    """The blend in each of ``modes`` against its twin composition (the
+    twin, the row slice, the epilogue) at the window ``x`` with the stacked
+    band pair ``both``, emitting ``out_rows`` (None: every row). The bare
+    form is recorded under ``lvl``, the others under ``lvl`` and the mode
+    (``lvl`` alone when it is the only one): each fused form must be bit-equal
+    to the bare kernel followed by the epilogue on the card."""
+    from aind_smartspim_destripe_torch.ops import cuda_blend as tbl
+    from aind_smartspim_destripe_torch.ops.flatfield import (
+        flatfield_correction,
+        wrap_cast,
+    )
+
+    B = x.shape[0]
+    first, count = (0, x.shape[1]) if out_rows is None else out_rows
+    epis = {"bare": ({}, lambda y: y, 45.0),
+            "flat": (dict(flat=flat, dark=dark),
+                     lambda y: flatfield_correction(y, flat, dark), 50.0),
+            "wrap": (dict(wrap=True), wrap_cast, 47.0)}
+    for mode in modes:
+        kw, epi, ops = epis[mode]
+        key = lvl if len(modes) == 1 or mode == "bare" else f"{lvl} {mode}"
+
+        def kern(kw=kw):
+            return tbl.blend_smooth_mix(x, both, None, centers, CROSSOVER,
+                                        out_rows=out_rows, **kw)
+
+        def plain(epi=epi):
+            y = tbl.blend_bands(x, both[:B], both[B:], centers, CROSSOVER)
+            return epi(y[:, first:first + count])
+
+        def witness(epi=epi):
+            return epi(tbl.blend_smooth_mix(x, both, None, centers,
+                                            CROSSOVER, out_rows=out_rows))
+
+        _compare(rec, "blend_smooth_mix", key, kern, plain,
+                 scale=both.abs().max().item(),
+                 ins=(x, both, centers, tuple(kw.values())[:2]
+                      if mode == "flat" else ()),
+                 ops=ops * B * count * x.shape[2], tag=tag,
+                 witness=None if mode == "bare" else witness,
+                 witness_name="the bare kernel and the epilogue",
+                 modulo=mode == "wrap")
 
 
 def phase_median(dev, seed):
@@ -949,13 +1021,16 @@ def phase_halo_kernels(hplan, dense, dev, seed, n_dev):
     form alone (u16 with log1p at level 0, f32 at level 1; K4 with the
     flat-field epilogue at level 0, bare at level 1), the per-plane notch
     product on the cH band shard, the histogram of that shard with the
-    row bound the route gives it, and the masked median of the shard."""
+    row bound the route gives it, and the masked median of the shard;
+    and the dual route's blend on the level-0 window of the second shard,
+    emitting the shard's rows through the fused flat-field epilogue."""
     import numpy as np
     import torch
 
     from aind_smartspim_destripe_torch.ops import cuda_band as cb
     from aind_smartspim_destripe_torch.ops import cuda_hist as th
     from aind_smartspim_destripe_torch.ops import cuda_notch as tn
+    from aind_smartspim_destripe_torch.ops.cuda_blend import RADIUS
     from aind_smartspim_destripe_torch.ops.cuda_build import launch
     from aind_smartspim_destripe_torch.ops.otsu import threshold_otsu_batch
     from aind_smartspim_destripe_torch.parallel.halo import _plan_x_blocks
@@ -971,7 +1046,7 @@ def phase_halo_kernels(hplan, dense, dev, seed, n_dev):
     def compare(*args, **kwargs):
         _compare(*args, tag="halo-kernels", **kwargs)
 
-    rec = {name: {} for name in HALO}
+    rec = {name: {} for name in HALO + ("blend_smooth_mix",)}
     for lvl in (0, 1):
         i = n - 1 - lvl
         # the level's input rows on the largest shard: H split evenly at
@@ -1085,6 +1160,21 @@ def phase_halo_kernels(hplan, dense, dev, seed, n_dev):
                 ins=(ch, thr), ops=4.0 * ch.numel())
         del ch, bank, thr
         torch.cuda.empty_cache()
+    # the dual route's blend on the level-0 window of the second shard
+    # (its rows and RADIUS rows of each neighbour), emitting the shard's
+    # rows through the fused flat-field epilogue, as the route calls it
+    q = -(-H // n_dev)
+    g0, g1 = q, min(2 * q, H)
+    a, b = g0 - RADIUS, min(H, g1 + RADIUS)
+    gb = torch.Generator(device=dev).manual_seed(seed + 17)
+    xw = torch.randint(0, 4000, (1, b - a, W), generator=gb, device=dev,
+                       dtype=torch.int32).to(torch.uint16)
+    bw = torch.randn((2, b - a, W), generator=gb, device=dev) * 300 + 500
+    _blend_modes(rec, 0, xw, bw, threshold_otsu_batch(xw),
+                 *_fields_of(seed + 19, dev, g1 - g0, W), tag="halo-kernels",
+                 out_rows=(g0 - a, g1 - g0), modes=("flat",))
+    del xw, bw
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return rec
 
@@ -1464,8 +1554,9 @@ def main(argv=None):
     # correction half; the masked median's warp route: keys per lane, one
     # output per band row; the histogram: image type, squared)
     rows = {k: v for k, v in ptxas.items()
-            if k.startswith(("k2<", "k3<", "k4<", "row_median", "hist<"))}
-    print("[build] K2, K3, K4, row-median and histogram instances, "
+            if k.startswith(("k2<", "k3<", "k4<", "row_median", "hist<",
+                             "blend<"))}
+    print("[build] K2, K3, K4, row-median, histogram and blend instances, "
           "registers / shared memory bytes / spilled bytes: "
           + " ".join(f"{k}={v['registers']}/{v['smem']}/{v['spill']}"
                      for k, v in rows.items()))
@@ -1478,12 +1569,13 @@ def main(argv=None):
     expect |= {"row_median_short"}
     expect |= {f"row_median_masked_warp<{k}>" for k in (1, 2, 4, 8, 16, 32)}
     expect |= {f"hist<{t},{q}>" for t in ("u16", "f32") for q in (0, 1)}
+    expect |= {f"blend<{t},{m}>" for t in ("u16", "f32") for m in range(3)}
     if expect - rows.keys():
         raise AssertionError(
             "the build log does not report the instances "
             f"{sorted(expect - rows.keys())}: their spills are unchecked")
     if any(v["spill"] for v in rows.values()):
-        raise AssertionError("a K2, K3, K4, row-median or histogram "
+        raise AssertionError("a K2, K3, K4, row-median, histogram or blend "
                              "instance spills registers")
 
     # -- 3. kernels vs plain twins ----------------------------------------
@@ -1675,6 +1767,15 @@ def main(argv=None):
         if name == "row_median_masked":
             entry["halo"] = {f"level{lvl}": {k: r[k] for k in keys}
                              for lvl, r in hrec[name].items()}
+        if name == "blend_smooth_mix":  # f32 error; the uint16 modes' LSB
+            entry["max_abs_err"] = first["max_abs_err"]
+            entry["modes"] = {m: {k: main[f"0 {m}"][k] for k in keys}
+                              for m in ("flat", "wrap")}
+            entry["halo_window_flat"] = {k: hrec[name][0][k] for k in keys}
+            entry["div17"] = drec["div17"]
+            entry["fused_bit_equal"] = all(
+                r.get("bit_equal_witness", False) for r in (
+                    main["0 flat"], main["0 wrap"], hrec[name][0]))
         entry.update(per_step.get(name, {}))
         kernels.append(entry)
     print(json.dumps({"steps_sha256": hashes, "check_every": every,

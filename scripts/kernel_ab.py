@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times of K2 (``an_y_pass``), K3 (``syn_y_pass``), K4 (``syn_x_exp``,
-``syn_x_exp_chunked``) and the row medians (``row_median_batch``,
-``row_median_masked``) for the package of another checkout, so that two
+``syn_x_exp_chunked``), the row medians (``row_median_batch``,
+``row_median_masked``), the Otsu histogram and the dual-band blend
+(``blend_smooth_mix``) for the package of another checkout, so that two
 commits' kernels can be timed in one call on one card.
 
 Run from the root of a checkout, on a machine with one card:
@@ -23,7 +24,13 @@ corrections of 64 planes), and on the level-0 (flat-field) and level-1
 median on BaSiC's (12, 128, 128) stack with its axis moved last (as
 ``models.basic._median0`` passes it, any copy the wrapper makes
 included), the same values contiguous, the level-0 and level-1 band
-shapes and a 4-D stack; then the Otsu histogram and the masked median at
+shapes and a 4-D stack; the blend bare, through the flat-field and
+through the wrap epilogue on a 64-plane batch of 1600 x 2000 uint16
+planes and the stacked band pair, the two epilogues alone on its float32
+output, and the flat-field form on the level-0 window of a 16384 x 18000
+plane's second row shard on two devices (a package whose blend fuses no
+epilogue runs the step's composition: the blend, the crop, the
+epilogue); then the Otsu histogram and the masked median at
 every level of the plane step (levels 0 and 1 on the real bands of random
 uint16 planes, levels 2-7 on random bands of their shapes; histogram of
 the squared band over its range, median under the step's capped Otsu
@@ -230,9 +237,74 @@ def main(argv=None):
         del xm
     del stack, moved, flat_stack
     torch.cuda.empty_cache()
+    blend_calls(record_graph, dev, g)
     tail_calls(out, record_graph, plan, dev, g)
     print(json.dumps({"card": smi, "root": str(root), "ms": out}))
     return 0
+
+
+def blend_calls(record_graph, dev, g):
+    """The dual-band blend in its three modes (bare float32, flat-field
+    and wrap into uint16) on a 64-plane batch of 1600 x 2000 uint16 planes
+    and the stacked (128, 1600, 2000) band pair, the flat-field and wrap
+    epilogues alone on its float32 output, and the flat-field mode on the
+    level-0 window of the row-sharded route's second shard of a 16384 x
+    18000 plane on two devices (8200 window rows, the shard's 8192 emitted
+    from row 8). A package whose blend takes no epilogue (one that fuses
+    none) runs the same function as the step composed it: the bare blend,
+    then ``flatfield_correction`` or ``wrap_cast`` (and, on the window, the
+    crop to the shard's rows and ``.contiguous()``)."""
+    import inspect
+
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import cuda_blend as tbl
+    from aind_smartspim_destripe_torch.ops.flatfield import (
+        flatfield_correction,
+        wrap_cast,
+    )
+    from aind_smartspim_destripe_torch.ops.otsu import threshold_otsu_batch
+
+    fused = "flat" in inspect.signature(tbl.blend_smooth_mix).parameters
+
+    def blend(x, both, centers, flat=None, dark=None, wrap=False,
+              out_rows=None):
+        if fused:
+            return tbl.blend_smooth_mix(x, both, None, centers, 100.0,
+                                        flat=flat, dark=dark, wrap=wrap,
+                                        out_rows=out_rows)
+        y = tbl.blend_smooth_mix(x, both, None, centers, 100.0)
+        if out_rows is not None:
+            y = y[:, out_rows[0]:out_rows[0] + out_rows[1]]
+        if flat is not None:
+            y = flatfield_correction(y, flat, dark)
+        elif wrap:
+            y = wrap_cast(y)
+        return y.contiguous()
+
+    for key, (B, H, W, first, count) in (
+            ("", (64, 1600, 2000, 0, 1600)),
+            (" halo", (1, 8200, 18000, 8, 8192))):
+        x = torch.randint(0, 4000, (B, H, W), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint16)
+        both = torch.randn((2 * B, H, W), generator=g, device=dev) * 300 + 500
+        centers = threshold_otsu_batch(x)
+        flat = 1.0 + 0.2 * torch.rand((count, W), generator=g, device=dev)
+        dark = torch.full((count, W), 3.0, device=dev)
+        rows = None if key == "" else (first, count)
+        if key == "":
+            record_graph("blend bare", lambda: blend(x, both, centers))
+            record_graph("blend wrap",
+                         lambda: blend(x, both, centers, wrap=True))
+            y = tbl.blend_bands(x, both[:B], both[B:], centers, 100.0)
+            record_graph("epilogue flat alone",
+                         lambda: flatfield_correction(y, flat, dark))
+            record_graph("epilogue wrap alone", lambda: wrap_cast(y))
+            del y
+        record_graph(f"blend{key} flat", lambda: blend(
+            x, both, centers, flat=flat, dark=dark, out_rows=rows))
+        del x, both, centers, flat, dark
+        torch.cuda.empty_cache()
 
 
 def tail_calls(out, record_graph, plan, dev, g):

@@ -8,13 +8,13 @@ Run from the root of a checkout, on a machine with the CUDA toolkit:
 
 Builds the library as the port does (``ops.cuda_build.kernel_library``),
 disassembles it, and for every kernel whose mangled name matches REGEX
-(default: K2, K3, K4, the row medians and the histogram) prints one line: its
-instruction count by class (FP32 arithmetic, special-function unit,
-integer, shared- and device-memory loads and stores, asynchronous copies,
-control) and its most frequent opcodes. The counts are static: a loop
+(default: K2, K3, K4, the row medians, the histogram and the blend)
+prints one line: its instruction count by class (FP32 arithmetic,
+special-function unit, integer, shared- and device-memory loads and
+stores, asynchronous copies, control) and its most frequent opcodes. The counts are static: a loop
 whose trip count is a run-time argument (K4's K taps, K2's and K3's rows
 of a run and copies of its span, the medians' passes, the histogram's
-grid-stride loop) is counted once.
+grid-stride loop, the blend's runs of 17 rows) is counted once.
 The last line is all of it as JSON.
 """
 
@@ -53,7 +53,8 @@ def classify(op: str) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--match", default=r"k[2-4]_kernel|row_median|hist_kernel")
+    ap.add_argument("--match",
+                    default=r"k[2-4]_kernel|row_median|hist_kernel|blend")
     args = ap.parse_args(argv)
 
     from aind_smartspim_destripe_torch.ops import cuda_build

@@ -16,10 +16,11 @@ on the import path, and this checkout's chip_smoke.py builds the same
 time, so one reading does not give its spread), then the row-sharded
 step on plane 0 of chip_smoke.py's 16384 x 18000 halo tile on a mesh of
 two entries on ``cuda:0`` (halo_step, as chip_smoke.py's ``[step-halo]``
-runs it on one card), ``--repeat`` times, and prints the sha256 of its
-output. The ``[step] sha256``, ``[step-dual] sha256`` and ``[step-halo]
-sha256`` lines compare with chip_smoke.py's own; the last line is the
-digests as JSON.
+and ``[step-dual-halo]`` run it on one card), single band and then dual
+band, ``--repeat`` times each, and prints the sha256 of each output. The
+``[step] sha256``, ``[step-dual] sha256``, ``[step-halo] sha256`` and
+``[step-dual-halo] sha256`` lines compare with chip_smoke.py's own; the
+last line is the digests as JSON.
 """
 
 import argparse
@@ -69,18 +70,19 @@ def main(argv=None):
     del vol, flats, dark
     hplan = smoke.tf_build_plan(*smoke.HALO_SHAPE[1:])
     vol, flats, dark = smoke.halo_tile(dev, args.seed)
-    got = set()
-    for _ in range(args.repeat):
-        out = smoke.halo_step("halo", hplan, vol, flats[0], dark,
-                              [dev, dev])
-        got.add(hashlib.sha256(np.ascontiguousarray(out).tobytes())
-                .hexdigest())
-        del out
-    if len(got) != 1:
-        raise AssertionError("[step-halo] output differs between runs")
-    digests["step-halo"] = got.pop()
-    print(f"[step-halo] sha256 of the row-sharded step's output on plane 0 "
-          f"of the halo tile: {digests['step-halo']}")
+    for tag, dual in (("halo", False), ("dual-halo", True)):
+        got = set()
+        for _ in range(args.repeat):
+            out = smoke.halo_step(tag, hplan, vol, flats[0], dark,
+                                  [dev, dev], dual=dual)
+            got.add(hashlib.sha256(np.ascontiguousarray(out).tobytes())
+                    .hexdigest())
+            del out
+        if len(got) != 1:
+            raise AssertionError(f"[step-{tag}] output differs between runs")
+        digests[f"step-{tag}"] = got.pop()
+        print(f"[step-{tag}] sha256 of the row-sharded step's output on "
+              f"plane 0 of the halo tile: {digests[f'step-{tag}']}")
     print(json.dumps(digests))
     return 0
 

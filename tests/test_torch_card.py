@@ -869,23 +869,91 @@ def test_card_destripe_batch_matches_cpu(card, epilogue):
     assert (d > 1).mean() <= 1e-4, f"{(d > 1).mean():.2%} flipped"
 
 
-@pytest.mark.parametrize("shape,dtype", [((3, 1600, 2000), torch.uint16),
-                                         ((2, 37, 203), torch.float32),
-                                         ((2, 200, 260), torch.uint16)])
-def test_card_blend_matches_twin(card, shape, dtype):
-    """The blend kernel against its twin, both bands read from the stacked
-    pair in place; ragged tiles on both axes."""
-    g = torch.Generator(device="cpu").manual_seed(shape[1])
+# the blend: the step's plane, ragged tiles on both axes, a plane under the
+# box width on both axes, and a width that is not a multiple of 4
+BLEND_CASES = [((3, 1600, 2000), torch.uint16), ((2, 37, 203), torch.float32),
+               ((2, 200, 260), torch.uint16), ((1, 5, 9), torch.uint16),
+               ((2, 61, 1001), torch.float32)]
+
+
+def _blend_case(shape, dtype, card, rows=None):
+    """x, the stacked band pair, centres and the emitted rows' fields."""
+    g = torch.Generator(device="cpu").manual_seed(shape[1] * 7 + shape[2])
     B = shape[0]
     x = torch.randint(0, 4000, shape, generator=g).to(dtype).to(card)
     both = (torch.randn((2 * B,) + shape[1:], generator=g) * 300
             + 500).to(card)
     centers = (torch.rand(B, generator=g) * 300 + 100).to(card)
-    got = tbl.blend_smooth_mix(x, both, None, centers, 100.0)
-    want = tbl.blend_bands(x, both[:B], both[B:], centers, 100.0)
-    _close(got, want, scale=both.abs().max().item())
+    n = shape[1] if rows is None else rows[1]
+    flat = (1.0 + 0.5 * torch.rand((n, shape[2]), generator=g)).to(card)
+    dark = (torch.rand((n, shape[2]), generator=g) * 400).to(card)
+    return x, both, centers, flat, dark
+
+
+def _blend_modes(card, shape, dtype, rows=None):
+    """The kernel in each mode against its twin composition (the twin, the
+    row slice, the epilogue), and each fused form bit-equal to the bare
+    kernel followed by the epilogue on the card."""
+    x, both, centers, flat, dark = _blend_case(shape, dtype, card, rows)
+    B = shape[0]
+    bare = tbl.blend_smooth_mix(x, both, None, centers, 100.0, out_rows=rows)
+    twin = tbl.blend_bands(x, both[:B], both[B:], centers, 100.0)
+    if rows is not None:
+        twin = twin[:, rows[0]:rows[0] + rows[1]]
+    _close(bare, twin, scale=both.abs().max().item())
+    for kw, epi in ((dict(flat=flat, dark=dark),
+                     lambda y: tf.flatfield_correction(y, flat, dark)),
+                    (dict(wrap=True), tf.wrap_cast)):
+        got = tbl.blend_smooth_mix(x, both, None, centers, 100.0,
+                                   out_rows=rows, **kw)
+        assert got.dtype == torch.uint16 and got.shape == bare.shape
+        assert torch.equal(got, epi(bare))
+        d = (got.to(torch.int32) - epi(twin).to(torch.int32)).abs()
+        if "wrap" in kw:  # modulo 2^16: 65535 and 0 are 1 LSB apart
+            d = torch.minimum(d, 65536 - d)
+        assert d.max().item() <= 1
+
+
+@pytest.mark.parametrize("shape,dtype", BLEND_CASES)
+def test_card_blend_matches_twin(card, shape, dtype):
+    """The blend kernel against its twin, both bands read from the stacked
+    pair in place, bare and with each fused epilogue."""
+    _blend_modes(card, shape, dtype)
+    x, both, centers, _, _ = _blend_case(shape, dtype, card)
     with pytest.raises(ValueError, match="radius"):
         tbl.blend_smooth_mix(x, both, None, centers, 100.0, smooth_radius=4)
+
+
+@pytest.mark.parametrize("shape,rows", [((2, 48, 203), (8, 32)),
+                                        ((1, 200, 260), (0, 192)),
+                                        ((1, 8208, 2000), (8, 8192)),
+                                        ((2, 12, 9), (11, 1))])
+def test_card_blend_window_rows(card, shape, rows):
+    """A row shard's window: the kernel emits rows [first, first + count)
+    with the box clamped at the window's edges, as the twin's slice."""
+    _blend_modes(card, shape, torch.uint16, rows)
+
+
+def test_card_blend_split_bands_and_launches(card):
+    """Separate fore and back buffers read as the stacked pair's halves;
+    each call counts one launch; an empty row range launches nothing."""
+    x, both, centers, flat, dark = _blend_case((2, 37, 203), torch.uint16,
+                                               card)
+    tops.reset_launches()
+    a = tbl.blend_smooth_mix(x, both, None, centers, 100.0, flat=flat,
+                             dark=dark)
+    b = tbl.blend_smooth_mix(x, both[:2].clone(), both[2:].clone(), centers,
+                             100.0, flat=flat, dark=dark)
+    assert torch.equal(a, b) and tbl.blend_smooth_mix.launches == 2
+    empty = tbl.blend_smooth_mix(x, both, None, centers, 100.0,
+                                 out_rows=(5, 0), wrap=True)
+    assert empty.shape == (2, 0, 203) and tbl.blend_smooth_mix.launches == 2
+
+
+def test_card_blend_div17_is_ieee_division(card):
+    """The kernel's division by 17 is bit-equal to IEEE division on every
+    float32 from +0 to 17.0 (the range of a sum of 17 sigmoid values)."""
+    assert tbl.div17_mismatches(card) == (0, -1)
 
 
 def test_card_wrapped_forms_match_twins(card):

@@ -34,6 +34,7 @@ from aind_smartspim_destripe_tpu.io.readers import imread  # noqa: E402
 from aind_smartspim_destripe_tpu.io.zarr import open_zarr  # noqa: E402
 from aind_smartspim_destripe_tpu.ops import dual_band as jdb  # noqa: E402
 from aind_smartspim_destripe_tpu.ops import filter as jf  # noqa: E402
+from aind_smartspim_destripe_tpu.ops import flatfield as jff  # noqa: E402
 from aind_smartspim_destripe_tpu.ops import pallas_band as pb  # noqa: E402
 from aind_smartspim_destripe_tpu.ops import pallas_blend as pbl  # noqa: E402
 from aind_smartspim_destripe_tpu.ops import pallas_median as pm  # noqa: E402
@@ -118,6 +119,133 @@ def test_blend_refuses_unpaired_stack():
     with pytest.raises(ValueError, match="stacked band pair"):
         tbl.blend_smooth_mix(torch.from_numpy(x), torch.from_numpy(fore),
                              None, torch.from_numpy(centers), 100.0)
+
+
+# The fused epilogues: shapes at and under the box width on each axis, a
+# ragged tile, and a non-multiple-of-4 width; the emitted rows, when cut,
+# are a row shard's window's middle (or its end for the tiny plane).
+FUSED_SHAPES = [(2, 37, 203), (1, 5, 9), (2, 200, 260)]
+FUSED_ROWS = {37: (8, 21), 5: (2, 3), 200: (16, 168)}
+
+
+def _fused_inputs(shape, epilogue, rows):
+    """uint16 planes, the stacked band pair, centres and the fields of the
+    emitted rows (a darkfield larger than the rows, cropped by the blend as
+    by ``flatfield_correction``)."""
+    B, h, w = shape
+    rng = np.random.default_rng(h * 1000 + w)
+    x = rng.integers(0, 4000, shape).astype(np.uint16)
+    both = (rng.normal(size=(2 * B, h, w)) * 300 + 800).astype(np.float32)
+    centers = rng.uniform(100.0, 3000.0, (B,)).astype(np.float32)
+    n = h if rows is None else rows[1]
+    kw = {}
+    if epilogue == "flat":
+        kw = dict(flat=(1.0 + 0.5 * rng.random((n, w))).astype(np.float32),
+                  dark=rng.uniform(0.0, 600.0, (n + 3, w + 2)).astype(
+                      np.float32))
+    elif epilogue == "wrap":
+        both[:B] -= 1500.0  # negative foreground values: the wrap's modulo
+        kw = dict(wrap=True)
+    return x, both, centers, kw
+
+
+def _torch_epilogue(y, kw):
+    if "flat" in kw:
+        return tf.flatfield_correction(y, torch.from_numpy(kw["flat"]),
+                                       torch.from_numpy(kw["dark"]))
+    return tf.wrap_cast(y)
+
+
+@pytest.mark.parametrize("rows", [None, "cut"], ids=["all-rows", "out-rows"])
+@pytest.mark.parametrize("stacked", [True, False], ids=["stacked", "split"])
+@pytest.mark.parametrize("epilogue", ["flat", "wrap"])
+@pytest.mark.parametrize("shape", FUSED_SHAPES,
+                         ids=lambda s: f"{s[1]}x{s[2]}")
+def test_blend_fused_cpu_route_is_the_composition(shape, epilogue, stacked,
+                                                   rows):
+    """The CPU route of the fused blend is the step's composition, bit for
+    bit: the twin, the row slice, then the epilogue."""
+    rows = FUSED_ROWS[shape[1]] if rows else None
+    x, both, centers, kw = _fused_inputs(shape, epilogue, rows)
+    B = shape[0]
+    t = {k: torch.from_numpy(v) for k, v in
+         dict(x=x, both=both, c=centers).items()}
+    tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    if stacked:
+        got = tbl.blend_smooth_mix(t["x"], t["both"], None, t["c"], 100.0,
+                                   out_rows=rows, **tkw)
+    else:
+        got = tbl.blend_smooth_mix(t["x"], t["both"][:B], t["both"][B:],
+                                   t["c"], 100.0, out_rows=rows, **tkw)
+    y = tbl.blend_bands(t["x"], t["both"][:B], t["both"][B:], t["c"], 100.0)
+    if rows is not None:
+        y = y[:, rows[0]:rows[0] + rows[1]]
+    want = _torch_epilogue(y, kw)
+    n = shape[1] if rows is None else rows[1]
+    assert got.dtype == torch.uint16 and got.shape == (B, n, shape[2])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("epilogue", ["flat", "wrap"])
+@pytest.mark.parametrize("shape", FUSED_SHAPES,
+                         ids=lambda s: f"{s[1]}x{s[2]}")
+def test_blend_fused_matches_pallas_then_epilogue(shape, epilogue):
+    """The fused blend (CPU route) against the JAX package's Pallas blend
+    in interpret mode followed by its own epilogue (and row slice): within
+    1 LSB (the TPU kernel sums the box taps in another order and divides by
+    289 once)."""
+    rows = FUSED_ROWS[shape[1]]
+    x, both, centers, kw = _fused_inputs(shape, epilogue, rows)
+    B = shape[0]
+    y = pbl.blend_smooth_mix(jnp.asarray(x), jnp.asarray(both), None,
+                             jnp.asarray(centers), 100.0, interpret=True)
+    y = y[:, rows[0]:rows[0] + rows[1]]
+    if epilogue == "flat":
+        want = jff.flatfield_correction(y, jnp.asarray(kw["flat"]),
+                                        jnp.asarray(kw["dark"]))
+    else:
+        want = jf.wrap_cast(y)
+    tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    got = tbl.blend_smooth_mix(torch.from_numpy(x), torch.from_numpy(both),
+                               None, torch.from_numpy(centers), 100.0,
+                               out_rows=rows, **tkw).numpy()
+    want = np.asarray(want)
+    assert got.dtype == want.dtype == np.uint16
+    assert got.shape == want.shape == (B, rows[1], shape[2])
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    if epilogue == "wrap":  # modulo 2^16: 65535 and 0 are 1 LSB apart
+        d = np.minimum(d, 65536 - d)
+    assert d.max() <= 1, f"{d.max()} LSB"
+
+
+def test_blend_refuses_bad_epilogues_and_rows():
+    x, both, centers, _ = _fused_inputs((2, 37, 203), "flat", None)
+    x, both, centers = map(torch.from_numpy, (x, both, centers))
+    flat, dark = torch.ones((37, 203)), torch.zeros((37, 203))
+
+    def blend(**kw):
+        return tbl.blend_smooth_mix(x, both, None, centers, 100.0, **kw)
+
+    with pytest.raises(ValueError, match="exclusive"):
+        blend(flat=flat, dark=dark, wrap=True)
+    with pytest.raises(ValueError, match="together"):
+        blend(flat=flat)
+    with pytest.raises(ValueError, match="flatfield"):
+        blend(flat=torch.ones((36, 203)), dark=dark)
+    with pytest.raises(ValueError, match="darkfield"):
+        blend(flat=flat, dark=torch.zeros((37, 200)))
+    with pytest.raises(ValueError, match="flatfield"):  # fields of the rows
+        blend(flat=flat, dark=dark, out_rows=(8, 21))
+    for rows in ((-1, 5), (30, 8), (0, 38), (4, -1)):
+        with pytest.raises(ValueError, match="outside the window"):
+            blend(out_rows=rows)
+    with pytest.raises(ValueError, match="exclusive"):
+        tdb.dual_band_destripe_batch(_plans(96, 128)[1],
+                                     torch.zeros((1, 96, 128)), 100.0,
+                                     flat=torch.ones((96, 128)),
+                                     dark=torch.zeros((96, 128)), wrap=True)
 
 
 # ---------------------------------------------------------------------------
@@ -313,8 +441,13 @@ def test_device_step_dual_matches_jax():
     assert got.dtype == np.uint16 and got.shape == x.shape
     d = np.abs(got.astype(np.int64) - want.astype(np.int64))
     assert d.max() <= 1, f"{d.max()} LSB"
+    jw = jpl.make_device_step(jp, HIGH_INT, False, **kw)
+    want = np.asarray(jw(jw.put(x), None, None))
     wstep = tpl.make_device_step(tp, HIGH_INT, False, devices=CPU, **kw)
-    assert wstep(wstep.put(x), None, None).dtype == torch.uint16
+    got = wstep(wstep.put(x), None, None).numpy()
+    assert got.dtype == np.uint16 and got.shape == x.shape
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    assert d.max() <= 1, f"wrap step: {d.max()} LSB"
 
 
 def test_destripe_zarr_dual_matches_jax(tmp_path, monkeypatch):

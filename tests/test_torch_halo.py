@@ -347,6 +347,16 @@ def test_dual_halo_route_matches_jax_dense():
     fixed_plane = tf.wrap_cast(dual_band_destripe_batch(
         tp, torch.from_numpy(img), 100.0, 500.0)).numpy()
     _gate_vs_jax(fixed, fixed_plane)
+    # the flat-field epilogue, fused into each shard's blend
+    flat, dark = _fields()
+    want = _jax_route(img, 8, jp, dual=True, flat=flat, dark=dark)
+    got = _route(img, 8, tp, dual=True, flat=flat, dark=dark)
+    assert got.dtype == np.uint16 and got.shape == img.shape
+    _gate_vs_jax(got, want)
+    plane = dual_band_destripe_batch(
+        tp, torch.from_numpy(img), 100.0, -1.0, flat=torch.from_numpy(flat),
+        dark=torch.from_numpy(dark)).numpy()
+    _gate_vs_jax(got, plane)
 
 
 def test_halo_step_matches_jax_kernel_tier(monkeypatch):
