@@ -32,6 +32,7 @@ generic zarr tooling decode here without numcodecs):
 from __future__ import annotations
 
 import ctypes
+import ctypes.util
 import os
 import struct
 from typing import Optional
@@ -800,3 +801,63 @@ def decompress(frame) -> bytes:
             if n == nbytes:
                 return dst[:nbytes].tobytes()
     return decompress_py(frame)
+
+
+# ---------------------------------------------------------------------------
+# The system c-blosc, an interop oracle (tests, reading foreign frames)
+# ---------------------------------------------------------------------------
+
+
+_libblosc = None
+
+
+def load_system_blosc():
+    """A ctypes handle to the system c-blosc, or None when it is absent."""
+    global _libblosc
+    if _libblosc is not None:
+        return _libblosc or None
+    path = ctypes.util.find_library("blosc") or "libblosc.so.1"
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError:
+        _libblosc = False
+        return None
+    lib.blosc_compress_ctx.restype = ctypes.c_int
+    lib.blosc_compress_ctx.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_size_t, ctypes.c_size_t,
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+        ctypes.c_size_t, ctypes.c_int]
+    lib.blosc_decompress_ctx.restype = ctypes.c_int
+    lib.blosc_decompress_ctx.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int]
+    _libblosc = lib
+    return lib
+
+
+def system_compress(data: bytes, typesize: int, clevel=3, shuffle=SHUFFLE,
+                    cname="zstd") -> bytes:
+    """A blosc frame of ``data`` from the system c-blosc (RuntimeError when
+    it is absent or fails)."""
+    lib = load_system_blosc()
+    if lib is None:
+        raise RuntimeError("system libblosc unavailable")
+    dst = ctypes.create_string_buffer(len(data) + 1024)
+    n = lib.blosc_compress_ctx(clevel, shuffle, typesize, len(data), data,
+                               dst, len(dst), cname.encode(), 0, 1)
+    if n <= 0:
+        raise RuntimeError(f"libblosc compress failed: {n}")
+    return dst.raw[:n]
+
+
+def system_decompress(frame: bytes, nbytes: int) -> bytes:
+    """The ``nbytes`` decoded by the system c-blosc from ``frame``
+    (RuntimeError when it is absent or decodes another length)."""
+    lib = load_system_blosc()
+    if lib is None:
+        raise RuntimeError("system libblosc unavailable")
+    dst = ctypes.create_string_buffer(max(nbytes, 1))
+    n = lib.blosc_decompress_ctx(frame, dst, nbytes, 1)
+    if n != nbytes:
+        raise RuntimeError(
+            f"libblosc decompress returned {n}, expected {nbytes}")
+    return dst.raw[:nbytes]

@@ -19,8 +19,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .wavelets import f32_matmul
+
 __all__ = ["notch", "gaussian_filter", "packed_notch_matrix",
-           "apply_notch_fft"]
+           "apply_notch", "apply_notch_fft"]
 
 
 def notch(n: int, sigma: float) -> np.ndarray:
@@ -76,6 +78,14 @@ def _gains(n: int, sigma: float, device: torch.device):
     a, b = _packed_gains(n, notch(n, sigma))
     return (torch.as_tensor(a, dtype=torch.float32, device=device),
             torch.as_tensor(b, dtype=torch.float32, device=device))
+
+
+def apply_notch(rows: torch.Tensor, bmat) -> torch.Tensor:
+    """A precomputed notch operator (:func:`packed_notch_matrix`, numpy or
+    a tensor) on the last axis of ``rows``: ``rows @ bmat.T`` in float32."""
+    f32_matmul()
+    bmat = torch.as_tensor(bmat, dtype=rows.dtype, device=rows.device)
+    return torch.matmul(rows, bmat.t())
 
 
 def apply_notch_fft(rows: torch.Tensor, sigma: float) -> torch.Tensor:

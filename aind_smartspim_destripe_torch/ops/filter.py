@@ -51,7 +51,7 @@ import torch
 from . import cuda_band, cuda_dense, cuda_notch, fft_notch, wavelets
 from .flatfield import flatfield_correction, wrap_cast
 from .otsu import threshold_otsu_batch
-from .wavelets import wavedec2_shapes, wavelet
+from .wavelets import f32_matmul, wavedec2_shapes, wavelet
 
 __all__ = [
     "FilterConfig",
@@ -77,14 +77,6 @@ _BAND_MIN_SIDE = 560
 # row-sharded route runs a cH band of at least this many pixels through the
 # sharded histogram, median and notch kernels, smaller ones whole.
 _PALLAS_MIN_PX = 32 * 1024
-
-
-def f32_matmul() -> None:
-    """Full float32 matrix products on the card: TF32 off for cuBLAS and
-    cuDNN. TF32 keeps ~3 decimal digits; plain bf16 missed the 60 dB
-    fidelity gate by ~30 dB, and TF32 has not been measured."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,23 @@
 """
-Daubechies filter banks and the dense per-axis DWT operators, in numpy.
+Daubechies filter banks, the per-axis DWT operators (numpy) and the 2-D
+transform API (torch).
 
-Counterpart of ``aind_smartspim_destripe_tpu/ops/wavelets.py`` (its numpy
-builders and its blocked lowpass passes). The destripe step applies a DWT
-level along one axis as a banded linear map; these builders produce that
-map as a dense float32 matrix in pywt's conventions, which the step either
-multiplies directly (``torch.matmul``) or hands to :mod:`.cuda_band` in
-compact band form. At plane widths where a dense x operator (O(w^2)) is too
-large to build, the row-sharded route applies the x lowpass passes as the
-blocked, shift-invariant maps :func:`an_lo_pass_last` and
-:func:`syn_lo_pass_last` (O(flen) operator bytes) instead:
+Counterpart of ``aind_smartspim_destripe_tpu/ops/wavelets.py``. The
+destripe step applies a DWT level along one axis as a banded linear map;
+the numpy builders produce that map as a dense float32 matrix in pywt's
+conventions, which the step either multiplies directly (``torch.matmul``)
+or hands to :mod:`.cuda_band` in compact band form. At plane widths where a
+dense x operator (O(w^2)) is too large to build, the row-sharded route
+applies the x lowpass passes as the blocked, shift-invariant maps
+:func:`an_lo_pass_last` and :func:`syn_lo_pass_last` (O(flen) operator
+bytes) instead.
+
+The public transform API works on tensors of any leading batch shape, on
+their device, with float32 products (TF32 off on the card):
+:func:`dwt2` / :func:`idwt2` (one level, blocked by default or through the
+dense operators), :func:`wavedec2` / :func:`waverec2` (pywt's multi-level
+API) and the convolution forms :func:`dwt2_conv` / :func:`idwt2_conv` that
+cross-check them. Conventions:
 
 - "symmetric" half-sample extension by ``flen - 1`` samples per side,
   folded into the analysis matrix;
@@ -41,6 +49,12 @@ __all__ = [
     "synthesis_operators",
     "an_lo_pass_last",
     "syn_lo_pass_last",
+    "dwt2",
+    "idwt2",
+    "dwt2_conv",
+    "idwt2_conv",
+    "wavedec2",
+    "waverec2",
 ]
 
 
@@ -86,6 +100,14 @@ def _daubechies_scaling(n_moments: int) -> np.ndarray:
     if abs(h[0]) < abs(h[-1]):  # minimum phase: energy front-loaded
         h = h[::-1]
     return np.ascontiguousarray(h, dtype=np.float64)
+
+
+def f32_matmul() -> None:
+    """Full float32 matrix products on the card: TF32 off for cuBLAS and
+    cuDNN. TF32 keeps ~3 decimal digits; plain bf16 missed the 60 dB
+    fidelity gate by ~30 dB, and TF32 has not been measured."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 @dataclass(frozen=True)
@@ -316,12 +338,16 @@ def _blocked_synthesis_mat(wavelet_name: str) -> Tuple[np.ndarray, int]:
 
 @lru_cache(maxsize=64)
 def _operand(mat_key: tuple, device: torch.device) -> torch.Tensor:
+    """A blocked pass's matrix on ``device``: ``kind`` "an" (both
+    filters' outputs), "an_lo" (the lowpass outputs only), "syn" (lowpass
+    and highpass windows) or "syn_lo" (the lowpass window only)."""
     name, kind = mat_key
-    if kind == "an":
-        m = _blocked_analysis_mat(name)[:, :_AN_R]
+    if kind.startswith("an"):
+        m = _blocked_analysis_mat(name)
+        m = m[:, :_AN_R] if kind == "an_lo" else m
     else:
         M, T = _blocked_synthesis_mat(name)
-        m = M[:T]
+        m = M[:T] if kind == "syn_lo" else M
     return torch.as_tensor(np.ascontiguousarray(m), device=device)
 
 
@@ -334,11 +360,10 @@ def _windows(c: torch.Tensor, step: int, nq: int, width: int):
     return torch.cat([base, halo], dim=-1)
 
 
-def an_lo_pass_last(x: torch.Tensor, wav: Wavelet) -> torch.Tensor:
-    """Lowpass-only analysis along the last axis -> (..., L): the blocked
-    equivalent of ``x @ analysis_operator(n)[:L].T`` (the dense ``an_x_lo``
-    of :meth:`..filter.DestripePlan.constants`), at O(flen) operator bytes
-    instead of O(n^2). float32 in, float32 out."""
+def _an_windows(x: torch.Tensor, wav: Wavelet):
+    """The analysis windows of the last axis of ``x``, symmetric extension
+    written in (:func:`_fold_symmetric`: ``F.pad(mode="reflect")`` would
+    drop the edge sample): (..., nq, 2 _AN_R + flen - 2) and L."""
     flen = wav.flen
     n = x.shape[-1]
     L = dwt_coeff_len(n, flen)
@@ -349,9 +374,51 @@ def an_lo_pass_last(x: torch.Tensor, wav: Wavelet) -> torch.Tensor:
     need = 1 + 2 * R * (nq + 1)
     if ext.shape[-1] < need:
         ext = torch.nn.functional.pad(ext, (0, need - ext.shape[-1]))
-    win = _windows(ext[..., 1:], 2 * R, nq, 2 * R + flen - 2)
+    return _windows(ext[..., 1:], 2 * R, nq, 2 * R + flen - 2), L
+
+
+def _an_pass_last(x: torch.Tensor, wav: Wavelet):
+    """One analysis pass along the last axis -> (lo, hi), each (..., L):
+    the blocked equivalent of ``x @ analysis_operator(n).T``."""
+    win, L = _an_windows(x, wav)
     out = torch.matmul(win, _operand((wav.name, "an"), x.device))
-    return out.reshape(x.shape[:-1] + (nq * R,))[..., :L]
+    lead, nq, R = x.shape[:-1], win.shape[-2], _AN_R
+    lo = out[..., :R].reshape(lead + (nq * R,))[..., :L]
+    hi = out[..., R:].reshape(lead + (nq * R,))[..., :L]
+    return lo, hi
+
+
+def an_lo_pass_last(x: torch.Tensor, wav: Wavelet) -> torch.Tensor:
+    """Lowpass-only analysis along the last axis -> (..., L): the blocked
+    equivalent of ``x @ analysis_operator(n)[:L].T`` (the dense ``an_x_lo``
+    of :meth:`..filter.DestripePlan.constants`), at O(flen) operator bytes
+    instead of O(n^2). float32 in, float32 out."""
+    win, L = _an_windows(x, wav)
+    out = torch.matmul(win, _operand((wav.name, "an_lo"), x.device))
+    return out.reshape(x.shape[:-1] + (win.shape[-2] * _AN_R,))[..., :L]
+
+
+def _syn_windows(c: torch.Tensor, nq: int, H: int, T: int) -> torch.Tensor:
+    """(..., nq, T) synthesis windows of the coefficients ``c``, zero
+    padded past their end."""
+    c = torch.nn.functional.pad(c, (0, max(0, H * nq + T - c.shape[-1])))
+    return _windows(c, H, nq, T)
+
+
+def _syn_pass_last(lo: torch.Tensor, hi: torch.Tensor,
+                   wav: Wavelet) -> torch.Tensor:
+    """One synthesis pass along the last axis from L lowpass and L highpass
+    coefficients -> (..., 2L - flen + 2): the blocked equivalent of
+    ``cat([lo, hi], -1) @ synthesis_operator(L).T``."""
+    out_len = idwt_len(lo.shape[-1], wav.flen)
+    M, T = _blocked_synthesis_mat(wav.name)
+    R_out = M.shape[1]
+    H = R_out // 2
+    nq = -(-out_len // R_out)
+    win = torch.cat([_syn_windows(lo, nq, H, T), _syn_windows(hi, nq, H, T)],
+                    dim=-1)
+    out = torch.matmul(win, _operand((wav.name, "syn"), lo.device))
+    return out.reshape(lo.shape[:-1] + (nq * R_out,))[..., :out_len]
 
 
 def syn_lo_pass_last(lo: torch.Tensor, wav: Wavelet,
@@ -361,12 +428,137 @@ def syn_lo_pass_last(lo: torch.Tensor, wav: Wavelet,
     [:out_len, :L].T`` (the dense trimmed ``syn_x_lo``). Output s = q R_out
     + s' of coefficient t = q H + t' has tap j = s' + flen - 2 - 2 t', so
     every tap of the dense operator lands in block q's window."""
-    L = lo.shape[-1]
     M, T = _blocked_synthesis_mat(wav.name)
     R_out = M.shape[1]
-    H = R_out // 2
     nq = -(-out_len // R_out)
-    lo_p = torch.nn.functional.pad(lo, (0, max(0, H * nq + T - L)))
-    win = _windows(lo_p, H, nq, T)
-    out = torch.matmul(win, _operand((wav.name, "syn"), lo.device))
+    win = _syn_windows(lo, nq, R_out // 2, T)
+    out = torch.matmul(win, _operand((wav.name, "syn_lo"), lo.device))
     return out.reshape(lo.shape[:-1] + (nq * R_out,))[..., :out_len]
+
+
+# ---------------------------------------------------------------------------
+# The public transform API
+# ---------------------------------------------------------------------------
+
+
+def _swap(x: torch.Tensor) -> torch.Tensor:
+    return x.transpose(-1, -2)
+
+
+def _on(op, like: torch.Tensor) -> torch.Tensor:
+    """An operator (numpy or tensor) as a tensor of ``like``'s dtype and
+    device."""
+    return torch.as_tensor(op, dtype=like.dtype, device=like.device)
+
+
+def dwt2(x: torch.Tensor, wav: Wavelet, ops=None):
+    """One 2-D analysis level over the last two axes of ``x`` (leading axes
+    are batch): ``(cA, (cH, cV, cD))`` with pywt's values. By default the
+    blocked passes (no per-geometry operator); ``ops``, a dense ``(A_y,
+    A_x)`` pair (:func:`analysis_operator`, numpy or tensors), selects the
+    dense products instead."""
+    f32_matmul()
+    if ops is None:
+        lo_y, hi_y = _an_pass_last(_swap(x), wav)
+        aa, ad = _an_pass_last(_swap(lo_y), wav)
+        da, dd = _an_pass_last(_swap(hi_y), wav)
+        return aa, (da, ad, dd)
+    A_y, A_x = _on(ops[0], x), _on(ops[1], x)
+    y = torch.matmul(torch.matmul(A_y, x), A_x.t())
+    L_h, L_w = A_y.shape[0] // 2, A_x.shape[0] // 2
+    return y[..., :L_h, :L_w], (y[..., L_h:, :L_w], y[..., :L_h, L_w:],
+                                y[..., L_h:, L_w:])
+
+
+def idwt2(ca: torch.Tensor, details, wav: Wavelet, ops=None) -> torch.Tensor:
+    """One 2-D synthesis level, the inverse of :func:`dwt2`: blocked by
+    default; ``ops``, a dense ``(S_y, S_x)`` pair
+    (:func:`synthesis_operator`, rows trimmed or not), selects the dense
+    products."""
+    f32_matmul()
+    ch, cv, cd = details
+    if ops is None:
+        lo_row = _syn_pass_last(ca, cv, wav)  # lowpass-y channel
+        hi_row = _syn_pass_last(ch, cd, wav)  # highpass-y channel
+        return _swap(_syn_pass_last(_swap(lo_row), _swap(hi_row), wav))
+    S_y, S_x = _on(ops[0], ca), _on(ops[1], ca)
+    c2 = torch.cat([torch.cat([ca, cv], dim=-1),  # lowpass-y: [aa | ad]
+                    torch.cat([ch, cd], dim=-1)],  # highpass-y: [da | dd]
+                   dim=-2)
+    return torch.matmul(torch.matmul(S_y, c2), S_x.t())
+
+
+def _conv_kernels(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """(4, flen, flen) outer products in channel order (aa, da, ad, dd) ==
+    (cA, cH, cV, cD): the first letter filters y, the second x."""
+    return np.stack([np.outer(lo, lo), np.outer(hi, lo), np.outer(lo, hi),
+                     np.outer(hi, hi)])
+
+
+def dwt2_conv(x: torch.Tensor, wav: Wavelet):
+    """:func:`dwt2` as one strided convolution (a cross-check of the
+    product forms): the symmetric extension correlated with the reversed
+    decomposition filters at stride 2, from extended index 1."""
+    f32_matmul()
+    flen = wav.flen
+    h, w = x.shape[-2:]
+    xb = x.reshape((-1, 1, h, w))
+    for axis, n in ((-2, h), (-1, w)):
+        idx = _fold_symmetric(np.arange(-(flen - 1), n + flen - 1), n)
+        xb = xb.index_select(axis, torch.as_tensor(idx[1:], device=x.device))
+    k = _conv_kernels(wav.dec_lo[::-1], wav.dec_hi[::-1])[:, None]
+    out = torch.nn.functional.conv2d(xb, _on(k, x), stride=2)
+    oh, ow = dwt_coeff_len(h, flen), dwt_coeff_len(w, flen)
+    out = out[..., :oh, :ow].reshape(x.shape[:-2] + (4, oh, ow))
+    bands = out.unbind(dim=-3)
+    return bands[0], bands[1:]
+
+
+def idwt2_conv(ca: torch.Tensor, details, wav: Wavelet) -> torch.Tensor:
+    """:func:`idwt2` as one transposed convolution (a cross-check of the
+    product forms): the coefficients upsampled by 2 and convolved with the
+    reconstruction filters, cropped as the synthesis operator crops
+    (padding flen - 2)."""
+    f32_matmul()
+    flen = wav.flen
+    h, w = ca.shape[-2:]
+    xb = torch.stack([ca, *details], dim=-3).reshape((-1, 4, h, w))
+    k = _conv_kernels(wav.rec_lo_arr, wav.rec_hi)[:, None]
+    out = torch.nn.functional.conv_transpose2d(xb, _on(k, ca), stride=2,
+                                               padding=flen - 2)
+    oh, ow = idwt_len(h, flen), idwt_len(w, flen)
+    return out[:, 0, :oh, :ow].reshape(ca.shape[:-2] + (oh, ow))
+
+
+def wavedec2(x: torch.Tensor, wav: Wavelet, level: Optional[int] = None,
+             operators=None) -> list:
+    """Multi-level 2-D analysis, pywt's ``wavedec2``: ``[cA_n, (cH_n, cV_n,
+    cD_n), ..., (cH_1, cV_1, cD_1)]``, coarsest detail first.
+    ``operators``: per-level dense ``(A_y, A_x)`` pairs, finest first
+    (:func:`analysis_operators`), for the dense products."""
+    n_levels, _ = wavedec2_shapes(tuple(x.shape[-2:]), wav, level)
+    coeffs, approx = [], x
+    for lvl in range(n_levels):
+        approx, det = dwt2(approx, wav,
+                           None if operators is None else operators[lvl])
+        coeffs.append(det)
+    coeffs.append(approx)
+    return coeffs[::-1]
+
+
+def waverec2(coeffs, wav: Wavelet, operators=None) -> torch.Tensor:
+    """Multi-level 2-D synthesis with pywt's crop-by-one rule: a running
+    approximation one sample larger than the next detail band along an
+    axis is cut to it first; any other mismatch raises ``ValueError``.
+    ``operators``: per-level dense ``(S_y, S_x)`` pairs, coarsest first
+    (:func:`synthesis_operators`)."""
+    approx = coeffs[0]
+    for i, det in enumerate(coeffs[1:]):
+        dh, dw = det[0].shape[-2:]
+        ah, aw = approx.shape[-2:]
+        if not (0 <= ah - dh <= 1 and 0 <= aw - dw <= 1):
+            raise ValueError(f"inconsistent coefficient shapes: approx "
+                             f"{(ah, aw)} vs detail {(dh, dw)}")
+        approx = idwt2(approx[..., :dh, :dw], det, wav,
+                       None if operators is None else operators[i])
+    return approx

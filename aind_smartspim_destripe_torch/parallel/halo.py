@@ -33,6 +33,10 @@ histogram with a row bound, the masked row median and the per-plane notch
 product (:func:`.cuda_notch.notch_select`); bands under the kernels'
 pay-off gate (:data:`..ops.filter._PALLAS_MIN_PX`) are filtered whole.
 
+The same operator-slice passes, planned on the fly, give one DWT level of
+row-sharded planes: :func:`banded_apply_y_sharded`, :func:`dwt2_y_sharded`
+and :func:`idwt2_y_sharded`, the x passes local to each shard.
+
 Levels whose input width reaches the dense-x gate
 (:func:`banded_x_min_w_default`) carry no dense x operator, as in the JAX
 package: their O(w^2) matrices are never built. Such a level runs K1/K4 per
@@ -82,6 +86,9 @@ __all__ = [
     "halo_constants",
     "halo_device_constants",
     "shard_rows",
+    "banded_apply_y_sharded",
+    "dwt2_y_sharded",
+    "idwt2_y_sharded",
     "destripe_y_sharded",
     "dual_band_destripe_y_sharded",
 ]
@@ -527,6 +534,101 @@ def _dense_y(v: RowShards, op: torch.Tensor) -> RowShards:
     """A replicated level's y pass: the band gathered to the first
     device and multiplied whole."""
     return _replicated(torch.matmul(op, v.gather(op.device)))
+
+
+# ---------------------------------------------------------------------------
+# One DWT level on row shards (planned on the fly)
+# ---------------------------------------------------------------------------
+
+
+def _sharded(x, mesh) -> RowShards:
+    return x if isinstance(x, RowShards) else shard_rows(x, mesh)
+
+
+def _planned_op(OP: np.ndarray, N: int, mesh) -> tuple:
+    """One banded (M, N) operator planned over the mesh
+    (:func:`_plan_op_shards`) and moved to its entries, in
+    :func:`_apply_ops`' form; raises ``ValueError`` when the halo passes a
+    shard's rows (too many entries for N rows)."""
+    D = len(mesh)
+    shards, K, N_pad = _plan_op_shards(OP, N, D)
+    if K > N_pad // D:
+        raise ValueError(f"halo {K} exceeds shard height {N_pad // D}: too "
+                         f"many devices for {N} rows")
+    M = len(shards.row_idx)
+    return ([torch.as_tensor(shards.slices[d], device=dev)
+             for d, dev in enumerate(mesh)],
+            [int(c) for c in shards.c0s],
+            [M * (d + 1) // D - M * d // D for d in range(D)],
+            shards.slices.shape[-1])
+
+
+def banded_apply_y_sharded(x, OP: np.ndarray, mesh) -> RowShards:
+    """``OP @ x`` along the rows of a (B, N, W) tensor (split by
+    :func:`shard_rows`) or of a :class:`RowShards`, the operator's shards
+    planned on the fly. Returns a :class:`RowShards` (``.gather(device)``
+    for one tensor). Raises ``ValueError`` when the mesh has too many
+    entries for the rows."""
+    mesh = make_mesh(mesh)
+    x = _sharded(x, mesh)
+    return _apply_ops(x, [_planned_op(OP, x.rows, mesh)])[0]
+
+
+def _x_analysis(v: RowShards, wav) -> tuple:
+    """The row-local x analysis pass of every part (the blocked
+    :func:`..ops.wavelets._an_pass_last`, O(flen) operator bytes) ->
+    ``(lo, hi)`` as :class:`RowShards`."""
+    pairs = [wavelets._an_pass_last(p, wav) for p in v.parts]
+    return tuple(RowShards(tuple(pr[i] for pr in pairs), v.valid)
+                 for i in (0, 1))
+
+
+def dwt2_y_sharded(x, wavelet_name: str, mesh):
+    """One 2-D analysis level of (B, H, W) planes with the rows sharded
+    over the mesh: the y pass per shard through its halo window, then the
+    x pass locally. Returns ``(cA, (cH, cV, cD))`` as :class:`RowShards`
+    whose gathered values match :func:`..ops.wavelets.dwt2`."""
+    wavelets.f32_matmul()
+    mesh = make_mesh(mesh)
+    x = _sharded(x, mesh)
+    A_y = wavelets.analysis_operator(x.rows, wavelet_name)
+    L_y = A_y.shape[0] // 2
+    lo_y, hi_y = _apply_ops(x, [_planned_op(A_y[:L_y], x.rows, mesh),
+                                _planned_op(A_y[L_y:], x.rows, mesh)])
+    wav = wavelets.wavelet(wavelet_name)
+    ca, cv = _x_analysis(lo_y, wav)
+    ch, cd = _x_analysis(hi_y, wav)
+    return ca, (ch, cv, cd)
+
+
+def idwt2_y_sharded(ca, details, wavelet_name: str, mesh,
+                    out_shape: Optional[tuple] = None) -> RowShards:
+    """Inverse of :func:`dwt2_y_sharded` (one level): the x synthesis
+    locally per shard (the blocked
+    :func:`..ops.wavelets._syn_pass_last`), then the y synthesis as two
+    banded passes (the lowpass and highpass halves of the synthesis
+    operator) through their halo windows; ``out_shape`` crops as the
+    trimmed synthesis operators do. Takes :class:`RowShards` or (B, h, w)
+    tensors; returns a :class:`RowShards`."""
+    wavelets.f32_matmul()
+    mesh = make_mesh(mesh)
+    ca, ch, cv, cd = (_sharded(c, mesh) for c in (ca, *details))
+    wav = wavelets.wavelet(wavelet_name)
+    L_y = ca.rows
+    S_y = wavelets.synthesis_operator(L_y, wavelet_name)
+    w_out = None
+    if out_shape is not None:
+        S_y, w_out = S_y[: out_shape[0]], out_shape[1]
+
+    def rows(lo, hi):  # the x synthesis of [lo | hi]
+        return RowShards(tuple(
+            wavelets._syn_pass_last(a, b, wav)[..., :w_out]
+            for a, b in zip(lo.parts, hi.parts)), lo.valid)
+
+    lo_y = banded_apply_y_sharded(rows(ca, cv), S_y[:, :L_y], mesh)
+    hi_y = banded_apply_y_sharded(rows(ch, cd), S_y[:, L_y:], mesh)
+    return RowShards(tuple(a + b for a, b in zip(lo_y.parts, hi_y.parts)),
+                     lo_y.valid)
 
 
 def _otsu_sharded(v: RowShards, dev0, square: bool = True) -> torch.Tensor:

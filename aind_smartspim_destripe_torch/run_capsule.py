@@ -20,9 +20,10 @@ import os
 import re
 from pathlib import Path
 from time import time
-from typing import List, Tuple
+from typing import Tuple
 
 from . import __version__, zarr_destriper
+from .zarr_destriper import validate_capsule_inputs
 from .utils import utils
 from .utils.provenance import generate_data_processing
 
@@ -56,11 +57,6 @@ def get_resolution(acquisition_config: dict):
         float(scale_transform[1]),
         float(scale_transform[2]),
     )
-
-
-def validate_capsule_inputs(input_elements: List[str]) -> List[str]:
-    """List the missing required inputs."""
-    return [str(e) for e in input_elements if not Path(e).exists()]
 
 
 def _natsorted(paths):

@@ -29,7 +29,6 @@ import logging
 import os
 import threading
 import time
-import warnings
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
@@ -53,7 +52,7 @@ from ..parallel.halo import (
     halo_threshold_bytes,
     shard_rows,
 )
-from ..parallel.mesh import make_mesh
+from ..parallel.mesh import _host_tensor, _share, make_mesh
 
 __all__ = [
     "PipelineStats",
@@ -69,15 +68,6 @@ def resolve_device(devices=None) -> List[torch.device]:
     no CPU fallback); a list names the entries, ``[torch.device("cpu")]``
     included, and may repeat a device."""
     return make_mesh(devices)
-
-
-def _host_tensor(chunk: np.ndarray) -> torch.Tensor:
-    chunk = np.ascontiguousarray(chunk)
-    with warnings.catch_warnings():
-        # slabs decoded from a store can be read-only; the step only reads
-        # its input, so no copy is needed on the host
-        warnings.simplefilter("ignore", UserWarning)
-        return torch.from_numpy(chunk)
 
 
 @dataclass
@@ -187,11 +177,7 @@ def make_device_step(plan: DestripePlan, microscope_high_int: float,
                     for x, f, k in zip(images, flat, dark)]
 
     def put(chunk):
-        n = chunk.shape[0]
-        if n % len(mesh):
-            raise ValueError(f"batch {n} is not a multiple of the mesh's "
-                             f"{len(mesh)} entries")
-        b = n // len(mesh)
+        b = _share(chunk.shape[0], len(mesh))  # shard_planes' split
         return [_copier(dev).submit(_host_tensor(chunk[d * b:(d + 1) * b]).to,
                                     dev)
                 for d, dev in enumerate(mesh)]

@@ -6,6 +6,7 @@ Counterpart of ``aind_smartspim_destripe_tpu/runtime/tracing.py``:
 - ``device_trace``: a context manager around ``torch.profiler`` that writes
   a Chrome trace (host and, where CUDA is present, device activity) into a
   directory;
+- ``annotate``: a named region in that trace;
 - ``StageTimer``: per-stage wall-clock seconds and pixel counts.
 """
 
@@ -20,7 +21,7 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["device_trace", "StageTimer"]
+__all__ = ["device_trace", "annotate", "StageTimer"]
 
 
 @contextlib.contextmanager
@@ -37,6 +38,12 @@ def device_trace(logdir: Optional[str]):
     with torch.profiler.profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def annotate(name: str):
+    """A named region in the trace of :func:`device_trace`
+    (``torch.profiler.record_function``); costs nothing outside one."""
+    return torch.profiler.record_function(name)
 
 
 @dataclass

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import json
 import logging
+import multiprocessing
 import os
 import platform
 import re
@@ -28,6 +29,8 @@ except ImportError:  # pragma: no cover
 
 __all__ = [
     "ResourceProfiler",
+    "profile_resources",
+    "stop_child_process",
     "create_folder",
     "create_logger",
     "get_code_ocean_cpu_limit",
@@ -36,6 +39,35 @@ __all__ = [
     "read_image_directory_structure",
     "print_system_information",
 ]
+
+
+def profile_resources(
+    time_points: List,
+    cpu_percentages: List,
+    memory_usages: List,
+    monitoring_interval: int,
+):
+    """Append (seconds since start, CPU %, memory %) samples forever, one
+    each ``monitoring_interval`` seconds; run it in a daemon thread or a
+    child process (:class:`ResourceProfiler` wraps it in a thread)."""
+    start_time = time.time()
+    while True:
+        time_points.append(time.time() - start_time)
+        if psutil is not None:
+            cpu_percentages.append(
+                psutil.cpu_percent(interval=monitoring_interval))
+            memory_usages.append(psutil.virtual_memory().percent)
+        else:  # pragma: no cover
+            cpu_percentages.append(0.0)
+            memory_usages.append(0.0)
+            time.sleep(monitoring_interval)
+        time.sleep(monitoring_interval)
+
+
+def stop_child_process(process: multiprocessing.Process):
+    """Terminate and join a child process."""
+    process.terminate()
+    process.join()
 
 
 class ResourceProfiler:

@@ -27,7 +27,7 @@ from .io.codec import ensure_native_codec
 from .io.readers import imread
 from .io.zarr import BloscCodec, ZarrArray, ZarrGroup, group, open_zarr
 from .ops import flatfield as ffops
-from .ops.filter import FilterConfig, build_plan
+from .ops.filter import FilterConfig, build_plan, destripe_batch, f32_matmul
 from .ops.multiscale import windowed_mean
 from .parallel import distributed
 from .parallel.mesh import one_device
@@ -39,11 +39,15 @@ from .utils.utils import ResourceProfiler, read_json_as_dict  # noqa: F401
 __all__ = [
     "read_json_as_dict",
     "get_microscope_flats",
+    "pad_array_n_d",
+    "extract_global_to_local",
+    "execute_worker",
     "compute_pyramid",
     "write_ome_ngff_metadata",
     "compute_multiscale",
     "destripe_zarr",
     "destripe_channel",
+    "validate_capsule_inputs",
 ]
 
 
@@ -95,6 +99,103 @@ def get_microscope_flats(
             )
 
     return flatfield, metadata_json
+
+
+def pad_array_n_d(arr, dim: int = 5):
+    """Left-pad with singleton axes up to ``dim`` (at most 5)."""
+    if dim > 5:
+        raise ValueError("Padding more than 5 dimensions is not supported.")
+    while arr.ndim < dim:
+        arr = arr[np.newaxis, ...]
+    return arr
+
+
+def extract_global_to_local(global_ids_with_cells, global_slices,
+                            pad: int = 0):
+    """Map global ZYX ids (rows of ``global_ids_with_cells``, extra columns
+    kept) into the local frame of the chunk at ``global_slices``, keeping
+    the ids inside it grown by ``pad``; kept for the cell-segmentation
+    toolchain's API, the destripe flow does not use it."""
+    starts = np.array([s.start - pad for s in global_slices])
+    stops = np.array([s.stop + pad for s in global_slices])
+
+    g = global_ids_with_cells
+    keep = np.ones(len(g), dtype=bool)
+    for d in range(3):
+        keep &= (g[:, d] >= starts[d]) & (g[:, d] < stops[d])
+    picked = g[keep].copy()
+    picked[..., :3] = picked[..., :3] - starts - pad
+
+    keep2 = np.ones(len(picked), dtype=bool)
+    for d in range(3):
+        keep2 &= ((picked[:, d] >= 0)
+                  & (picked[:, d] <= (stops[d] - starts[d]) + pad))
+    return picked[keep2]
+
+
+def execute_worker(
+    data: np.ndarray,
+    output_slices: Tuple[slice, ...],
+    output_destriped_zarr,
+    cells_config: dict,
+    no_cells_config: dict,
+    shadow_correction: Optional[dict] = None,
+    dataset_name: str = "",
+    logger: Optional[logging.Logger] = None,
+    microscope_high_int: float = 2500.0,
+    device=None,
+):
+    """Destripe one in-memory Z block as one batched call on ``device`` (as
+    in :func:`.parallel.mesh.one_device`; None is the card) and write it
+    into ``output_destriped_zarr`` at ``output_slices``; returns what was
+    written. For custom orchestration: the streaming pipeline of
+    :mod:`.runtime.pipeline` is the production path.
+
+    ``data``: (Z, H, W) planes, or a squeezable 4-D/5-D block; uint16
+    planes go to the device as they are, other dtypes as float32.
+    ``shadow_correction``: ``{"flatfield", "darkfield", "retrospective",
+    "tile_config"}``; without ``retrospective`` the flat-field is the
+    tile's hemisphere flat (:func:`.ops.flatfield.get_hemisphere_flatfield`
+    on ``dataset_name``). With it the block is written as uint16 through
+    the flat-field correction, fused into the last synthesis kernel;
+    without it, as the float32 filtered planes (the store casts them)."""
+    block = np.asarray(data)
+    while block.ndim > 3:
+        block = np.squeeze(block, axis=0)
+    if block.dtype != np.uint16:
+        block = block.astype(np.float32)
+    dev = one_device(device)
+    f32_matmul()
+    h, w = block.shape[-2:]
+    plan = build_plan(h, w, FilterConfig.from_dict(cells_config),
+                      FilterConfig.from_dict(no_cells_config))
+    epi = {}
+    if shadow_correction is not None:
+        flat = shadow_correction.get("flatfield")
+        if not shadow_correction.get("retrospective"):
+            flat = ffops.get_hemisphere_flatfield(
+                input_tile_path=dataset_name.replace(".zarr", ""),
+                tile_config=shadow_correction.get("tile_config"),
+                flatfields=flat,
+            )
+        epi = dict(flat=np.asarray(flat, np.float32),
+                   dark=np.asarray(shadow_correction.get("darkfield"),
+                                   np.float32))
+    x = torch.from_numpy(np.ascontiguousarray(block)).to(dev)
+    with torch.inference_mode():
+        out = destripe_batch(plan, x, microscope_high_int, **epi)
+    out = out.cpu().numpy()
+    while out.ndim < len(output_destriped_zarr.shape):
+        out = out[np.newaxis]
+    output_destriped_zarr[output_slices] = out
+    if logger:
+        logger.info(f"block {output_slices} destriped")
+    return out
+
+
+def validate_capsule_inputs(input_elements: List[str]) -> List[str]:
+    """List the missing required inputs."""
+    return [str(e) for e in input_elements if not Path(e).exists()]
 
 
 def _windowed_mean_np(block: np.ndarray, factors, device) -> np.ndarray:

@@ -82,8 +82,22 @@ Phases, each printing its lines:
    line): ``[zmesh]`` the plane-sharded step at 64 x 1600 x 2000 against
    the single-device step (bit-equal on the entries' own batches, and
    within the flip budget on the whole batch; both against the CPU plain
-   path on four sampled planes); ``[halo-kernels]`` the
-   row-sharded route's
+   path on four sampled planes); ``[mesh-helpers]``
+   ``parallel.mesh.sharded_destripe_step`` (flat-field and wrap) on the
+   same batch and mesh, bit-equal to the fused step of ``[zmesh]``, its
+   [min, max] equal to the float32 step's, its sampled planes against the
+   CPU plain path, then ``sharded_destripe_step_2d`` on two 32-plane tiles
+   over a 2 x len(mesh) mesh (each tile bit-equal to the 1-D helper with
+   its own flat), ``global_minmax`` and ``sharded_normalize_image``, each
+   step's launches (every kernel of the single-band path), time and host
+   syncs; ``[execute-worker]`` ``zarr_destriper.execute_worker`` on planes
+   64-127 as one block, written into a store at z 64:128 and decoded back
+   bit-equal to the single-device step (retrospective flat, the same
+   planes as float32, the hemisphere flat); ``[wavelets]`` ``wavedec2`` /
+   ``waverec2`` (blocked and dense), the convolution forms and the
+   Y-sharded level on log(1 + x) of the 64-plane batch against the CPU
+   twin, the product forms and a perfect reconstruction;
+   ``[halo-kernels]`` the row-sharded route's
    kernel calls against their twins at the route's level-0 and level-1
    shard shapes of a 16384 x 18000 plane (K1 and K4 on row shards, the
    per-plane notch product with each operator choice, the histogram with a
@@ -183,6 +197,10 @@ BATCH = 64
 SAMPLED = (0, 1, 64, 127)
 EVERY_CHUNK = 4  # planes per CPU call of [check-every]
 ZSAMPLED = (0, 1, 17, 50)  # of the [zmesh] batch: planes of both classes
+# the wavelet API against its CPU twin, of the input's largest magnitude:
+# one level, and a full wavedec2 / waverec2 (the CPU tests' tolerances)
+LEVEL_TOL = 1e-5
+FULL_TOL = 1e-4
 CROSSOVER = 100.0
 # The bound of a call: the larger of its bytes (each input read once, each
 # output written once) over the card's memory rate and its arithmetic over
@@ -927,6 +945,58 @@ def _gate(got, want):
     return int(d.max()), flips, d.size, psnr, ok
 
 
+def _host_ms_and_syncs(fn, mesh, reps=3):
+    """Mean host-clock ms of ``reps`` calls of ``fn`` (one warm-up call
+    first; the devices synchronised after), the mean host ms until the last
+    call had returned, before that synchronisation (the time to launch a
+    call's work), and the synchronising CUDA calls made while launching
+    them: a step that launches every entry's share without a host wait
+    makes none."""
+    import torch
+
+    fn()
+    _sync(mesh)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                res = fn()
+            launched = time.perf_counter()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    _sync(mesh)
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    launch_ms = (launched - t0) * 1e3 / reps
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    return res, ms, launch_ms, syncs
+
+
+def _card_ms(fn, reps=3):
+    """Mean card ms of ``reps`` calls of ``fn`` (one warm-up call first):
+    the device time of every kernel, copy and fill that ``torch.profiler``
+    records for them, so no wait on the host enters it. None, printed as
+    not measured, if the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0)
+             for e in prof.key_averages())
+    return us / 1e3 / reps if us else None
+
+
+def _ms(v):
+    return "not measured" if v is None else f"{v:.2f} ms"
+
+
 def phase_zmesh(plan, vol, flat, dark, dev, mesh):
     """The plane-sharded step on the mesh against the single-device step:
     bit-equal to one device run on each entry's planes as separate batches
@@ -954,24 +1024,11 @@ def phase_zmesh(plan, vol, flat, dark, dev, mesh):
         fields = (step.put_const(flat), step.put_const(dark.astype(
             np.float32)))
         images = step.put(vol[:BATCH])
-        step(images, *fields)
-        _sync(devices)
         # the step must launch every entry's share without waiting on the
         # host, or the devices would take their turns instead of working at
         # once: count the synchronising calls made while it launches
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                t0 = time.perf_counter()
-                for _ in range(3):
-                    res = step(images, *fields)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        _sync(devices)
-        times[key] = (time.perf_counter() - t0) * 1e3 / 3
-        syncs[key] = sum("called a synchronizing CUDA operation"
-                         in str(w.message) for w in caught)
+        res, times[key], _, syncs[key] = _host_ms_and_syncs(
+            lambda: step(images, *fields), devices)
         outs[key] = step.to_host(res)
         if key == "one":
             outs["split"] = np.concatenate([
@@ -1005,6 +1062,375 @@ def phase_zmesh(plan, vol, flat, dark, dev, mesh):
               f"budget {FLIP_BUDGET}), PSNR {psnr:.1f} dB (min {PSNR_MIN})")
         if not ok:
             raise AssertionError(f"[zmesh] {key} differs from the CPU path")
+
+
+def _path_launches(tag, fn, mesh, path_kernels=SINGLE):
+    """``fn()`` with the launch counts reset just before it and read just
+    after; raises unless each kernel of the path launched."""
+    from aind_smartspim_destripe_torch import ops
+
+    _sync(mesh)
+    ops.reset_launches()
+    res = fn()
+    _sync(mesh)
+    launches = _launches()
+    _require(tag, launches, path_kernels)
+    return res, launches
+
+
+def _u16_diff(got, want):
+    """Pixels of two uint16 arrays that differ, and that differ by > 1."""
+    import numpy as np
+
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    return int((d > 0).sum()), int((d > 1).sum())
+
+
+def phase_mesh_helpers(plan, vol, flats, dark, dev, mesh):
+    """``[mesh-helpers]``: ``parallel.mesh.sharded_destripe_step`` on the
+    mesh, with the flat-field and the wrap epilogue, against the fused step
+    of ``make_device_step`` on the same mesh (bit for bit: the helper keeps
+    the float32 batch for its statistics and applies the epilogue after
+    it) and, on the sampled planes ZSAMPLED, against the plain path on the
+    CPU (the gate of ``[zmesh]``); its [min, max] equal to those of the
+    float32 step on the same shares; ``sharded_destripe_step_2d`` on a
+    2 x len(mesh) mesh, two 32-plane tiles each with its own flat, each tile
+    bit-equal (outputs and statistics) to the 1-D helper on that tile;
+    ``global_minmax`` exact and ``sharded_normalize_image`` bit-equal to
+    the same formula on one device. Each step's launches (every kernel of
+    the single-band path), ms per call beside the fused step's (host clock,
+    mean of 3), split into the host's time to launch a call and the
+    card's device time for it (:func:`_card_ms`), the same split for one
+    share's float32 destripe, and host syncs while launching (must be 0).
+    Returns the launch counts of each path."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import filter as tf
+    from aind_smartspim_destripe_torch.ops.flatfield import (
+        flatfield_correction,
+        wrap_cast,
+    )
+    from aind_smartspim_destripe_torch.parallel import mesh as tm
+    from aind_smartspim_destripe_torch.runtime.pipeline import (
+        make_device_step,
+    )
+
+    dark32 = dark.astype(np.float32)
+    images = torch.from_numpy(vol[:BATCH]).to(dev)
+    fields = (torch.from_numpy(flats[0]).to(dev),
+              torch.from_numpy(dark32).to(dev))
+    b = BATCH // len(mesh)
+    # the float32 step on the helper's shares, for its statistics
+    consts = tf.constants_from_numpy(plan.constants(), dev)
+    with torch.inference_mode():
+        floats = [tf.destripe_batch(plan, images[d * b:(d + 1) * b], 2500.0,
+                                    consts) for d in range(len(mesh))]
+    del consts
+    want_stats = torch.stack([torch.stack([f.amin() for f in floats]).amin(),
+                              torch.stack([f.amax() for f in floats]).amax()])
+    lo, hi = tm.global_minmax(mesh, floats)
+    if not (torch.equal(lo, want_stats[0]) and torch.equal(hi,
+                                                           want_stats[1])):
+        raise AssertionError("[mesh-helpers] global_minmax is not exact")
+    del floats
+    print(f"[mesh-helpers] global_minmax of the float32 step's {len(mesh)} "
+          f"shares: [{lo.item():.6g}, {hi.item():.6g}], exact")
+    # the plain path on the CPU: one float32 destripe of the sampled
+    # planes, both epilogues
+    x = torch.from_numpy(vol[list(ZSAMPLED)])
+    with torch.inference_mode():
+        ref = tf.destripe_batch(plan, x, 2500.0)
+        refs = {"flat": flatfield_correction(
+                    ref, torch.from_numpy(flats[0]),
+                    torch.from_numpy(dark32)).numpy(),
+                "wrap": wrap_cast(ref).numpy()}
+    del ref
+    paths, rec = {}, {}
+    for mode in ("flat", "wrap"):
+        with_flat = mode == "flat"
+        run = tm.sharded_destripe_step(mesh, plan, 2500.0, with_flat)
+        (res, stats), paths[f"mesh_helper_{mode}"] = _path_launches(
+            f"mesh-helpers {mode}", lambda: run(images, *fields), mesh)
+        got = np.concatenate([r.cpu().numpy() for r in res])
+        step = make_device_step(plan, 2500.0, with_flat, devices=mesh)
+        put = step.put(vol[:BATCH])
+        consts_f = (step.put_const(flats[0]), step.put_const(dark32))
+        fused = step.to_host(step(put, *consts_f))
+        n0, n1 = _u16_diff(got, fused)
+        _, ms, launch_ms, syncs = _host_ms_and_syncs(
+            lambda: run(images, *fields), mesh)
+        _, fused_ms, fused_launch_ms, fused_syncs = _host_ms_and_syncs(
+            lambda: step(put, *consts_f), mesh)
+        card_ms = _card_ms(lambda: run(images, *fields))
+        fused_card_ms = _card_ms(lambda: step(put, *consts_f))
+        stats_ok = torch.equal(stats, want_stats)
+        print(f"[mesh-helpers] sharded_destripe_step ({BATCH}, {SHAPE[1]}, "
+              f"{SHAPE[2]}) {mode} on {len(mesh)} entries: "
+              f"{'bit-equal' if not n0 else 'NOT bit-equal'} to "
+              f"make_device_step's fused step on the same mesh ({n0} pixels "
+              f"differ, {n1} by > 1 LSB); stats [{stats[0].item():.6g}, "
+              f"{stats[1].item():.6g}] {'equal' if stats_ok else 'DIFFER'} "
+              f"to the float32 step's; {ms:.2f} ms per call vs the fused "
+              f"step's {fused_ms:.2f} ms (mean of 3, host clock), launched "
+              f"in {launch_ms:.2f} vs {fused_launch_ms:.2f} ms on the host, "
+              f"{_ms(card_ms)} vs {_ms(fused_card_ms)} of device time "
+              f"(torch.profiler, mean of 3); host syncs while launching: "
+              f"{syncs} (fused {fused_syncs})")
+        lsb, flips, n, psnr, ok = _gate(got[list(ZSAMPLED)], refs[mode])
+        print(f"[mesh-helpers] {mode} planes {ZSAMPLED} vs the plain path on "
+              f"the CPU: max {lsb} LSB, {flips} pixels > 1 LSB "
+              f"({flips / n:.2e}, budget {FLIP_BUDGET}), PSNR {psnr:.1f} dB "
+              f"(min {PSNR_MIN})")
+        rec[mode] = dict(ms=ms, fused_ms=fused_ms, launch_ms=launch_ms,
+                         fused_launch_ms=fused_launch_ms, card_ms=card_ms,
+                         fused_card_ms=fused_card_ms, syncs=syncs,
+                         pixels_differ=n0, pixels_over_1lsb=n1)
+        if n0 or not stats_ok or not ok or syncs:
+            raise AssertionError(f"[mesh-helpers] sharded_destripe_step "
+                                 f"{mode} failed")
+        del res, step, put, run
+    torch.cuda.empty_cache()
+
+    # one share's float32 destripe, as each step launches it: the 1-D
+    # helper's (b planes) and the 2-D step's (b / 2)
+    consts = tf.constants_from_numpy(plan.constants(), dev)
+    for nb in (b, b // 2):
+        def share(nb=nb):
+            with torch.inference_mode():
+                return tf.destripe_batch(plan, images[:nb], 2500.0, consts)
+        _, _, launch, _ = _host_ms_and_syncs(share, mesh)
+        card = _card_ms(share)
+        print(f"[mesh-helpers] one share's destripe_batch ({nb}, {SHAPE[1]}, "
+              f"{SHAPE[2]}): launched in {launch:.2f} ms on the host, "
+              f"{_ms(card)} of device time (mean of 3)")
+        rec[f"share_{nb}"] = dict(launch_ms=launch, card_ms=card)
+    del consts
+    torch.cuda.empty_cache()
+
+    # tiles x planes: two 32-plane tiles, each with its side's flat
+    mesh2 = [list(mesh)] * 2
+    tiles = images.reshape((2, BATCH // 2) + images.shape[1:])
+    tflats = torch.stack([torch.from_numpy(f) for f in flats[:2]]).to(dev)
+    tdarks = torch.stack([fields[1]] * 2)
+    run2 = tm.sharded_destripe_step_2d(mesh2, plan, 2500.0)
+    (out2, stats2), paths["mesh_helper_2d"] = _path_launches(
+        "mesh-helpers 2d", lambda: run2(tiles, tflats, tdarks), mesh)
+    _, ms2, launch2, syncs2 = _host_ms_and_syncs(
+        lambda: run2(tiles, tflats, tdarks), mesh)
+    card2 = _card_ms(lambda: run2(tiles, tflats, tdarks))
+    same = True
+    for t in range(2):
+        one, one_stats = tm.sharded_destripe_step(mesh2[t], plan, 2500.0)(
+            tiles[t], tflats[t], tdarks[t])
+        same &= all(torch.equal(a, c) for a, c in zip(out2[t], one))
+        same &= torch.equal(stats2[t], one_stats)
+    print(f"[mesh-helpers] sharded_destripe_step_2d {tuple(tiles.shape)} on "
+          f"a 2 x {len(mesh)} mesh: {'bit-equal' if same else 'NOT equal'} "
+          f"to the 1-D helper per tile with its own flat (outputs and "
+          f"(T, 2) stats); {ms2:.2f} ms per call (mean of 3, host clock), "
+          f"launched in {launch2:.2f} ms on the host, {_ms(card2)} of device "
+          f"time (torch.profiler, mean of 3); host syncs while launching: "
+          f"{syncs2}")
+    rec["2d"] = dict(ms=ms2, launch_ms=launch2, card_ms=card2, syncs=syncs2)
+    if not same or syncs2:
+        raise AssertionError("[mesh-helpers] sharded_destripe_step_2d "
+                             "failed")
+    del out2, run2, tiles
+
+    norm = tm.sharded_normalize_image(mesh, images)
+    xf = images.to(torch.float32)
+    want = 1 + ((xf - xf.amin()) / (xf.amax() - xf.amin())).to(torch.float16)
+    same = torch.equal(torch.cat([p.to(dev) for p in norm]), want)
+    print(f"[mesh-helpers] sharded_normalize_image {tuple(images.shape)}: "
+          f"{'bit-equal' if same else 'NOT equal'} to the same formula on "
+          f"one device")
+    if not same:
+        raise AssertionError("[mesh-helpers] sharded_normalize_image "
+                             "differs")
+    del norm, xf, want, images
+    torch.cuda.empty_cache()
+    return paths, rec
+
+
+def phase_execute_worker(plan, vol, flats, dark, dev):
+    """``[execute-worker]``: ``zarr_destriper.execute_worker`` on the
+    tile's planes 64-127 as one (1, 1, 64, H, W) block, written into a port
+    store at z 64:128 and decoded back, bit-equal to ``make_device_step``
+    on the same 64 planes: with the retrospective flat, with the same
+    planes passed as float32 (the JAX package's input; the same bits), and
+    with the hemisphere flat (retrospective off: the tile's side, 1, from
+    its tile config). Each call's launches (every kernel of the
+    single-band path) and seconds. Returns the launch counts of each."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch import run_capsule
+    from aind_smartspim_destripe_torch import zarr_destriper as tz
+    from aind_smartspim_destripe_torch.io.zarr import ZarrArray
+    from aind_smartspim_destripe_torch.runtime.pipeline import (
+        make_device_step,
+    )
+
+    cfg = run_capsule.PRODUCTION_PARAMETERS
+    _, H, W = SHAPE
+    block = vol[BATCH:2 * BATCH]
+    dark32 = dark.astype(np.float32)
+    step = make_device_step(plan, 2500.0, True, devices=[dev])
+    imgs = step.put(block)
+    want = [step.to_host(step(imgs, step.put_const(f), step.put_const(
+        dark32))) for f in flats]
+    del step, imgs
+    work = ROOT / "build" / "smoke_worker"
+    shutil.rmtree(work, ignore_errors=True)
+    store = ZarrArray.create(str(work / "out.zarr"), (1, 1, 2 * BATCH, H, W),
+                             (1, 1, BATCH, 128, 128), np.uint16)
+    z = (slice(0, 1), slice(0, 1), slice(BATCH, 2 * BATCH), slice(0, H),
+         slice(0, W))
+    cases = (
+        ("retrospective", block, 0, True),
+        ("retrospective-f32", block.astype(np.float32), 0, True),
+        ("hemisphere", block, 1, False),
+    )
+    paths = {}
+    try:
+        for tag, data, side, retro in cases:
+            shadow = {"retrospective": retro, "darkfield": dark32,
+                      "flatfield": flats[0] if retro else flats,
+                      "tile_config": {"471320": {"461360": 1}}}
+            t0 = time.perf_counter()
+            res, paths[f"execute_worker_{tag}"] = _path_launches(
+                f"execute-worker {tag}", lambda: tz.execute_worker(
+                    data[None, None], z, store, cfg["cells_config"],
+                    cfg["no_cells_config"], shadow_correction=shadow,
+                    dataset_name="471320_461360.zarr", device=dev), [dev])
+            secs = time.perf_counter() - t0
+            back = np.asarray(store[0, 0, BATCH:2 * BATCH])
+            n0, n1 = _u16_diff(back, want[side])
+            same = (n0 == 0 and np.array_equal(np.squeeze(res), back)
+                    and not np.asarray(store[0, 0, :BATCH]).any())
+            print(f"[execute-worker] {tag}: block {tuple(data.shape)} "
+                  f"{data.dtype} destriped and written at z {BATCH}:"
+                  f"{2 * BATCH} in {secs:.2f} s (plan, device call, store "
+                  f"write); decoded back "
+                  f"{'bit-equal' if same else 'NOT bit-equal'} to "
+                  f"make_device_step on the same planes with flat {side} "
+                  f"({n0} pixels differ, {n1} by > 1 LSB); z 0:{BATCH} "
+                  f"left empty")
+            if not same:
+                raise AssertionError(f"[execute-worker] {tag} differs")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_wavelets(vol, dev, mesh):
+    """``[wavelets]``: the public transform API on log(1 + x) of the
+    64-plane batch at full width on the card: ``wavedec2`` / ``waverec2``
+    (8 db3 levels) blocked and through the dense operators, against the CPU
+    twin on the sampled planes ZSAMPLED and as a perfect reconstruction
+    (1e-4); one level of ``dwt2_conv`` /
+    ``idwt2_conv`` against ``dwt2`` / ``idwt2``, and of
+    ``parallel.halo.dwt2_y_sharded`` / ``idwt2_y_sharded`` on the mesh
+    against the unsharded level (1e-5). The tolerances are the CPU tests',
+    of the input's largest magnitude, save for the coarse cA of n levels:
+    of 2^n times it, since each level's 2-D lowpass sums to 2. Host-clock
+    seconds of each."""
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import wavelets as tw
+    from aind_smartspim_destripe_torch.parallel import halo as th
+
+    _, H, W = SHAPE
+    wav = tw.wavelet("db3")
+    x = torch.log1p(torch.from_numpy(vol[:BATCH]).to(dev).to(torch.float32))
+    scale = x.abs().max().item()
+    planes = list(ZSAMPLED)
+    rec = {}
+
+    def check(tag, pairs, tol):
+        """Raise unless each band of ``pairs`` (name, got, want, gain) is
+        within ``tol`` times the input's largest magnitude times its gain
+        of ``want``; print the band with the worst share of its
+        allowance."""
+        worst = None
+        for name, g, w, gain in pairs:
+            err = (g.to(w.device) - w).abs().max().item()
+            allowed = tol * scale * gain
+            if worst is None or err / allowed > worst[0]:
+                worst = (err / allowed, name, err, allowed)
+        share, name, err, allowed = worst
+        print(f"[wavelets] {tag}: max_abs_err {err:.3e} (tol {allowed:.3e}, "
+              f"band {name}) {'ok' if share <= 1 else 'FAIL'}")
+        rec[tag] = dict(max_abs_err=err, tol=allowed, band=name)
+        if share > 1:
+            raise AssertionError(f"[wavelets] {tag} {name}: {err} > "
+                                 f"{allowed}")
+
+    def timed(fn):
+        _sync(mesh)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(mesh)
+        return out, time.perf_counter() - t0
+
+    def bands(coeffs):
+        """(name, band, gain) of each band: the coarse cA's gain
+        2^levels, every other band's 1."""
+        n = len(coeffs) - 1
+        return [(f"cA{n}", coeffs[0], 2 ** n)] + [
+            (f"{k}{n - i}", band, 1) for i, det in enumerate(coeffs[1:])
+            for k, band in zip(("cH", "cV", "cD"), det)]
+
+    xc = x[planes].cpu()
+    ref = bands(tw.wavedec2(xc, wav))
+    forms = {"blocked": (None, None),
+             "dense": (tw.analysis_operators((H, W), wav),
+                       tw.synthesis_operators((H, W), wav))}
+    for form, (an, syn) in forms.items():
+        coeffs, t_an = timed(lambda: tw.wavedec2(x, wav, operators=an))
+        y, t_syn = timed(lambda: tw.waverec2(coeffs, wav, operators=syn))
+        print(f"[wavelets] {form} wavedec2 / waverec2 {tuple(x.shape)} "
+              f"float32, {len(coeffs) - 1} levels: {t_an:.3f} s / "
+              f"{t_syn:.3f} s (host clock, first call)")
+        check(f"{form} wavedec2 vs the CPU twin on planes {ZSAMPLED}",
+              [(name, c[planes], r, gain) for (name, c, gain), (_, r, _)
+               in zip(bands(coeffs), ref)], FULL_TOL)
+        check(f"{form} waverec2 (perfect reconstruction)",
+              [("x", y[..., :H, :W], x, 1)], FULL_TOL)
+        del coeffs, y
+    torch.cuda.empty_cache()
+
+    def level(got, want):  # one level's (name, got, want, gain)
+        return list(zip(("cA1", "cH1", "cV1", "cD1"), got, want,
+                        (2, 1, 1, 1)))
+
+    (ca, det), t_p = timed(lambda: tw.dwt2(x, wav))
+    (cac, detc), t_c = timed(lambda: tw.dwt2_conv(x, wav))
+    check("dwt2_conv vs dwt2", level((cac, *detc), (ca, *det)), LEVEL_TOL)
+    del cac, detc
+    y, t_ps = timed(lambda: tw.idwt2(ca, det, wav))
+    yc, t_cs = timed(lambda: tw.idwt2_conv(ca, det, wav))
+    check("idwt2_conv vs idwt2", [("x", yc, y, 1)], LEVEL_TOL)
+    del yc
+    print(f"[wavelets] one level: dwt2 {t_p:.3f} s, dwt2_conv {t_c:.3f} s, "
+          f"idwt2 {t_ps:.3f} s, idwt2_conv {t_cs:.3f} s (host clock, "
+          f"first call)")
+    (sca, sdet), t_sa = timed(lambda: th.dwt2_y_sharded(x, "db3", mesh))
+    check(f"dwt2_y_sharded vs dwt2 on {len(mesh)} entries",
+          level([sh.gather(dev) for sh in (sca, *sdet)], (ca, *det)),
+          LEVEL_TOL)
+    ys, t_ss = timed(lambda: th.idwt2_y_sharded(
+        sca, sdet, "db3", mesh, out_shape=(H, W)))
+    check("idwt2_y_sharded vs idwt2", [("x", ys.gather(dev),
+                                        y[..., :H, :W], 1)], LEVEL_TOL)
+    print(f"[wavelets] Y-sharded level on {len(mesh)} entries: "
+          f"dwt2_y_sharded {t_sa:.3f} s, idwt2_y_sharded {t_ss:.3f} s "
+          f"(host clock, first call)")
+    del x, ca, det, sca, sdet, ys, y
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _shard_rows_max(m, n_dev):
@@ -1661,6 +2087,11 @@ def main(argv=None):
     print(f"[halo] mesh {[str(d) for d in mesh]} ({n_cards} card(s) "
           f"visible)")
     phase_zmesh(plan, vol, flats[0], dark, dev, mesh)
+    helper_paths, helper_rec = phase_mesh_helpers(plan, vol, flats, dark,
+                                                  dev, mesh)
+    paths.update(helper_paths)
+    paths.update(phase_execute_worker(plan, vol, flats, dark, dev))
+    wavelet_rec = phase_wavelets(vol, dev, mesh)
     del vol
     hplan = tf.build_plan(HALO_SHAPE[1], HALO_SHAPE[2],
                           tf.FilterConfig.from_dict(cfg["cells_config"]),
@@ -1779,7 +2210,8 @@ def main(argv=None):
         entry.update(per_step.get(name, {}))
         kernels.append(entry)
     print(json.dumps({"steps_sha256": hashes, "check_every": every,
-                      "step_banded": banded}))
+                      "step_banded": banded, "mesh_helpers": helper_rec,
+                      "wavelets": wavelet_rec}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

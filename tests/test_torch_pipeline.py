@@ -104,9 +104,11 @@ def test_second_run_resumes_through_journal(capsule, monkeypatch):
 
 def test_subprocess_run_never_imports_jax(tmp_path):
     """Every module of the port imported (``parallel.*``, the facade, the
-    file-batch destriper, the CLI, BaSiC and flat estimation included), and
-    the CPU capsule run, in a fresh interpreter: neither jax nor any module
-    of the JAX package is loaded."""
+    file-batch destriper, the CLI, BaSiC, flat estimation and the blocked
+    writer included, and the names ported last: the mesh helpers, the
+    Y-sharded DWT, the wavelet API, the block worker and the host
+    helpers), and the CPU capsule run, in a fresh interpreter: neither jax
+    nor any module of the JAX package is loaded."""
     data, results = build_capsule(tmp_path)
     code = (
         "import importlib, pkgutil, sys, torch\n"
@@ -118,7 +120,27 @@ def test_subprocess_run_never_imports_jax(tmp_path):
         "assert {'aind_smartspim_destripe_torch.' + m for m in ("
         "'parallel.halo', 'parallel.mesh', 'parallel.distributed', "
         "'filtering', 'destriper', 'destriper_params', '__main__', "
-        "'models.basic', 'flatfield_estimation')} <= set(names)\n"
+        "'models.basic', 'flatfield_estimation', 'io.blocked_writer')} "
+        "<= set(names)\n"
+        "from aind_smartspim_destripe_torch.parallel.mesh import ("
+        "make_mesh_2d, shard_planes, sharded_destripe_step, "
+        "sharded_destripe_step_2d, global_minmax, sharded_normalize_image)\n"
+        "from aind_smartspim_destripe_torch.parallel.halo import ("
+        "banded_apply_y_sharded, dwt2_y_sharded, idwt2_y_sharded)\n"
+        "from aind_smartspim_destripe_torch.ops.wavelets import ("
+        "dwt2, idwt2, dwt2_conv, idwt2_conv, wavedec2, waverec2)\n"
+        "from aind_smartspim_destripe_torch.zarr_destriper import ("
+        "execute_worker, pad_array_n_d, extract_global_to_local)\n"
+        "from aind_smartspim_destripe_torch.io.blocked_writer import ("
+        "expand_chunks, BlockedArrayWriter)\n"
+        "from aind_smartspim_destripe_torch.io.blosc import ("
+        "load_system_blosc, system_compress, system_decompress)\n"
+        "from aind_smartspim_destripe_torch.ops.multiscale import "
+        "windowed_mean_np\n"
+        "from aind_smartspim_destripe_torch.ops.fft_notch import apply_notch\n"
+        "from aind_smartspim_destripe_torch.runtime.tracing import annotate\n"
+        "from aind_smartspim_destripe_torch.utils.utils import ("
+        "profile_resources, stop_child_process)\n"
         "from aind_smartspim_destripe_torch import run_capsule\n"
         f"run_capsule.run({str(data)!r}, {str(results)!r}, "
         f"{str(tmp_path / 'scratch')!r}, devices=[torch.device('cpu')])\n"
@@ -131,7 +153,7 @@ def test_subprocess_run_never_imports_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "NO_JAX_OK" in res.stdout
-    assert int(res.stdout.split("NO_JAX_OK")[1].split()[0]) >= 28
+    assert int(res.stdout.split("NO_JAX_OK")[1].split()[0]) >= 29
     assert set(_tile(results, "471320_461360").keys()) == {"0", "1", "2"}
 
 
