@@ -35,6 +35,8 @@ from typing import Optional
 
 import torch
 
+from ..runtime.tracing import span
+
 __all__ = ["kernel_library", "build_dir", "find_nvcc", "SOURCES",
            "digest_inputs", "on_cuda", "check", "launch"]
 
@@ -103,7 +105,17 @@ def kernel_library() -> ctypes.CDLL:
     compiler's message. ``kernel_library.build_seconds`` records the build
     (0.0 when a built library was reused) and ``.build_log`` the compiler's
     output of the build that made the library (kept beside it, so a reused
-    library still reports its registers and spills)."""
+    library still reports its registers and spills). The first call is the
+    span ``kernels.load``, with ``built`` and ``build_seconds``."""
+    with span("kernels.load") as meta:
+        lib = _load_library()
+        if meta is not None:
+            meta["built"] = kernel_library.build_seconds > 0
+            meta["build_seconds"] = kernel_library.build_seconds
+        return lib
+
+
+def _load_library() -> ctypes.CDLL:
     digest = hashlib.sha256(" ".join(_FLAGS).encode())
     for src in digest_inputs():
         digest.update(src.name.encode() + src.read_bytes())

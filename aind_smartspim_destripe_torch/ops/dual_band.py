@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..runtime.tracing import span
 from .cuda_blend import RADIUS, blend_bands, blend_smooth_mix
 from .filter import (
     FilterConfig,
@@ -81,12 +82,15 @@ def dual_band_destripe_batch(
                                      x.device)
     both = destripe_batch(plan, images, -math.inf, consts, dual=True)
     if threshold < 0:
-        centers = threshold_otsu_batch(x)
+        with span("otsu.raw"):
+            centers = threshold_otsu_batch(x)
     else:
         centers = torch.full((x.shape[0],), float(threshold),
                              dtype=torch.float32, device=x.device)
-    return blend_smooth_mix(x, both, None, centers, crossover, smooth_radius,
-                            flat=flat, dark=dark, wrap=wrap)
+    with span("blend"):
+        return blend_smooth_mix(x, both, None, centers, crossover,
+                                smooth_radius, flat=flat, dark=dark,
+                                wrap=wrap)
 
 
 @lru_cache(maxsize=8)

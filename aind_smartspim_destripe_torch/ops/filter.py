@@ -48,6 +48,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..runtime.tracing import span
 from . import cuda_band, cuda_dense, cuda_notch, fft_notch, wavelets
 from .flatfield import flatfield_correction, wrap_cast
 from .otsu import threshold_otsu_batch
@@ -77,6 +78,12 @@ _BAND_MIN_SIDE = 560
 # row-sharded route runs a cH band of at least this many pixels through the
 # sharded histogram, median and notch kernels, smaller ones whole.
 _PALLAS_MIN_PX = 32 * 1024
+
+# span names per level, made once: a span's name is evaluated on every call
+_SPAN_AN = tuple(f"an.L{lvl}" for lvl in range(32))
+_SPAN_OTSU = tuple(f"otsu.L{lvl}" for lvl in range(32))
+_SPAN_NOTCH = tuple(f"notch.L{lvl}" for lvl in range(32))
+_SPAN_SYN = tuple(f"syn.L{lvl}" for lvl in range(32))
 
 
 # ---------------------------------------------------------------------------
@@ -159,39 +166,40 @@ class DestripePlan:
         ``notch_cat``), which are O(w^2) and never built; the row-sharded
         route applies them as the blocked lowpass passes and the rfft
         notch instead (the JAX package's gate, line for line)."""
-        wav = wavelets.wavelet(self.wavelet)
-        an = wavelets.analysis_operators(
-            (self.height, self.width), wav, self.n_levels,
-            x_skip_min=banded_x_min_w)
-        syn = wavelets.synthesis_operators(
-            (self.height, self.width), wav, self.n_levels,
-            x_skip_min=banded_x_min_w)
-        # ladder level i comes from analysis level n - 1 - i, whose input
-        # width decides the skip of its three x operators
-        w_in, w_cur = [], self.width
-        for _ in range(self.n_levels):
-            w_in.append(w_cur)
-            w_cur = wavelets.dwt_coeff_len(w_cur, wav.flen)
-        notch_skip = [banded_x_min_w is not None
-                      and w_in[self.n_levels - 1 - i] >= banded_x_min_w
-                      for i in range(self.n_levels)]
-        out = {
-            "an_y": tuple(p[0] for p in an),
-            "an_x_lo": tuple(None if p[1] is None
-                             else p[1][: p[1].shape[0] // 2] for p in an),
-            "syn_y": tuple(p[0] for p in syn),
-            "syn_x_lo": tuple(None if p[1] is None
-                              else p[1][:, : p[1].shape[1] // 2]
-                              for p in syn),
-            "notch_cat": tuple(
-                None if pair is None
-                else np.concatenate([pair[0].T, pair[1].T], axis=1)
-                for pair in self.notch_matrices(skip=notch_skip)
-            ),
-        }
-        if not dense_only:
-            out.update(_band_constants(out))
-        return out
+        with span("plan.constants"):
+            wav = wavelets.wavelet(self.wavelet)
+            an = wavelets.analysis_operators(
+                (self.height, self.width), wav, self.n_levels,
+                x_skip_min=banded_x_min_w)
+            syn = wavelets.synthesis_operators(
+                (self.height, self.width), wav, self.n_levels,
+                x_skip_min=banded_x_min_w)
+            # ladder level i comes from analysis level n - 1 - i, whose input
+            # width decides the skip of its three x operators
+            w_in, w_cur = [], self.width
+            for _ in range(self.n_levels):
+                w_in.append(w_cur)
+                w_cur = wavelets.dwt_coeff_len(w_cur, wav.flen)
+            notch_skip = [banded_x_min_w is not None
+                          and w_in[self.n_levels - 1 - i] >= banded_x_min_w
+                          for i in range(self.n_levels)]
+            out = {
+                "an_y": tuple(p[0] for p in an),
+                "an_x_lo": tuple(None if p[1] is None
+                                 else p[1][: p[1].shape[0] // 2] for p in an),
+                "syn_y": tuple(p[0] for p in syn),
+                "syn_x_lo": tuple(None if p[1] is None
+                                  else p[1][:, : p[1].shape[1] // 2]
+                                  for p in syn),
+                "notch_cat": tuple(
+                    None if pair is None
+                    else np.concatenate([pair[0].T, pair[1].T], axis=1)
+                    for pair in self.notch_matrices(skip=notch_skip)
+                ),
+            }
+            if not dense_only:
+                out.update(_band_constants(out))
+            return out
 
 
 def _band_constants(consts: dict) -> dict:
@@ -221,26 +229,27 @@ def constants_from_numpy(consts: dict, device) -> dict:
     float32 matrices per key, and a dict of band-form tensors per banded
     level (built here from the dense operators where absent)."""
     device = torch.device(device)
-    consts = dict(consts)
-    if not any(k.startswith("band") and "k1_start" in v
-               for k, v in consts.items()):
-        consts.update(_band_constants(consts))
+    with span("plan.upload"):
+        consts = dict(consts)
+        if not any(k.startswith("band") and "k1_start" in v
+                   for k, v in consts.items()):
+            consts.update(_band_constants(consts))
 
-    def put(a):
-        if a is None:
-            return None
-        a = np.asarray(a)
-        dtype = torch.int32 if a.dtype.kind in "iu" else torch.float32
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                               device=device)
+        def put(a):
+            if a is None:
+                return None
+            a = np.asarray(a)
+            dtype = torch.int32 if a.dtype.kind in "iu" else torch.float32
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=device)
 
-    out = {}
-    for k, v in consts.items():
-        if k.startswith("band") and "k1_start" in v:
-            out[k] = {name: put(a) for name, a in v.items()}
-        elif k in ("an_y", "an_x_lo", "syn_y", "syn_x_lo", "notch_cat"):
-            out[k] = tuple(put(a) for a in v)
-    return out
+        out = {}
+        for k, v in consts.items():
+            if k.startswith("band") and "k1_start" in v:
+                out[k] = {name: put(a) for name, a in v.items()}
+            elif k in ("an_y", "an_x_lo", "syn_y", "syn_x_lo", "notch_cat"):
+                out[k] = tuple(put(a) for a in v)
+        return out
 
 
 @lru_cache(maxsize=32)
@@ -256,17 +265,19 @@ def build_plan(
             "(they do in the reference pipeline); for disjoint configs run "
             "two plans and select on host."
         )
-    wav = wavelet(cells.wavelet)
-    n_levels, ladder = wavedec2_shapes((height, width), wav, cells.level)
-    return DestripePlan(
-        height=height,
-        width=width,
-        wavelet=cells.wavelet,
-        n_levels=n_levels,
-        ladder=tuple(ladder),
-        cells=cells,
-        no_cells=no_cells,
-    )
+    with span("plan.build"):  # a cache miss: hits never enter the body
+        wav = wavelet(cells.wavelet)
+        n_levels, ladder = wavedec2_shapes((height, width), wav,
+                                           cells.level)
+        return DestripePlan(
+            height=height,
+            width=width,
+            wavelet=cells.wavelet,
+            n_levels=n_levels,
+            ladder=tuple(ladder),
+            cells=cells,
+            no_cells=no_cells,
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +398,7 @@ def _filter_level_delta(
     abs_range=None,  # optional per-plane (min|ch|, max|ch|) for Otsu
     otsu_sqrt=None,  # optional per-output-plane sqrt(otsu(ch**2))
     notch_apply=None,  # (kB, h, w) -> (kB, h, 2w) where bmat_cat is None
+    level: int = 0,  # the band's level, for the spans' names
 ) -> torch.Tensor:
     """Per-level synthesis delta ``filter(ch) - ch``: the Otsu stripe
     threshold (capped by the configuration's), then
@@ -399,14 +411,16 @@ def _filter_level_delta(
     # host value is a blocking copy, and the step must not wait on the host
     max_thr = torch.where(is_cells, float(thr_cells), float(thr_no_cells))
     if otsu_sqrt is None:
-        otsu_sqrt = torch.sqrt(threshold_otsu_batch(
-            ch, square=True, abs_range=abs_range))
-    threshold = torch.minimum(max_thr, otsu_sqrt)
-    sel = torch.where(is_cells, 0, 1).to(torch.int32)
-    if bmat_cat is None:
-        return cuda_notch.notch_delta_plain(ch, threshold, sel, None,
-                                            notch_apply)
-    return cuda_notch.notch_delta(ch, threshold, sel, bmat_cat)
+        with span(_SPAN_OTSU[level]):
+            otsu_sqrt = torch.sqrt(threshold_otsu_batch(
+                ch, square=True, abs_range=abs_range))
+    with span(_SPAN_NOTCH[level]):
+        threshold = torch.minimum(max_thr, otsu_sqrt)
+        sel = torch.where(is_cells, 0, 1).to(torch.int32)
+        if bmat_cat is None:
+            return cuda_notch.notch_delta_plain(ch, threshold, sel, None,
+                                                notch_apply)
+        return cuda_notch.notch_delta(ch, threshold, sel, bmat_cat)
 
 
 def normalize_flat_dark(height: int, width: int, flat, dark, device):
@@ -501,7 +515,8 @@ def destripe_batch(
     if dual:
         is_cells = torch.arange(2 * B, device=device) < B
     elif cut32 is None:
-        is_cells = classify_planes(images, microscope_high_int)
+        with span("classify"):
+            is_cells = classify_planes(images, microscope_high_int)
     else:
         is_cells = None  # K1 emits it at level 0
 
@@ -511,33 +526,35 @@ def destripe_batch(
     a = None
     for lvl, (an_y, an_x_lo) in enumerate(zip(consts["an_y"],
                                               consts["an_x_lo"])):
-        if lvl in bands:
-            bd = consts[f"band{lvl}"]
-            src = images if lvl == 0 else a
-            if lvl == 0 and cut32 is not None:
-                lox_w, sums = cuda_band.an_x_lowpass_log1p(
-                    src, an_x_lo, bd["k1_start"], bd["k1_coef"],
-                    cls_cut=cut32,
-                )
-                is_cells = classify_from_sums(*sums.unbind(1),
-                                              microscope_high_int)
-            else:
-                lox_w = cuda_band.an_x_lowpass_log1p(
-                    src, an_x_lo, bd["k1_start"], bd["k1_coef"],
-                    log1p=(lvl == 0),
-                )
-            a, ch, ch_ranges[lvl] = cuda_band.an_y_pass(
-                lox_w, an_y, bd["k2_start"], bd["k2_lo"], bd["k2_hi"])
-            del lox_w
-            chs.append(ch)
-            continue
-        if a is None:
-            a = xlog()
-        lox = cuda_dense.dense_matmul(
-            an_y, cuda_dense.dense_matmul(a, an_x_lo.t()))
-        L_h = lox.shape[-2] // 2
-        a = lox[..., :L_h, :]  # cA: lowpass-y, lowpass-x
-        chs.append(lox[..., L_h:, :].contiguous())  # cH: highpass-y, lowpass-x
+        with span(_SPAN_AN[lvl]):
+            if lvl in bands:
+                bd = consts[f"band{lvl}"]
+                src = images if lvl == 0 else a
+                if lvl == 0 and cut32 is not None:
+                    lox_w, sums = cuda_band.an_x_lowpass_log1p(
+                        src, an_x_lo, bd["k1_start"], bd["k1_coef"],
+                        cls_cut=cut32,
+                    )
+                    is_cells = classify_from_sums(*sums.unbind(1),
+                                                  microscope_high_int)
+                else:
+                    lox_w = cuda_band.an_x_lowpass_log1p(
+                        src, an_x_lo, bd["k1_start"], bd["k1_coef"],
+                        log1p=(lvl == 0),
+                    )
+                a, ch, ch_ranges[lvl] = cuda_band.an_y_pass(
+                    lox_w, an_y, bd["k2_start"], bd["k2_lo"], bd["k2_hi"])
+                del lox_w
+                chs.append(ch)
+                continue
+            if a is None:
+                a = xlog()
+            lox = cuda_dense.dense_matmul(
+                an_y, cuda_dense.dense_matmul(a, an_x_lo.t()))
+            L_h = lox.shape[-2] // 2
+            a = lox[..., :L_h, :]  # cA: lowpass-y, lowpass-x
+            # cH: highpass-y, lowpass-x
+            chs.append(lox[..., L_h:, :].contiguous())
     del a
 
     # Filter each cH band, coarsest first (the notch operators' order).
@@ -550,12 +567,13 @@ def destripe_batch(
         abs_range = ch_ranges.get(n - 1 - j)
         otsu_sqrt = None
         if dual:
-            otsu_sqrt = torch.sqrt(threshold_otsu_batch(
-                ch, square=True, abs_range=abs_range)).repeat(2)
+            with span(_SPAN_OTSU[n - 1 - j]):
+                otsu_sqrt = torch.sqrt(threshold_otsu_batch(
+                    ch, square=True, abs_range=abs_range)).repeat(2)
         deltas.append(_filter_level_delta(
             ch, is_cells, bm_cat,
             plan.cells.max_threshold, plan.no_cells.max_threshold,
-            abs_range=abs_range, otsu_sqrt=otsu_sqrt,
+            abs_range=abs_range, otsu_sqrt=otsu_sqrt, level=n - 1 - j,
         ))
         chs[n - 1 - j] = None
     del chs
@@ -568,37 +586,44 @@ def destripe_batch(
                                               consts["syn_x_lo"])):
         delta, deltas[i] = deltas[i], None
         lvl = n - 1 - i
-        if lvl in bands:
-            bd = consts[f"band{lvl}"]
-            stacked = cuda_band.syn_y_pass(
-                corr, delta, syn_y, bd["k3_start"], bd["k3_lo"], bd["k3_hi"])
-            if lvl > 0:
-                corr = cuda_band.syn_x_exp(
-                    stacked, None, syn_x_lo, bd["k4_start"], bd["k4_coef"])
-                continue
-            # finest level: exp and the uint16 epilogue fused into K4 (in
-            # dual mode K4 reads raw plane b mod B for correction b)
-            hw = (plan.height, plan.width)
-            if flat is not None and tuple(flat.shape) == hw:
-                return cuda_band.syn_x_exp(
+        with span(_SPAN_SYN[lvl]):
+            if lvl in bands:
+                bd = consts[f"band{lvl}"]
+                stacked = cuda_band.syn_y_pass(
+                    corr, delta, syn_y, bd["k3_start"], bd["k3_lo"],
+                    bd["k3_hi"])
+                if lvl > 0:
+                    corr = cuda_band.syn_x_exp(
+                        stacked, None, syn_x_lo, bd["k4_start"],
+                        bd["k4_coef"])
+                    continue
+                # finest level: exp and the uint16 epilogue fused into K4 (in
+                # dual mode K4 reads raw plane b mod B for correction b)
+                hw = (plan.height, plan.width)
+                if flat is not None and tuple(flat.shape) == hw:
+                    return cuda_band.syn_x_exp(
+                        stacked, images, syn_x_lo, bd["k4_start"],
+                        bd["k4_coef"], flat=flat, dark=dark)
+                out = cuda_band.syn_x_exp(
                     stacked, images, syn_x_lo, bd["k4_start"],
-                    bd["k4_coef"], flat=flat, dark=dark)
-            out = cuda_band.syn_x_exp(
-                stacked, images, syn_x_lo, bd["k4_start"], bd["k4_coef"],
-                wrap=wrap)
-            return out if wrap else epilogue(out)
-        L_h = syn_y.shape[-1] // 2
-        if corr is None:
-            stacked = cuda_dense.dense_matmul(syn_y[:, L_h:], delta)
-        else:
-            up = torch.cat([corr[..., :L_h, :], delta], dim=-2)
-            stacked = cuda_dense.dense_matmul(syn_y, up)
-        corr = cuda_dense.dense_matmul(stacked, syn_x_lo.t())
+                    bd["k4_coef"], wrap=wrap)
+                if wrap:
+                    return out
+                with span("epilogue"):
+                    return epilogue(out)
+            L_h = syn_y.shape[-1] // 2
+            if corr is None:
+                stacked = cuda_dense.dense_matmul(syn_y[:, L_h:], delta)
+            else:
+                up = torch.cat([corr[..., :L_h, :], delta], dim=-2)
+                stacked = cuda_dense.dense_matmul(syn_y, up)
+            corr = cuda_dense.dense_matmul(stacked, syn_x_lo.t())
 
-    xl = xlog()
-    if dual:  # both bands' corrections apply to the same log-space input
-        xl = torch.cat([xl, xl])
-    return epilogue(torch.exp(xl + corr) + 1.0)
+    with span("epilogue"):
+        xl = xlog()
+        if dual:  # both bands' corrections apply to the same log-space input
+            xl = torch.cat([xl, xl])
+        return epilogue(torch.exp(xl + corr) + 1.0)
 
 
 # ---------------------------------------------------------------------------

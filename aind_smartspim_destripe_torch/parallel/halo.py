@@ -803,7 +803,7 @@ def destripe_y_sharded(
                     chg, square=True)).repeat(2)
             deltas.append(_replicated(_filter_level_delta(
                 chg, is_cells, dense[dev0]["notch_cat"][j], *thr_cap,
-                otsu_sqrt=otsu_sqrt, notch_apply=spectral)))
+                otsu_sqrt=otsu_sqrt, notch_apply=spectral, level=n - 1 - j)))
             continue
         otsu = torch.sqrt(_otsu_sharded(ch, dev0, square=True))
         max_thr = torch.where(is_cells, float(thr_cap[0]), float(thr_cap[1]))

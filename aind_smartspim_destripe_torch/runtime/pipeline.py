@@ -53,6 +53,7 @@ from ..parallel.halo import (
     shard_rows,
 )
 from ..parallel.mesh import _host_tensor, _share, make_mesh
+from .tracing import span
 
 __all__ = [
     "PipelineStats",
@@ -156,7 +157,8 @@ def make_device_step(plan: DestripePlan, microscope_high_int: float,
 
     if len(mesh) == 1:
         def step(images, flat, dark):
-            with torch.inference_mode():
+            with span("step", planes=images.size(0), devices=1), \
+                    torch.inference_mode():
                 return one(images, flat, dark)
 
         step.put = lambda chunk: _host_tensor(chunk).to(mesh[0])
@@ -172,9 +174,13 @@ def make_device_step(plan: DestripePlan, microscope_high_int: float,
     # for their whole length: they run on a copy thread per device (the
     # step's input is a list of futures of them).
     def step(images, flat, dark):
-        with torch.inference_mode():
-            return [one(x.result(), f, k)
-                    for x, f, k in zip(images, flat, dark)]
+        with span("step", devices=len(mesh)) as meta, \
+                torch.inference_mode():
+            out = [one(x.result(), f, k)
+                   for x, f, k in zip(images, flat, dark)]
+            if meta is not None:  # the shares are known once copied
+                meta["planes"] = sum(o.size(0) for o in out)
+            return out
 
     def put(chunk):
         b = _share(chunk.shape[0], len(mesh))  # shard_planes' split
@@ -234,7 +240,8 @@ def _make_halo_step(plan, microscope_high_int, with_flatfield, mesh,
     def step(images, flat, dark):
         epi = (dict(flat=flat, dark=dark) if with_flatfield
                else dict(wrap=True))
-        with torch.inference_mode():
+        with span("step", planes=images.parts[0].size(0),
+                  devices=len(mesh)), torch.inference_mode():
             if dual:
                 return dual_band_destripe_y_sharded(
                     images, mesh, plan, consts, crossover=crossover,

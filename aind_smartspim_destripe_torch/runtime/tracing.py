@@ -7,27 +7,56 @@ Counterpart of ``aind_smartspim_destripe_tpu/runtime/tracing.py``:
   a Chrome trace (host and, where CUDA is present, device activity) into a
   directory;
 - ``annotate``: a named region in that trace;
-- ``StageTimer``: per-stage wall-clock seconds and pixel counts.
+- ``span``: the program's span recorder. Spans sit at the layer boundaries
+  of the device step (``step``; ``classify``, ``an.L<l>``, ``otsu.L<l>``,
+  ``notch.L<l>``, ``syn.L<l>``, ``epilogue``; the dual step's
+  ``otsu.raw`` and ``blend``) and of its set-up (``plan.build``,
+  ``plan.constants``, ``plan.upload``, ``kernels.load``). They are kept in
+  memory on the clock of ``torch.profiler``'s events (``time.time_ns``),
+  so a span names the device's activity, and its gaps, at the same
+  instant.
+
+The recorder records while it is enabled (:func:`enable`) or while a
+``torch.profiler`` session is running, so any profile of the step carries
+its phases without a call into this module; :func:`collect` returns what
+it recorded. Off, a span costs a flag check and a profiler-state check and
+returns one shared no-op context manager: it allocates nothing, formats no
+string and enters no ``record_function`` (which costs ~13 us a call even
+with no profiler writing).
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
+import gc
+import itertools
 import os
+import threading
 import time
-from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
-__all__ = ["device_trace", "annotate", "StageTimer"]
+__all__ = ["device_trace", "annotate", "span", "enable", "disable",
+           "collect"]
+
+_NOOP = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+_on = False  # enable() / disable()
+_annotate = False  # inside device_trace: spans also enter annotate()
+_spans: list = []
+_ids = itertools.count(1)
+_local = threading.local()
+_gc_start = None  # (start ns, parent, step) of the collection under way
 
 
 @contextlib.contextmanager
 def device_trace(logdir: Optional[str]):
     """Profile the enclosed block with ``torch.profiler`` when ``logdir`` is
-    set, writing ``trace.json`` there; no-op otherwise."""
+    set, writing ``trace.json`` there; no-op otherwise. Inside it every
+    :func:`span` is also an :func:`annotate` region of the same name, so
+    the trace shows the step's phases."""
+    global _annotate
     if not logdir:
         yield
         return
@@ -36,7 +65,11 @@ def device_trace(logdir: Optional[str]):
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     with torch.profiler.profile(activities=acts) as prof:
-        yield
+        _annotate = True
+        try:
+            yield
+        finally:
+            _annotate = False
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
@@ -46,33 +79,95 @@ def annotate(name: str):
     return torch.profiler.record_function(name)
 
 
-@dataclass
-class StageTimer:
-    """Accumulate per-stage seconds and pixel counts."""
+def _stack() -> list:
+    """Open spans of this thread, innermost last: (id, step id)."""
+    try:
+        return _local.stack
+    except AttributeError:
+        _local.stack = []
+        return _local.stack
 
-    seconds: Dict[str, float] = field(default_factory=dict)
-    pixels: Dict[str, int] = field(default_factory=dict)
 
-    @contextlib.contextmanager
-    def stage(self, name: str, pixels: int = 0):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.seconds[name] = self.seconds.get(name, 0.0) + dt
-            self.pixels[name] = self.pixels.get(name, 0) + pixels
+class _Span:
+    __slots__ = ("name", "meta", "frame", "parent", "t0", "region")
 
-    def summary(self) -> Dict[str, dict]:
-        out = {}
-        for name, sec in self.seconds.items():
-            px = self.pixels.get(name, 0)
-            out[name] = {
-                "seconds": round(sec, 3),
-                "mpix_per_s": round(px / sec / 1e6, 1) if sec and px else None,
-            }
-        return out
+    def __init__(self, name, meta):
+        self.name = name
+        self.meta = meta
 
-    def dump(self, path: str):
-        with open(path, "w") as f:
-            json.dump(self.summary(), f, indent=2)
+    def __enter__(self) -> dict:
+        stack = _stack()
+        sid = next(_ids)
+        self.parent, step = stack[-1] if stack else (0, 0)
+        if self.name == "step":
+            step = sid
+        self.frame = (sid, step)
+        stack.append(self.frame)
+        self.region = annotate(self.name) if _annotate else None
+        self.t0 = time.time_ns()
+        if self.region is not None:
+            self.region.__enter__()
+        return self.meta
+
+    def __exit__(self, *exc):
+        if self.region is not None:
+            self.region.__exit__(*exc)
+        t1 = time.time_ns()
+        _stack().pop()  # with-blocks on one thread close innermost first
+        sid, step = self.frame
+        _spans.append((sid, self.parent, step, self.name,
+                       threading.get_ident(), self.t0, t1, self.meta))
+        return False
+
+
+def span(name: str, **meta):
+    """A span named ``name`` around the enclosed block, with ``meta`` kept
+    beside it; entering it gives the meta dict, which the block may add to
+    (None when the recorder is off). Give ``name`` as a constant or an
+    entry of a precomputed tuple, never a formatted string: the name is
+    evaluated whether or not the recorder is on."""
+    if not (_on or _profiling()):
+        return _NOOP
+    return _Span(name, meta)
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    """``gc.callbacks`` hook: each collection becomes a span ``gc`` with its
+    generation, inside the span open on the collecting thread (collections
+    never overlap: the interpreter runs one at a time)."""
+    global _gc_start
+    if phase == "start":
+        stack = _stack()
+        _gc_start = (time.time_ns(),) + (stack[-1] if stack else (0, 0))
+    elif _gc_start is not None:
+        t0, parent, step = _gc_start
+        _gc_start = None
+        _spans.append((next(_ids), parent, step, "gc",
+                       threading.get_ident(), t0, time.time_ns(),
+                       {"generation": info["generation"]}))
+
+
+def enable() -> None:
+    """Start recording, with an empty list, garbage collections included."""
+    global _on
+    _spans.clear()
+    if _on_gc not in gc.callbacks:
+        gc.callbacks.append(_on_gc)
+    _on = True
+
+
+def disable() -> None:
+    """Stop recording (the recorded spans stay for :func:`collect`)."""
+    global _on
+    _on = False
+    if _on_gc in gc.callbacks:
+        gc.callbacks.remove(_on_gc)
+
+
+def collect() -> list:
+    """The spans recorded so far, in the order they ended: tuples ``(id,
+    parent, step, name, thread, start_ns, end_ns, meta)``. Ids are > 0 and
+    unique in the process; ``parent`` is the innermost span open on the same
+    thread when the span began and ``step`` the id of the enclosing ``step``
+    span (0: none); times are ``time.time_ns`` nanoseconds."""
+    return list(_spans)
