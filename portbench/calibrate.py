@@ -8,9 +8,10 @@ For every seed it runs the cell as a benchmark run does (set-up, a short
 window of ``--seconds``, the check against the float64 reference) and keeps
 each sampled plane's numbers: the lower readings. For the first
 ``--control-seeds`` seeds it also holds the control, the reference itself
-computed in TF32 (:mod:`portbench.reference.destripe`, ``prec="tf32"``), put
-in the program's place on the same sampled planes: the upper readings. It
-prints one JSON line per seed and writes them all to ``--out``.
+computed in TF32 (:mod:`portbench.reference.destripe_torch`,
+``prec="tf32"``, on the run's device), put in the program's place on the
+same sampled planes: the upper readings. It prints one JSON line per seed
+and writes them all to ``--out``.
 """
 
 from __future__ import annotations
@@ -54,9 +55,9 @@ def control_numbers(cell, seed, device):
     flat, dark = st.flat, st.dark
     driver.close(st)
     items = [(pid, raw, check.reference_plane(cell.config, raw, flat, dark,
-                                              prec="tf32"))
+                                              prec="tf32", device=device))
              for pid, raw in raws]
-    return check.compare(cell.config, items, flat, dark)
+    return check.compare(cell.config, items, flat, dark, device=device)
 
 
 def main(argv=None) -> int:

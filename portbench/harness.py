@@ -152,7 +152,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     driver.close(st)  # the program's state is freed before the reference
     limits = check.load_limits(root, cell.name)
     t_check = time.perf_counter()
-    worst, per_plane = check.compare(cell.config, items, st.flat, st.dark)
+    worst, per_plane = check.compare(cell.config, items, st.flat, st.dark,
+                                     device=device)
     check_s = time.perf_counter() - t_check
     failed = sum(1 for _, v in per_plane
                  if any(v[k] > limits[k] for k in check.NUMBERS))

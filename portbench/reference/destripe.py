@@ -20,6 +20,10 @@ from the same inputs the program gets.
 control: every array in float32 and the operands of every filter product
 (the DWT taps and the FFT's input) rounded to TF32's 10 mantissa bits, as a
 float32 product with TF32 on would take them.
+
+The check computes the PyTorch transcription of this module,
+:mod:`.destripe_torch`, on the run's device; this module is the tests'
+oracle for it.
 """
 
 from __future__ import annotations
@@ -241,7 +245,9 @@ def filter_plane(image, configs, prec="f64"):
         filtered = [coeffs[0]] + [
             (_filter_band(ch, sigma_rel, float(cfg["max_threshold"]), prec),
              cv, cd) for ch, cv, cd in coeffs[1:]]
-        outs.append(np.exp(waverec2(filtered, prec)) + 1.0)
+        # an odd axis comes back one longer (pywt's waverec2): cropped to
+        # the plane, as the program crops
+        outs.append(np.exp(waverec2(filtered, prec)[:h, :w]) + 1.0)
     return outs
 
 

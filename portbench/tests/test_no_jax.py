@@ -13,6 +13,7 @@ CODE = """
 import sys
 sys.path.insert(0, {root!r})
 import portbench.harness, portbench.check, portbench.calibrate
+import portbench.reference.destripe_torch
 import portbench.drivers.stream, portbench.drivers.resident
 import aind_smartspim_destripe_torch
 from aind_smartspim_destripe_torch.runtime import pipeline
