@@ -33,8 +33,8 @@ from .ops.dual_band import dual_band_destripe_batch
 from .ops.filter import (
     FilterConfig,
     build_plan,
-    constants_from_numpy,
     destripe_batch,
+    device_constants,
     f32_matmul,
 )
 from .ops.flatfield import flatfield_correction, get_hemisphere_flatfield
@@ -228,7 +228,7 @@ def batch_filter(
         if shape not in geometries:
             plan = build_plan(shape[0], shape[1], cells_cfg, no_cells_cfg)
             geometries[shape] = (
-                plan, constants_from_numpy(plan.constants(), dev))
+                plan, device_constants(plan, dev))
         return geometries[shape]
 
     def corrected(plane, p):

@@ -100,8 +100,8 @@ def slide_flat_estimation(
     from .ops.filter import (
         FilterConfig,
         build_plan,
-        constants_from_numpy,
         destripe_batch,
+        device_constants,
         f32_matmul,
     )
 
@@ -134,7 +134,7 @@ def slide_flat_estimation(
             if shape not in geometries:
                 plan = build_plan(shape[0], shape[1], cells_cfg, no_cells_cfg)
                 geometries[shape] = (
-                    plan, constants_from_numpy(plan.constants(), dev))
+                    plan, device_constants(plan, dev))
             plan, consts = geometries[shape]
             with torch.inference_mode():
                 destriped = destripe_batch(

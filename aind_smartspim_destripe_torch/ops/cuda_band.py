@@ -23,6 +23,13 @@ two. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
   its classifier sums and K4, on the row shards of the row-sharded route.
   They take the band form alone: that route never puts the dense x
   operator of a K1/K4 level on the card (the CPU twin rebuilds it).
+
+K1-K4 take the level's dense operator beside its band form. The kernels
+read the band form only, and the plane step's constants on a card
+(:func:`band_level_forms_taps`, built from the wavelet's taps) hold no
+dense operator for a banded level: the argument is then None. The plain
+twins, which run off the card, read the dense operator, which a plan's
+constants off the card always hold.
 """
 
 from __future__ import annotations
@@ -32,18 +39,22 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from . import wavelets
 from .cuda_build import check, launch, on_cuda
 from .flatfield import flatfield_correction, wrap_cast
 
 __all__ = [
     "band_form",
     "band_form_taps",
+    "analysis_taps",
+    "synthesis_taps",
     "check_k1_band",
     "check_k2_band",
     "check_k3_band",
     "check_k4_band",
     "band_dense",
     "band_level_forms",
+    "band_level_forms_taps",
     "an_x_lowpass_log1p",
     "an_y_pass",
     "syn_y_pass",
@@ -123,22 +134,24 @@ def band_form(*mats: np.ndarray) -> Tuple[np.ndarray, Tuple[np.ndarray, ...]]:
     return start, coefs
 
 
-def band_form_taps(cols: np.ndarray, vals: np.ndarray,
-                   n: int) -> Tuple[np.ndarray, np.ndarray]:
-    """:func:`band_form` of the (m, n) operator whose row i is the sum of
-    its taps ``vals[i, t]`` (float64) at columns ``cols[i, t]``, rounded to
-    float32, without building it: O(m t) memory where the dense operator
-    is O(m n). The same ``start`` and ``coef`` as ``band_form`` of that
-    dense operator (taps at one column add in the order given)."""
+def band_form_taps(cols: np.ndarray, n: int, *vals: np.ndarray):
+    """:func:`band_form` of the (m, n) operators whose row i is the sum of
+    its taps ``v[i, t]`` (float64) at columns ``cols[i, t]``, rounded to
+    float32, for each ``v`` of ``vals`` (the operators share their taps'
+    columns), without building them: O(m t) memory where a dense operator
+    is O(m n). The same ``start`` and ``coefs`` as ``band_form`` of the
+    dense operators (taps at one column add in the order given)."""
     cols = np.asarray(cols, np.int64)
     m, t = cols.shape
     lo = cols.min(axis=1)
     width = int((cols.max(axis=1) - lo).max()) + 1
-    win = np.zeros((m, width))
-    np.add.at(win, (np.repeat(np.arange(m), t), (cols - lo[:, None]).ravel()),
-              np.asarray(vals, np.float64).ravel())
-    win = win.astype(np.float32)
-    nz = win != 0
+    at = (np.repeat(np.arange(m), t), (cols - lo[:, None]).ravel())
+    wins = []
+    for v in vals:
+        win = np.zeros((m, width))
+        np.add.at(win, at, np.asarray(v, np.float64).ravel())
+        wins.append(win.astype(np.float32))
+    nz = np.logical_or.reduce([w != 0 for w in wins])
     has = nz.any(axis=1)
     first = np.where(has, lo + nz.argmax(axis=1), 0)
     last = np.where(has, lo + width - 1 - nz[:, ::-1].argmax(axis=1), 0)
@@ -146,9 +159,44 @@ def band_form_taps(cols: np.ndarray, vals: np.ndarray,
     start = np.minimum(first, n - K)
     idx = start[:, None] + np.arange(K)[None, :] - lo[:, None]
     inside = (idx >= 0) & (idx < width)
-    coef = np.where(inside, np.take_along_axis(
-        win, np.clip(idx, 0, width - 1), axis=1), 0.0).astype(np.float32)
-    return start.astype(np.int32), np.ascontiguousarray(coef)
+    idx = np.clip(idx, 0, width - 1)
+    coefs = tuple(np.ascontiguousarray(np.where(
+        inside, np.take_along_axis(w, idx, axis=1), 0).astype(np.float32))
+        for w in wins)
+    return start.astype(np.int32), coefs
+
+
+def analysis_taps(n: int, wavelet_name: str):
+    """The taps of ``wavelets.analysis_operator(n)``: ``(cols, lo, hi)``,
+    each (L, flen). Output k of the lowpass (highpass) half sums ``lo[k,
+    i]`` (``hi[k, i]``) at column ``cols[k, i]``, the symmetric fold of 2k
+    + 1 + i - (flen - 1), in order of i, as the dense builder adds them."""
+    wav = wavelets.wavelet(wavelet_name)
+    flen = wav.flen
+    L = wavelets.dwt_coeff_len(n, flen)
+    k = np.arange(L)[:, None]
+    cols = wavelets._fold_symmetric(2 * k + 1 + np.arange(flen)[None, :]
+                                    - (flen - 1), n)
+    return (cols, np.broadcast_to(wav.dec_lo[::-1], (L, flen)),
+            np.broadcast_to(wav.dec_hi[::-1], (L, flen)))
+
+
+def synthesis_taps(coeff_len: int, out_len: int, wavelet_name: str):
+    """The taps of ``wavelets.synthesis_operator(coeff_len)[:out_len]``'s
+    lowpass and highpass halves: ``(cols, lo, hi)``, each (out_len, flen //
+    2 + 1). Output m takes ``rec_lo[j]`` (``rec_hi[j]``) of coefficient k
+    for j = m + flen - 2 - 2k in [0, flen); the taps that reach no
+    coefficient are zeros."""
+    wav = wavelets.wavelet(wavelet_name)
+    flen = wav.flen
+    m = np.arange(out_len)[:, None]
+    cols = (m + flen - 2) // 2 - np.arange(flen // 2 + 1)[None, :]
+    j = m + flen - 2 - 2 * cols
+    valid = (j >= 0) & (j < flen) & (cols >= 0) & (cols < coeff_len)
+    j = np.clip(j, 0, flen - 1)
+    return (np.clip(cols, 0, coeff_len - 1),
+            np.where(valid, wav.rec_lo_arr[j], 0.0),
+            np.where(valid, wav.rec_hi[j], 0.0))
 
 
 def check_k1_band(start: np.ndarray, K: int) -> None:
@@ -213,13 +261,36 @@ def band_level_forms(an_y, an_x_lo, syn_y, syn_x_lo) -> dict:
     cA-correction and cH-delta halves share theirs) and ``syn_x_lo``
     (W, L_w) for K4."""
     L_h = an_y.shape[0] // 2
-    k1_start, (k1_coef,) = band_form(an_x_lo)
+    return _level_forms(band_form(an_x_lo), band_form(an_y[:L_h], an_y[L_h:]),
+                        band_form(syn_y[:, :L_h], syn_y[:, L_h:]),
+                        band_form(syn_x_lo))
+
+
+def band_level_forms_taps(h: int, w: int, wavelet_name: str) -> dict:
+    """:func:`band_level_forms` of the banded level whose input is (h, w),
+    bit for bit, from the wavelet's taps (:func:`analysis_taps`,
+    :func:`synthesis_taps`) in O((h + w) flen), without building the four
+    dense operators (O(h^2 + w^2): 2 GB each in float64 at 16384)."""
+    flen = wavelets.wavelet(wavelet_name).flen
+    L_h = wavelets.dwt_coeff_len(h, flen)
+    L_w = wavelets.dwt_coeff_len(w, flen)
+    an_x, an_y = analysis_taps(w, wavelet_name), analysis_taps(h, wavelet_name)
+    syn_y = synthesis_taps(L_h, h, wavelet_name)
+    syn_x = synthesis_taps(L_w, w, wavelet_name)
+    return _level_forms(band_form_taps(an_x[0], w, an_x[1]),
+                        band_form_taps(an_y[0], h, *an_y[1:]),
+                        band_form_taps(syn_y[0], L_h, *syn_y[1:]),
+                        band_form_taps(syn_x[0], L_w, syn_x[1]))
+
+
+def _level_forms(k1, k2, k3, k4) -> dict:
+    """The band-form dict of a level from each kernel's ``(start,
+    coefs)``, checked against what each kernel can take."""
+    (k1_start, (k1_coef,)), (k2_start, (k2_lo, k2_hi)) = k1, k2
+    (k3_start, (k3_lo, k3_hi)), (k4_start, (k4_coef,)) = k3, k4
     check_k1_band(k1_start, k1_coef.shape[1])
-    k2_start, (k2_lo, k2_hi) = band_form(an_y[:L_h], an_y[L_h:])
     check_k2_band(k2_start, k2_lo.shape[1])
-    k3_start, (k3_lo, k3_hi) = band_form(syn_y[:, :L_h], syn_y[:, L_h:])
     check_k3_band(k3_start, k3_lo.shape[1])
-    k4_start, (k4_coef,) = band_form(syn_x_lo)
     check_k4_band(k4_start, k4_coef.shape[1])
     return {
         "k1_start": k1_start, "k1_coef": k1_coef,
@@ -267,7 +338,7 @@ def an_x_lowpass_log1p_plain(x, a_lo, log1p=True, cls_cut=None):
 
 def an_x_lowpass_log1p(
     x: torch.Tensor,  # (B, H, W) uint16 or float32
-    a_lo: torch.Tensor,  # (L, W) dense lowpass analysis operator
+    a_lo: Optional[torch.Tensor],  # (L, W) dense lowpass; None on a card
     start: torch.Tensor,  # (L,) int32 band form of a_lo
     coef: torch.Tensor,  # (L, K) float32
     log1p: bool = True,
@@ -277,7 +348,9 @@ def an_x_lowpass_log1p(
     ``log1p=False``): (B, H, L) float32. With ``cls_cut`` also returns the
     classifier's per-plane sums (B, 4) float32 ``[fg_cnt, bg_cnt, fg_sum,
     bg_sum]`` of the raw values against ``x >= cls_cut``, summed in float64
-    (exact for uint16 input) and rounded once."""
+    (exact for uint16 input) and rounded once. The kernel reads the band
+    form only: ``a_lo`` is None on a card (the plane step's constants of
+    a banded level), and read by the plain twin off it."""
     if not on_cuda(x):
         return an_x_lowpass_log1p_plain(x, a_lo, log1p, cls_cut)
     out, sums = _k1(x, start, coef, log1p, cls_cut)
@@ -350,14 +423,16 @@ def an_y_pass_ordered(x, start, coef_lo, coef_hi):
 
 def an_y_pass(
     x: torch.Tensor,  # (B, H, Wc) float32 — the x-pass output
-    a_y: torch.Tensor,  # (2L, H) dense analysis operator [lowpass; highpass]
+    a_y: Optional[torch.Tensor],  # (2L, H) dense [lo; hi]; None on a card
     start: torch.Tensor,  # (L,) int32
     coef_lo: torch.Tensor,  # (L, K) float32
     coef_hi: torch.Tensor,  # (L, K) float32
 ):
     """Returns ``(lo, hi, (min|hi|, max|hi|))``: the cA and cH bands, each
     (B, L, Wc) float32, and the per-plane extremes of ``|cH|`` ((B,) each),
-    which give the Otsu bin range without a second read of the band."""
+    which give the Otsu bin range without a second read of the band. The
+    kernel reads the band form only: ``a_y`` is None on a card, and read
+    by the plain twin off it."""
     if not on_cuda(x):
         return an_y_pass_plain(x, a_y)
 
@@ -424,13 +499,15 @@ def syn_y_pass_ordered(corr, delta, start, coef_lo, coef_hi):
 def syn_y_pass(
     corr: Optional[torch.Tensor],  # (B, L, Wc) float32, or None
     delta: torch.Tensor,  # (B, L, Wc) float32
-    s_y: torch.Tensor,  # (Ho, 2L) dense synthesis operator, rows trimmed
+    s_y: Optional[torch.Tensor],  # (Ho, 2L) dense, trimmed; None on a card
     start: torch.Tensor,  # (Ho,) int32
     coef_lo: torch.Tensor,  # (Ho, K) float32 — the cA-correction half
     coef_hi: torch.Tensor,  # (Ho, K) float32 — the cH-delta half
 ) -> torch.Tensor:
     """``S_y[:, :L] @ corr + S_y[:, L:] @ delta`` -> (B, Ho, Wc) float32;
-    ``corr=None`` drops the cA half (the correction starts at zero)."""
+    ``corr=None`` drops the cA half (the correction starts at zero). The
+    kernel reads the band form only: ``s_y`` is None on a card, and read
+    by the plain twin off it."""
     if not on_cuda(delta):
         return syn_y_pass_plain(corr, delta, s_y)
 
@@ -509,7 +586,7 @@ def _syn_x_epilogue(corr, stacked, images, flat, dark, wrap):
 def syn_x_exp(
     stacked: torch.Tensor,  # (B, H, L) float32 — the y-synthesised correction
     images: Optional[torch.Tensor],  # (Bi, H, W) uint16/float32 (B % Bi == 0)
-    s_x_lo: torch.Tensor,  # (W, L) dense lowpass synthesis operator
+    s_x_lo: Optional[torch.Tensor],  # (W, L) dense lowpass; None on a card
     start: torch.Tensor,  # (W,) int32
     coef: torch.Tensor,  # (W, K) float32
     flat: Optional[torch.Tensor] = None,  # (H, W) float32
@@ -520,7 +597,9 @@ def syn_x_exp(
     (float32). Otherwise ``y = exp(log(1 + images) + corr) + 1``, returned
     as float32, or as uint16 through the flat-field correction
     (``flat``/``dark``) or the modulo-2^16 wrap cast (``wrap``). Output
-    plane ``b`` reads image plane ``b mod Bi``."""
+    plane ``b`` reads image plane ``b mod Bi``. The kernel reads the band
+    form only: ``s_x_lo`` is None on a card, and read by the plain twin
+    off it."""
     _check_epilogue(images, flat, wrap)
     if not on_cuda(stacked):
         return syn_x_exp_plain(stacked, images, s_x_lo, flat, dark, wrap)

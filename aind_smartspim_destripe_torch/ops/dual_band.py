@@ -26,8 +26,8 @@ from .cuda_blend import RADIUS, blend_bands, blend_smooth_mix
 from .filter import (
     FilterConfig,
     build_plan,
-    constants_from_numpy,
     destripe_batch,
+    device_constants,
     f32_matmul,
     normalize_flat_dark,
 )
@@ -126,7 +126,7 @@ def _run_host(plan, img, crossover, threshold, device):
         img = img.astype(np.float32, copy=False)
     x = torch.as_tensor(np.ascontiguousarray(img), device=dev)
     with torch.inference_mode():
-        consts = constants_from_numpy(plan.constants(), dev)
+        consts = device_constants(plan, dev)
         return dual_band_destripe_batch(plan, x, crossover, threshold,
                                         consts=consts).cpu().numpy()
 

@@ -6,10 +6,12 @@ reference multiplies the *packed* FFTPACK rfft output by a 1-D Gaussian
 notch, so frequency k's real part takes gain ``g[2k-1]`` and its imaginary
 part ``g[2k]``. rfft -> per-bin gains -> irfft is a fixed real linear map
 of each row; :func:`packed_notch_matrix` builds it exactly in float64, and
-the destripe step applies it as one matrix product. At widths where that
-(w, w) matrix is too large to build, the row-sharded route applies the same
-map with :func:`apply_notch_fft` (``torch.fft``; cuFFT on the card), at
-O(w) operator bytes.
+the destripe step applies it as one matrix product (its operands side by
+side, :func:`notch_cat`; built on the card past :data:`NOTCH_HOST_MAX_W`
+columns, from one transform of the identity for both configurations).
+At widths where that (w, w) matrix is too large to build, the row-sharded
+route applies the same map with :func:`apply_notch_fft` (``torch.fft``;
+cuFFT on the card), at O(w) operator bytes.
 """
 
 from __future__ import annotations
@@ -21,8 +23,14 @@ import torch
 
 from .wavelets import f32_matmul
 
-__all__ = ["notch", "gaussian_filter", "packed_notch_matrix",
-           "apply_notch", "apply_notch_fft"]
+__all__ = ["notch", "gaussian_filter", "packed_notch_matrix", "notch_cat",
+           "NOTCH_HOST_MAX_W", "apply_notch", "apply_notch_fft"]
+
+# Widths up to which notch_cat builds on the host (numpy's FFT of the
+# identity, once per configuration: a fraction of a second at 2000 columns,
+# 13 s at 9002, whose factor 643 is prime). Wider operators are built on a
+# CUDA device.
+NOTCH_HOST_MAX_W = 2048
 
 
 def notch(n: int, sigma: float) -> np.ndarray:
@@ -69,6 +77,40 @@ def packed_notch_matrix(n: int, sigma: float) -> np.ndarray:
     spec = a * spec.real + 1j * (b * spec.imag)
     basis = np.fft.irfft(spec, n=n, axis=-1)
     return np.ascontiguousarray(basis.T)
+
+
+def notch_cat(n: int, sigmas, device=None):
+    """The notch operators of ``sigmas`` at width ``n``, transposed and
+    side by side: (n, len(sigmas) n) float32, so that ``rows @ cat`` holds
+    every configuration's notched rows (the destripe step's
+    ``notch_cat``).
+
+    Up to :data:`NOTCH_HOST_MAX_W` columns, or for any device but a CUDA
+    one, a numpy array of :func:`packed_notch_matrix`'s operators. Wider,
+    for a CUDA ``device``, a tensor built there by cuFFT in float64 from
+    one transform of the identity for every sigma, cast to float32 once:
+    it rounds apart from numpy's FFT, within a float32 ulp of the host's
+    operator (of ``max(|entry|, 2^-20)``)."""
+    sigmas = tuple(float(s) for s in sigmas)
+    device = None if device is None else torch.device(device)
+    if device is not None and device.type == "cuda" and n > NOTCH_HOST_MAX_W:
+        return _notch_cat_torch(n, sigmas, device)
+    return np.concatenate([packed_notch_matrix(n, s).astype(np.float32).T
+                           for s in sigmas], axis=1)
+
+
+def _notch_cat_torch(n: int, sigmas: tuple, device) -> torch.Tensor:
+    """:func:`notch_cat` by ``torch.fft`` in float64 on ``device``."""
+    spec = torch.fft.rfft(torch.eye(n, dtype=torch.float64, device=device),
+                          dim=-1)
+    cat = torch.empty((n, len(sigmas) * n), dtype=torch.float32,
+                      device=device)
+    for i, sigma in enumerate(sigmas):
+        a, b = (torch.as_tensor(g, device=device)
+                for g in _packed_gains(n, notch(n, sigma)))
+        cat[:, i * n:(i + 1) * n] = torch.fft.irfft(
+            torch.complex(a * spec.real, b * spec.imag), n=n, dim=-1)
+    return cat
 
 
 @lru_cache(maxsize=64)

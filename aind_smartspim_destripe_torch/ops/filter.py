@@ -5,8 +5,10 @@ batched log-space wavelet-FFT destripe.
 Counterpart of ``aind_smartspim_destripe_tpu/ops/filter.py``. A *plan* is
 built once per image geometry: the per-level shape ladder and, in numpy,
 the dense DWT and packed-FFT notch operators (:meth:`DestripePlan.constants`),
-which :func:`constants_from_numpy` moves to a device. Planes run as a batch
-(B, H, W):
+which :func:`constants_from_numpy` moves to a device. The plane step's
+constants on a card (:func:`device_constants`) hold a banded level's band
+forms alone, built from the wavelet's taps, and the widest notch operators
+are built there. Planes run as a batch (B, H, W):
 
 - analysis keeps only the lowpass x half (only cA and cH are consumed);
 - each cH band goes through Otsu mask -> row-median inpaint -> notch of the
@@ -48,7 +50,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..runtime.tracing import span
+from ..runtime.tracing import add, span, timed
 from . import cuda_band, cuda_dense, cuda_notch, fft_notch, wavelets
 from .flatfield import flatfield_correction, wrap_cast
 from .otsu import threshold_otsu_batch
@@ -60,6 +62,7 @@ __all__ = [
     "build_plan",
     "band_gate",
     "constants_from_numpy",
+    "device_constants",
     "destripe_batch",
     "classify_planes",
     "classify_from_sums",
@@ -152,84 +155,132 @@ class DestripePlan:
             for (h, _) in self.ladder
         )
 
+    def level_inputs(self):
+        """The (h, w) input of each analysis level, finest first."""
+        shapes = [(self.height, self.width)] + list(self.ladder[::-1])
+        return shapes[:self.n_levels]
+
     def constants(self, dense_only: bool = False,
-                  banded_x_min_w: Optional[int] = None) -> dict:
+                  banded_x_min_w: Optional[int] = None,
+                  device=None) -> dict:
         """The operator matrices as a dict of numpy arrays. Keys:
         ``an_y`` (2L_h x h) and ``an_x_lo`` (L_w x w), finest first;
         ``syn_y`` (h_t x 2L_h, rows trimmed to the crop-rule target),
         ``syn_x_lo`` (w_t x L_w) and ``notch_cat`` ((w, 2w): the cells and
-        no-cells notch operators side by side), coarsest first. Unless
-        ``dense_only``, ``band{lvl}`` adds the band forms
-        (:func:`cuda_band.band_level_forms`) of each banded level.
+        no-cells notch operators side by side, :func:`fft_notch.notch_cat`),
+        coarsest first. Unless ``dense_only``, ``band{lvl}`` adds the band
+        forms (:func:`cuda_band.band_level_forms`) of each banded level.
         ``banded_x_min_w``: the levels whose input width reaches it get
         None for all three x-axis operators (``an_x_lo``, ``syn_x_lo``,
         ``notch_cat``), which are O(w^2) and never built; the row-sharded
         route applies them as the blocked lowpass passes and the rfft
-        notch instead (the JAX package's gate, line for line)."""
-        with span("plan.constants"):
-            wav = wavelets.wavelet(self.wavelet)
-            an = wavelets.analysis_operators(
-                (self.height, self.width), wav, self.n_levels,
-                x_skip_min=banded_x_min_w)
-            syn = wavelets.synthesis_operators(
-                (self.height, self.width), wav, self.n_levels,
-                x_skip_min=banded_x_min_w)
-            # ladder level i comes from analysis level n - 1 - i, whose input
-            # width decides the skip of its three x operators
-            w_in, w_cur = [], self.width
-            for _ in range(self.n_levels):
-                w_in.append(w_cur)
-                w_cur = wavelets.dwt_coeff_len(w_cur, wav.flen)
-            notch_skip = [banded_x_min_w is not None
-                          and w_in[self.n_levels - 1 - i] >= banded_x_min_w
-                          for i in range(self.n_levels)]
+        notch instead (the JAX package's gate, line for line).
+
+        ``device`` (with neither of the two above): the constants of the
+        plane step on ``device``, which :func:`device_constants` moves
+        there. On a CUDA ``device`` a banded level's four dense operators
+        are None, never built: its band forms come from the wavelet's taps
+        (:func:`cuda_band.band_level_forms_taps`, the same arrays) and the
+        band kernels read nothing else; ``notch_cat`` holds tensors built
+        there past :data:`fft_notch.NOTCH_HOST_MAX_W` columns. On any other
+        device the constants are those of ``constants()``, since the plain
+        twins of the band kernels read the dense operators."""
+        if device is not None and (dense_only or banded_x_min_w is not None):
+            raise ValueError("device constants are the plane step's: "
+                             "neither dense_only nor banded_x_min_w")
+        device = None if device is None else torch.device(device)
+        on_card = device is not None and device.type == "cuda"
+        with timed("plan.constants"):
+            name, n = self.wavelet, self.n_levels
+            inputs = self.level_inputs()
+            x_gated = [banded_x_min_w is not None and w >= banded_x_min_w
+                       for _, w in inputs]
+            banded = self.banded_levels() if on_card else ()
+            an, syn = [], []  # finest first
+            for lvl, (h, w) in enumerate(inputs):
+                if lvl in banded:
+                    an.append((None, None))
+                    syn.append((None, None))
+                    continue
+                L_h, L_w = self.ladder[n - 1 - lvl]
+                an.append((wavelets.analysis_operator(h, name),
+                           None if x_gated[lvl]
+                           else wavelets.analysis_operator(w, name)[:L_w]))
+                syn.append((wavelets.synthesis_operator(L_h, name)[:h],
+                            None if x_gated[lvl]
+                            else wavelets.synthesis_operator(L_w, name)
+                            [:w, :L_w]))
             out = {
                 "an_y": tuple(p[0] for p in an),
-                "an_x_lo": tuple(None if p[1] is None
-                                 else p[1][: p[1].shape[0] // 2] for p in an),
-                "syn_y": tuple(p[0] for p in syn),
-                "syn_x_lo": tuple(None if p[1] is None
-                                  else p[1][:, : p[1].shape[1] // 2]
-                                  for p in syn),
-                "notch_cat": tuple(
-                    None if pair is None
-                    else np.concatenate([pair[0].T, pair[1].T], axis=1)
-                    for pair in self.notch_matrices(skip=notch_skip)
-                ),
+                "an_x_lo": tuple(p[1] for p in an),
+                "syn_y": tuple(p[0] for p in syn[::-1]),
+                "syn_x_lo": tuple(p[1] for p in syn[::-1]),
             }
+            with span("plan.notch"):
+                out["notch_cat"] = tuple(
+                    None if x_gated[n - 1 - i]
+                    else fft_notch.notch_cat(w, sigmas, device)
+                    for i, ((_, w), sigmas) in enumerate(
+                        zip(self.ladder, self.notch_sigmas())))
+                if any(isinstance(c, torch.Tensor) for c in out["notch_cat"]):
+                    torch.cuda.synchronize(device)  # its time is set-up's
             if not dense_only:
-                out.update(_band_constants(out))
+                with span("plan.band_forms"):
+                    if on_card:
+                        out.update({
+                            f"band{lvl}": cuda_band.band_level_forms_taps(
+                                *inputs[lvl], name) for lvl in banded})
+                    else:
+                        out.update(_band_constants(out))
             return out
+
+    def banded_levels(self) -> Tuple[int, ...]:
+        """The levels that run the band kernels (:func:`_leading_banded` of
+        the levels' inputs)."""
+        return _leading_banded(self.level_inputs())
+
+
+def _leading_banded(inputs) -> Tuple[int, ...]:
+    """The leading levels whose (h, w) input passes :func:`band_gate`
+    (coarser levels only shrink, so the first miss ends the run)."""
+    out = []
+    for lvl, (h, w) in enumerate(inputs):
+        if not band_gate(h, w):
+            break
+        out.append(lvl)
+    return tuple(out)
 
 
 def _band_constants(consts: dict) -> dict:
-    """``band{lvl}`` band forms for the leading levels that pass the gate
-    (coarser levels only shrink, so the first miss ends the run)."""
+    """``band{lvl}`` band forms of the banded levels (up to the first
+    width-gated one), from the dense operators of ``consts``."""
     n = len(consts["an_y"])
-    out = {}
-    for lvl in range(n):
-        if consts["an_x_lo"][lvl] is None:  # a width-gated level
+    inputs = []
+    for an_y, an_x_lo in zip(consts["an_y"], consts["an_x_lo"]):
+        if an_x_lo is None:  # a width-gated level
             break
-        h = consts["an_y"][lvl].shape[1]
-        w = consts["an_x_lo"][lvl].shape[1]
-        if not band_gate(h, w):
-            break
-        out[f"band{lvl}"] = cuda_band.band_level_forms(
+        inputs.append((an_y.shape[1], an_x_lo.shape[1]))
+    return {
+        f"band{lvl}": cuda_band.band_level_forms(
             np.asarray(consts["an_y"][lvl]),
             np.asarray(consts["an_x_lo"][lvl]),
             np.asarray(consts["syn_y"][n - 1 - lvl]),
             np.asarray(consts["syn_x_lo"][n - 1 - lvl]),
         )
-    return out
+        for lvl in _leading_banded(inputs)
+    }
 
 
 def constants_from_numpy(consts: dict, device) -> dict:
-    """Move a plan's numpy constants (this package's or the JAX package's
-    ``DestripePlan.constants()`` dict) to ``device`` as tensors: tuples of
-    float32 matrices per key, and a dict of band-form tensors per banded
-    level (built here from the dense operators where absent)."""
+    """Move a plan's constants (this package's ``DestripePlan.constants()``
+    dict, or the JAX package's) to ``device`` as tensors: tuples of
+    float32 matrices per key (None stays None: a banded level's dense
+    operators in the plane step's constants on a card; tensors already
+    built on ``device`` pass through), and a dict of band-form tensors per
+    banded level (built here from the dense operators where absent).
+    Counts the bytes put on a card in ``plan.device_bytes``."""
     device = torch.device(device)
-    with span("plan.upload"):
+    with timed("plan.upload"):
         consts = dict(consts)
         if not any(k.startswith("band") and "k1_start" in v
                    for k, v in consts.items()):
@@ -238,18 +289,34 @@ def constants_from_numpy(consts: dict, device) -> dict:
         def put(a):
             if a is None:
                 return None
+            if isinstance(a, torch.Tensor):
+                return a.to(device)
             a = np.asarray(a)
             dtype = torch.int32 if a.dtype.kind in "iu" else torch.float32
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                    device=device)
 
-        out = {}
+        out, tensors = {}, []
         for k, v in consts.items():
             if k.startswith("band") and "k1_start" in v:
                 out[k] = {name: put(a) for name, a in v.items()}
+                tensors += out[k].values()
             elif k in ("an_y", "an_x_lo", "syn_y", "syn_x_lo", "notch_cat"):
                 out[k] = tuple(put(a) for a in v)
+                tensors += (t for t in out[k] if t is not None)
+        if device.type == "cuda":
+            add("plan.device_bytes",
+                sum(t.numel() * t.element_size() for t in tensors))
         return out
+
+
+def device_constants(plan: DestripePlan, device) -> dict:
+    """The constants the plane step reads on ``device``:
+    ``plan.constants(device=device)`` (on a card, band forms alone for a
+    banded level and the widest notch operators built there; elsewhere
+    ``plan.constants()``) moved there by :func:`constants_from_numpy`."""
+    device = torch.device(device)
+    return constants_from_numpy(plan.constants(device=device), device)
 
 
 @lru_cache(maxsize=32)
@@ -265,7 +332,7 @@ def build_plan(
             "(they do in the reference pipeline); for disjoint configs run "
             "two plans and select on host."
         )
-    with span("plan.build"):  # a cache miss: hits never enter the body
+    with timed("plan.build"):  # a cache miss: hits never enter the body
         wav = wavelet(cells.wavelet)
         n_levels, ladder = wavedec2_shapes((height, width), wav,
                                            cells.level)
@@ -469,8 +536,8 @@ def destripe_batch(
     """log-space wavelet-FFT destripe of a batch of planes on the device of
     ``images``; returns float32 of the same shape, or uint16 through the
     flat-field correction (``flat``/``dark``) or the zarr-store wrap cast
-    (``wrap=True``). ``consts``: :func:`constants_from_numpy` of the plan's
-    constants on that device (built when None).
+    (``wrap=True``). ``consts``: the plan's constants on that device
+    (:func:`device_constants`, built when None).
 
     ``dual=True`` skips the classifier and filters every plane with both
     configurations: it returns (2B, H, W) float32, ``[:B]`` with
@@ -502,7 +569,7 @@ def destripe_batch(
         out = epilogue(torch.exp(xlog()) + 1.0)
         return torch.cat([out, out]) if dual else out
     if consts is None:
-        consts = constants_from_numpy(plan.constants(), device)
+        consts = device_constants(plan, device)
     bands = {lvl for lvl in range(plan.n_levels) if f"band{lvl}" in consts}
 
     # Classifier: when level 0 is banded, K1 emits the four sums while it

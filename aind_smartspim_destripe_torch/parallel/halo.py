@@ -59,7 +59,13 @@ import numpy as np
 import torch
 
 from ..ops import cuda_band, cuda_notch, wavelets
-from ..ops.cuda_band import band_form_taps, check_k1_band, check_k4_band
+from ..ops.cuda_band import (
+    analysis_taps,
+    band_form_taps,
+    check_k1_band,
+    check_k4_band,
+    synthesis_taps,
+)
 from ..ops.cuda_blend import RADIUS, blend_smooth_mix
 from ..ops.cuda_hist import histogram256_batch
 from ..ops.cuda_notch import row_median_masked
@@ -290,34 +296,20 @@ def _windows_cover(start: np.ndarray, coef: np.ndarray, r_out: int,
 
 def _k1_taps_band(w: int, wavelet_name: str):
     """K1's band form of the lowpass analysis operator of width w
-    (``analysis_operator(w)[:L]``), from the filter taps: row k sums
-    ``dec_lo[::-1][i]`` at the symmetric fold of column 2k + 1 + i -
-    (flen - 1), as the dense builder adds them."""
-    wav = wavelets.wavelet(wavelet_name)
-    flen = wav.flen
-    L = wavelets.dwt_coeff_len(w, flen)
-    k = np.arange(L)[:, None]
-    cols = wavelets._fold_symmetric(2 * k + 1 + np.arange(flen)[None, :]
-                                    - (flen - 1), w)
-    vals = np.broadcast_to(wav.dec_lo[::-1], (L, flen))
-    start, coef = band_form_taps(cols, vals, w)
+    (``analysis_operator(w)[:L]``), from the filter taps
+    (:func:`..ops.cuda_band.analysis_taps`)."""
+    cols, lo, _ = analysis_taps(w, wavelet_name)
+    start, (coef,) = band_form_taps(cols, w, lo)
     check_k1_band(start, coef.shape[1])
     return start, coef
 
 
 def _k4_taps_band(L_x: int, tw: int, wavelet_name: str):
     """K4's band form of the trimmed lowpass synthesis operator
-    (``synthesis_operator(L_x)[:tw, :L_x]``), from the filter taps: output
-    m takes ``rec_lo[j]`` of coefficient k for j = m + flen - 2 - 2k in
-    [0, flen)."""
-    wav = wavelets.wavelet(wavelet_name)
-    flen = wav.flen
-    m = np.arange(tw)[:, None]
-    cols = (m + flen - 2) // 2 - np.arange(flen // 2 + 1)[None, :]
-    j = m + flen - 2 - 2 * cols
-    valid = (j >= 0) & (j < flen) & (cols >= 0) & (cols < L_x)
-    vals = np.where(valid, wav.rec_lo_arr[np.clip(j, 0, flen - 1)], 0.0)
-    start, coef = band_form_taps(np.clip(cols, 0, L_x - 1), vals, L_x)
+    (``synthesis_operator(L_x)[:tw, :L_x]``), from the filter taps
+    (:func:`..ops.cuda_band.synthesis_taps`)."""
+    cols, lo, _ = synthesis_taps(L_x, tw, wavelet_name)
+    start, (coef,) = band_form_taps(cols, L_x, lo)
     check_k4_band(start, coef.shape[1])
     return start, coef
 

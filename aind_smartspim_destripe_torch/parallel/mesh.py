@@ -27,8 +27,8 @@ import torch
 
 from ..ops.filter import (
     DestripePlan,
-    constants_from_numpy,
     destripe_batch,
+    device_constants,
     f32_matmul,
     normalize_flat_dark,
 )
@@ -182,9 +182,7 @@ def sharded_normalize_image(mesh, images) -> List[torch.Tensor]:
 
 def _consts_on(plan: DestripePlan, mesh) -> dict:
     """The plan's constants once per distinct device of the mesh."""
-    host = plan.constants()
-    return {dev: constants_from_numpy(host, dev)
-            for dev in dict.fromkeys(mesh)}
+    return {dev: device_constants(plan, dev) for dev in dict.fromkeys(mesh)}
 
 
 def _destripe_parts(plan, consts, microscope_high_int, parts, flat, dark,

@@ -40,8 +40,8 @@ import torch
 from ..ops.dual_band import check_crossover, dual_band_destripe_batch
 from ..ops.filter import (
     DestripePlan,
-    constants_from_numpy,
     destripe_batch,
+    device_constants,
     f32_matmul,
 )
 from ..parallel.halo import (
@@ -102,8 +102,8 @@ def make_device_step(plan: DestripePlan, microscope_high_int: float,
                      crossover: float = 100.0, dual_threshold: float = -1.0):
     """(B, H, W) uint16 -> uint16 device step: destripe, then the
     flat-field correction (``with_flatfield``) or the zarr-store wrap cast.
-    The operator matrices are moved to the devices once. Matrix products
-    run in full float32 (TF32 off).
+    The plan's constants (:func:`..ops.filter.device_constants`) are made
+    on each device once. Matrix products run in full float32 (TF32 off).
 
     ``dual=True`` replaces the classifier dispatch with the dual-band blend
     (:func:`..ops.dual_band.dual_band_destripe_batch`: both of the plan's
@@ -121,7 +121,9 @@ def make_device_step(plan: DestripePlan, microscope_high_int: float,
     threshold on the first device alone: on four H100s the plane split of
     a 64-plane batch of 1600 x 2000 planes ran slower than one card (the
     host needs longer to launch a share than the card needs to run it;
-    ``scripts/mesh_capsule.py``). A list of devices splits them.
+    ``scripts/mesh_capsule.py``). A list of devices splits them. A mesh of
+    one entry (a one-card host) takes the plane path at any plane size,
+    the fused 16384 x 18000 plane included.
 
     The returned callable ``step(images, flat, dark)`` carries ``.put``
     (numpy batch -> device input), ``.put_const``, ``.to_host`` (its output
@@ -138,8 +140,7 @@ def make_device_step(plan: DestripePlan, microscope_high_int: float,
                                mesh, dual, crossover, dual_threshold)
     if devices is None:
         mesh = mesh[:1]
-    host = plan.constants()
-    consts = {dev: constants_from_numpy(host, dev)
+    consts = {dev: device_constants(plan, dev)
               for dev in dict.fromkeys(mesh)}
 
     def one(images, flat, dark):

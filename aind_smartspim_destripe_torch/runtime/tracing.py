@@ -14,7 +14,12 @@ Counterpart of ``aind_smartspim_destripe_tpu/runtime/tracing.py``:
   ``plan.constants``, ``plan.upload``, ``kernels.load``). They are kept in
   memory on the clock of ``torch.profiler``'s events (``time.time_ns``),
   so a span names the device's activity, and its gaps, at the same
-  instant.
+  instant;
+- ``counters``: process-lifetime counters, always on, each one dict update
+  at set-up and nothing in the step: ``plan.build_s``,
+  ``plan.constants_s`` and ``plan.upload_s`` (the seconds of the set-up
+  spans of those names, through :func:`timed`) and ``plan.device_bytes``
+  (the bytes of plan tensors put on a card).
 
 The recorder records while it is enabled (:func:`enable`) or while a
 ``torch.profiler`` session is running, so any profile of the step carries
@@ -37,8 +42,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["device_trace", "annotate", "span", "enable", "disable",
-           "collect"]
+__all__ = ["device_trace", "annotate", "span", "timed", "enable",
+           "disable", "collect", "add", "counters"]
 
 _NOOP = contextlib.nullcontext()
 _profiling = torch._C._autograd._profiler_enabled
@@ -48,6 +53,7 @@ _spans: list = []
 _ids = itertools.count(1)
 _local = threading.local()
 _gc_start = None  # (start ns, parent, step) of the collection under way
+_counters: dict = {}
 
 
 @contextlib.contextmanager
@@ -129,6 +135,30 @@ def span(name: str, **meta):
     if not (_on or _profiling()):
         return _NOOP
     return _Span(name, meta)
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """:func:`span` ``name`` whose seconds are also added to the counter
+    ``<name>_s``, recorder on or off: for set-up phases, never inside the
+    step."""
+    t0 = time.perf_counter()
+    try:
+        with span(name) as meta:
+            yield meta
+    finally:
+        add(name + "_s", time.perf_counter() - t0)
+
+
+def add(name: str, value: float) -> None:
+    """Add ``value`` to the process-lifetime counter ``name``."""
+    _counters[name] = _counters.get(name, 0) + value
+
+
+def counters() -> dict:
+    """The counters so far, {name: value}; a counter never added is
+    absent."""
+    return dict(_counters)
 
 
 def _on_gc(phase: str, info: dict) -> None:

@@ -1276,3 +1276,45 @@ def test_card_histogram_refusals(card):
         th.histogram256_batch(x, t, t + 1)
     with pytest.raises(ValueError, match="nbins"):
         th.histogram256_batch(x[:1], t[:1], t[:1] + 1, nbins=257)
+
+
+@pytest.mark.parametrize("w", [1002, 2254, 4503, 9002])
+def test_card_notch_cat_within_an_ulp(card, w):
+    """The notch operators the plane step builds on the card past the host
+    gate (cuFFT in float64): within a float32 ulp of the host's, of
+    max(|entry|, 2^-20); at or under the gate (the accepted cells' widths)
+    the host's, bit for bit. The host takes seconds at 9002 columns."""
+    from aind_smartspim_destripe_torch.ops import fft_notch
+
+    sigmas = (w * 64.0 / 16384, w * 128.0 / 16384)
+    got = fft_notch.notch_cat(w, sigmas, card)
+    host = fft_notch.notch_cat(w, sigmas)
+    if w <= fft_notch.NOTCH_HOST_MAX_W:
+        assert isinstance(got, np.ndarray)
+        np.testing.assert_array_equal(got, host)
+        return
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    tol = np.spacing(np.maximum(np.abs(host), np.float32(2 ** -20)))
+    assert (np.abs(got.cpu().numpy() - host) <= tol).all()
+
+
+def test_card_stitched_plane_constants(card):
+    """The plane step's constants of a 16384 x 18000 plane: the banded
+    levels 0-4 hold band forms alone, the notch operators are built on
+    the card, and the whole is under 1 GB there."""
+    plan = tf.build_plan(16384, 18000, tf.FilterConfig(sigma=64,
+                                                       max_threshold=3),
+                         tf.FilterConfig(sigma=128, max_threshold=12))
+    assert plan.banded_levels() == (0, 1, 2, 3, 4)
+    consts = tf.device_constants(plan, card)
+    n = plan.n_levels
+    for lvl in range(n):
+        banded = lvl in plan.banded_levels()
+        assert (f"band{lvl}" in consts) == banded
+        for key, idx in (("an_y", lvl), ("an_x_lo", lvl),
+                         ("syn_y", n - 1 - lvl), ("syn_x_lo", n - 1 - lvl)):
+            assert (consts[key][idx] is None) == banded
+    tensors = [t for k, v in consts.items() for t in (
+        v.values() if k.startswith("band") else v) if t is not None]
+    assert all(t.device.type == "cuda" for t in tensors)
+    assert sum(t.numel() * t.element_size() for t in tensors) < 1.0e9

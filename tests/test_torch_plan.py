@@ -200,3 +200,153 @@ def test_constants_from_numpy_round_trip():
         for arr, a, b in zip(val, mine[key], theirs[key]):
             np.testing.assert_array_equal(a.numpy(), arr)
             np.testing.assert_array_equal(b.numpy(), arr)
+
+
+# --- the plane step's constants (device_constants) -------------------------
+
+TAP_GEOMETRIES = [((1600, 2000), "db3"), ((2048, 2047), "db3"),
+                  ((2301, 2300), "db3"), ((1001, 777), "db3"),
+                  ((640, 720), "db3"), ((1200, 1301), "db8")]
+
+
+def _plan_of(hw, name):
+    """The production pair's plan of ``hw`` with the wavelet ``name``."""
+    cells = dict(CELLS, wavelet=name)
+    no_cells = dict(NO_CELLS, wavelet=name)
+    return tf.build_plan(*hw, tf.FilterConfig(**cells),
+                         tf.FilterConfig(**no_cells))
+
+
+@pytest.mark.parametrize("hw,name", TAP_GEOMETRIES)
+def test_band_forms_from_taps_equal_the_dense_operators_forms(hw, name):
+    # a card's constants, built here: every ladder width is under the notch
+    # gate, so nothing of them is built on the card
+    tp = _plan_of(hw, name)
+    dense, taps = tp.constants(), tp.constants(device="cuda")
+    lvls = tp.banded_levels()
+    assert lvls and lvls == _banded(tp)
+    for lvl in lvls:
+        h, w = tp.level_inputs()[lvl]
+        assert f"band{lvl}" in taps
+        for forms in (taps[f"band{lvl}"],
+                      cb.band_level_forms_taps(h, w, name)):
+            assert set(forms) == set(dense[f"band{lvl}"])
+            for key, want in dense[f"band{lvl}"].items():
+                assert forms[key].dtype == want.dtype
+                np.testing.assert_array_equal(forms[key], want)
+    assert f"band{len(lvls)}" not in taps
+
+
+@pytest.mark.parametrize("hw,name", TAP_GEOMETRIES[:2])
+def test_device_constants_hold_no_dense_operator_of_a_banded_level(hw, name):
+    """On a card a banded level's dense operators are None, the rest as
+    ``constants()``; off the card the plane step's constants are those of
+    ``constants()`` (the plain twins read the dense operators)."""
+    tp = _plan_of(hw, name)
+    n, lvls = tp.n_levels, tp.banded_levels()
+    dense, card = tp.constants(), tp.constants(device="cuda")
+    assert lvls and set(card) == set(dense)
+    for lvl in range(n):
+        for key, idx in (("an_y", lvl), ("an_x_lo", lvl),
+                         ("syn_y", n - 1 - lvl), ("syn_x_lo", n - 1 - lvl)):
+            if lvl in lvls:
+                assert card[key][idx] is None
+            else:
+                np.testing.assert_array_equal(card[key][idx], dense[key][idx])
+    for a, b in zip(card["notch_cat"], dense["notch_cat"]):
+        np.testing.assert_array_equal(a, b)
+    want = tf.constants_from_numpy(dense, "cpu")
+    got = tf.device_constants(tp, "cpu")
+    assert set(got) == set(want)
+    for key, val in want.items():
+        pairs = (zip(val.values(), got[key].values()) if isinstance(val, dict)
+                 else zip(val, got[key]))
+        for a, b in pairs:
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="plane step"):
+        tp.constants(dense_only=True, device="cpu")
+
+
+def _ladder_widths():
+    """(width, sigma pair) of every level of the accepted cells' plans."""
+    tp = tf.build_plan(1600, 2000, tf.FilterConfig(**CELLS),
+                       tf.FilterConfig(**NO_CELLS))
+    return [(w, s) for (_, w), s in zip(tp.ladder, tp.notch_sigmas())]
+
+
+@pytest.mark.parametrize("w,sigmas", _ladder_widths())
+def test_notch_cat_equals_packed_notch_matrix(w, sigmas):
+    want = np.concatenate([tn.packed_notch_matrix(w, s).astype(np.float32).T
+                           for s in sigmas], axis=1)
+    for device in (None, "cpu"):
+        got = tn.notch_cat(w, sigmas, device)
+        assert isinstance(got, np.ndarray) and got.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("w", [13, 254, 503, 1002, 1129, 2047, 2254, 2301])
+def test_notch_cat_by_torch_fft_within_an_ulp(w):
+    """The torch form of ``notch_cat`` (a card's past the host gate), here
+    on the CPU's FFT: within a float32 ulp of the host's operator, of
+    max(|entry|, 2^-20) (float64 rounds the tiniest entries apart by more
+    of their own ulps)."""
+    sigmas = (w * 64.0 / 1600, w * 128.0 / 1600)
+    host = tn.notch_cat(w, sigmas)
+    got = tn._notch_cat_torch(w, sigmas, torch.device("cpu"))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (w, 2 * w)
+    tol = np.spacing(np.maximum(np.abs(host), np.float32(2 ** -20)))
+    assert (np.abs(got.numpy() - host) <= tol).all()
+
+
+@pytest.mark.parametrize("dual", [False, True])
+def test_destripe_batch_same_output_with_device_constants(dual):
+    from aind_smartspim_destripe_torch.ops import dual_band as tdb
+
+    tp = tf.build_plan(640, 720, tf.FilterConfig(**CELLS),
+                       tf.FilterConfig(**NO_CELLS))
+    assert tp.banded_levels() == (0,)
+    rng = np.random.default_rng(5)
+    rows = rng.normal(0, 60, (2, 640, 1))
+    base = np.array([300.0, 3100.0])[:, None, None]  # plane 1 bright: cells
+    x = torch.as_tensor(np.clip(base + rows + rng.normal(0, 8, (2, 640, 720)),
+                                0, 65535).astype(np.uint16))
+    flat = torch.as_tensor(1 + 0.1 * rng.random((640, 720)),
+                           dtype=torch.float32)
+    dark = torch.full((640, 720), 3.0)
+    outs = []
+    for consts in (tf.constants_from_numpy(tp.constants(), "cpu"),
+                   tf.device_constants(tp, "cpu"), None):
+        if dual:
+            outs.append(tdb.dual_band_destripe_batch(
+                tp, x, 100.0, consts=consts, flat=flat, dark=dark))
+        else:
+            outs.append(tf.destripe_batch(tp, x, 2500.0, consts, flat=flat,
+                                          dark=dark))
+    assert outs[0].dtype == torch.uint16
+    for got in outs[1:]:
+        assert torch.equal(got, outs[0])
+
+
+def test_counters_read_after_a_plan_build(monkeypatch):
+    from aind_smartspim_destripe_torch.runtime import tracing
+    from portbench import harness
+
+    tf.build_plan.cache_clear()
+    before = tracing.counters()
+    tp = tf.build_plan(200, 240, tf.FilterConfig(**CELLS),
+                       tf.FilterConfig(**NO_CELLS))
+    tf.device_constants(tp, "cpu")
+    after = tracing.counters()
+    for key in ("plan.build_s", "plan.constants_s", "plan.upload_s"):
+        assert after[key] > before.get(key, 0.0)
+    # plan tensors on the CPU are not on a card
+    assert after.get("plan.device_bytes", 0) == before.get(
+        "plan.device_bytes", 0)
+    reader = harness.load_reader("setup.plan_s")
+    got = reader.read(None)
+    assert got == pytest.approx(sum(after[k] for k in (
+        "plan.build_s", "plan.constants_s", "plan.upload_s")))
+    monkeypatch.setattr(tracing, "counters", dict)  # a program without them
+    assert reader.read(None) is None
+    monkeypatch.delattr(tracing, "counters")
+    assert reader.read(None) is None

@@ -119,11 +119,17 @@ def test_plan_spans_once_per_cache_miss(recorder):
     assert _plan() is plan
     consts = tf.constants_from_numpy(plan.constants(), CPU)
     tf.destripe_batch(plan, torch.ones((1, H, W)), consts=consts)
-    names = [s[NAME] for s in tracing.collect()]
+    spans = tracing.collect()
+    names = [s[NAME] for s in spans]
     assert names.count("plan.build") == 1
     assert names.count("plan.constants") == names.count("plan.upload") == 1
-    for s in tracing.collect():
-        if s[NAME].startswith("plan."):
+    # the phases of plan.constants, inside it
+    assert names.count("plan.notch") == names.count("plan.band_forms") == 1
+    by_id = {s[0]: s for s in spans}
+    for s in spans:
+        if s[NAME] in ("plan.notch", "plan.band_forms"):
+            assert by_id[s[1]][NAME] == "plan.constants" and s[2] == 0
+        elif s[NAME].startswith("plan."):
             assert s[1] == s[2] == 0
 
 
