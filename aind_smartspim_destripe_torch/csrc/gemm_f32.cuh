@@ -1,8 +1,9 @@
 // One pipelined FP32 GEMM tile for NVIDIA Hopper (sm_90a), shared by the
 // dense levels' products (dense.cu), the row-sharded route's per-plane
-// notch product (notch.cu's notch_select) and the plane path's notch tail
-// (notch.cu's notch_delta, through the tile's two hooks: a transform of
-// each A element as it is loaded and an epilogue in place of the store).
+// notch product (notch.cu's notch_select) and the plane path's notch tails
+// (notch.cu's notch_delta and the exact-rank projection and synthesis,
+// through the tile's two hooks: a transform of each A element as it is
+// loaded and an epilogue in place of the store).
 //
 // A block of BM * BN / 64 threads computes a BM x BN output tile of
 // c = a @ b, each thread 8 x 8 outputs laid out as two 4 x 4 quadrants

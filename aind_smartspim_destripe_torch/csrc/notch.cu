@@ -7,6 +7,8 @@
 //                         <- aind_smartspim_destripe_tpu/ops/pallas_median.py:row_median_batch
 //   destripe_notch        <- aind_smartspim_destripe_tpu/ops/pallas_notch.py:notch_delta
 //   destripe_notch_select <- aind_smartspim_destripe_tpu/ops/pallas_notch.py:notch_select_chunked
+// and adds destripe_notch_project / destripe_notch_synth, the notch tail at
+// its exact rank (below).
 //
 // notch_delta computes, per plane b with threshold t = thr[b]:
 //   stripes   = sqrt(ch * ch) > t           (the rounded sqrt-of-square)
@@ -30,11 +32,27 @@
 // the square against a per-plane cut (stripe_cut), the same decision as the
 // rounded square root's.
 //
-// Both take an output batch n_out that is a multiple of the band's batch
-// n_in: output plane b reads band plane b % n_in, with thr[b] and sel[b] of
-// its own (the dual-band form, k = 2: one band, two thresholds and notch
-// operators, without a concatenated copy of the band). The median is taken
-// per output plane, since its mask depends on thr[b].
+// destripe_notch_project and destripe_notch_synth (no TPU kernel: the
+// JAX package runs every level's notch dense) compute the same delta from
+// the factors of op - I (ops/fft_notch.py notch_factors: the packed
+// analysis rows p of the r frequencies whose float64 gain is not 1.0, and
+// their synthesis rows ds scaled by g - 1). Where a value is not a stripe
+// the inpainted band equals ch, so inpainted @ op - ch there is
+// inpainted @ (op - I) = (inpainted @ p) @ ds: 4 h w r operations a plane
+// in place of 2 h w^2, the terms whose gain is exactly 1.0 left out. The
+// projection runs the tile with the same A-element transform (K = w, N =
+// r, blocks past the plane's own rank exit), the synthesis with a masked
+// store (K = r); each is bound by its operations, and each output is
+// summed by one thread in k order, one fmaf per term from 0. The host
+// takes this route where 2 r <= w / 2 (the fused plane's levels: 2 r / w
+// 0.12-0.18), and notch_delta elsewhere (the tile's: 1.11-1.33).
+//
+// The masked median and the notch tails take an output batch n_out that is
+// a multiple of the band's batch n_in: output plane b reads band plane
+// b % n_in, with thr[b] and sel[b] of its own (the dual-band form, k = 2:
+// one band, two thresholds and notch operators, without a concatenated
+// copy of the band). The median is taken per output plane, since its mask
+// depends on thr[b].
 //
 // notch_select is the product alone, out[b] = x[b] @ op[:, sel[b]*w:(sel[b]+1)*w],
 // for the row-sharded route, where the mask, the inpainting and the delta
@@ -626,6 +644,77 @@ __global__ void __launch_bounds__(gemm_f32::Tile<kNotchRows, 128>::kThreads,
       blockIdx.x * 128, inpaint, DeltaStore{xb, cut});
 }
 
+// The exact-rank notch tail (notch_delta_lowrank), two GEMMs on the same
+// 64 x 128 tile. The projection y[b] = inpaint(x[b % n_in]) @ p[:, :r]
+// (h x r, row pitch rp), r = r1 if sel[b] else r0, with notch_delta's
+// A-element transform; blocks whose columns start past the plane's rank
+// exit. K = w runs long and N = r is narrow, but the A operand, loaded
+// through registers and the transform, is the costly one, so the tile
+// that loads the fewest A values per product is best: on an H100 (4
+// planes, one of them cells), 64 x 128 ran the 16384 x 18000 plan's
+// level 0 in 10.2 ms, 128 x 64 in 11.9 and 64 x 64 in 12.1 (level 1: 3.0,
+// 4.6, 4.5 ms).
+template <int V>
+__global__ void __launch_bounds__(gemm_f32::Tile<kNotchRows, 128>::kThreads,
+                                  gemm_f32::Tile<kNotchRows, 128>::kMinBlocks)
+    notch_project_kernel(const float* __restrict__ x,
+                         const float* __restrict__ med,
+                         const float* __restrict__ thr,
+                         const int* __restrict__ sel,
+                         const float* __restrict__ p, float* __restrict__ y,
+                         int n_in, int h, int w, int rp, int r0, int r1) {
+  using Loader = gemm_f32::KMajorLoader<
+      kNotchRows, gemm_f32::Tile<kNotchRows, 128>::kThreads, V>;
+  const int b = blockIdx.z;
+  const int r = sel[b] ? r1 : r0;
+  const int col0 = blockIdx.x * 128;
+  if (col0 >= r) return;  // the whole block: past this plane's rank
+  const float* xb = x + (size_t)(b % n_in) * h * w;
+  Inpaint<kNotchRows, Loader> inpaint;
+  inpaint.med = med + (size_t)b * h;
+  inpaint.cut = stripe_cut(thr[b]);
+  gemm_f32::tile_product<kNotchRows, 128, V, true, V>(
+      xb, w, 1, p, rp, 1, y + (size_t)b * h * rp, rp, h, r, w,
+      blockIdx.y * kNotchRows, col0, inpaint);
+}
+
+// The synthesis's epilogue: stripe ? 0 : acc (the projection left out the
+// identity, so nothing is subtracted).
+struct MaskedStore {
+  const float* __restrict__ x;  // the band plane, row pitch = ldc
+  float cut;
+
+  __device__ __forceinline__ void operator()(float* c, long long ldc, int r,
+                                             int col, float acc) const {
+    const long long o = r * ldc + col;
+    const float xv = x[o];
+    c[o] = __fmul_rn(xv, xv) > cut ? 0.0f : acc;
+  }
+};
+
+// The synthesis out[b] = stripes ? 0 : y[b][:, :r] @ ds[s rp : s rp + r]
+// (h x w), s = sel[b]: K = r runs short; 64 x 128 ran level 0 in 7.4 ms
+// on the same card, 128 x 128 in 7.6. y is read 8 bytes at a time (rp
+// even), ds V floats.
+template <int V>
+__global__ void __launch_bounds__(gemm_f32::Tile<kNotchRows, 128>::kThreads,
+                                  gemm_f32::Tile<kNotchRows, 128>::kMinBlocks)
+    notch_synth_kernel(const float* __restrict__ x,
+                       const float* __restrict__ thr,
+                       const int* __restrict__ sel,
+                       const float* __restrict__ y,
+                       const float* __restrict__ ds, float* __restrict__ out,
+                       int n_in, int h, int w, int rp, int r0, int r1) {
+  const int b = blockIdx.z;
+  const int s = sel[b];
+  const float* xb = x + (size_t)(b % n_in) * h * w;
+  gemm_f32::tile_product<kNotchRows, 128, 2, true, V>(
+      y + (size_t)b * h * rp, rp, 1, ds + (size_t)s * rp * w, w, 1,
+      out + (size_t)b * h * w, w, h, w, s ? r1 : r0,
+      blockIdx.y * kNotchRows, blockIdx.x * 128, gemm_f32::AIdentity(),
+      MaskedStore{xb, stripe_cut(thr[b])});
+}
+
 // out[b, r, c] = sum_k x[b, r, k] * op[k, sel[b]*w + c]; op is (w, 2w)
 // row-major. gemm_f32.cuh's 128 x 128 tile (K = w runs long on the route,
 // where the larger tile wins), V floats per load along the rows of x and
@@ -761,6 +850,63 @@ int destripe_notch(const float* x, const float* med, const float* thr,
   } else if (v == 1) {
     notch_delta_kernel<1><<<grid, threads, 0, s>>>(x, med, thr, sel, op, out,
                                                    n_in, h, w);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (n_in, h, w) f32, med (n_out, h) f32, thr (n_out,) f32, sel (n_out,)
+// int32 in {0, 1}, p (w, rp) f32 -> y (n_out, h, rp) f32, columns r0 (sel
+// 0) or r1 (sel 1) of each plane written; 1 <= r0, r1 <= rp; v 1 or 2, the
+// floats per load along x's rows and p's (2: w and rp even, both bases
+// 8-byte aligned); n_out and ceil(h / 64) at most 65535.
+int destripe_notch_project(const float* x, const float* med,
+                           const float* thr, const int* sel, const float* p,
+                           float* y, int n_out, int n_in, int h, int w,
+                           int rp, int r0, int r1, int v, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_in < 1 || n_out % n_in || r0 < 1 || r1 < 1 || r0 > rp || r1 > rp) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int r = r0 > r1 ? r0 : r1;
+  const dim3 grid((r + 127) / 128, (h + kNotchRows - 1) / kNotchRows, n_out);
+  const int threads = gemm_f32::Tile<kNotchRows, 128>::kThreads;
+  if (v == 2) {
+    notch_project_kernel<2><<<grid, threads, 0, s>>>(x, med, thr, sel, p, y,
+                                                     n_in, h, w, rp, r0, r1);
+  } else if (v == 1) {
+    notch_project_kernel<1><<<grid, threads, 0, s>>>(x, med, thr, sel, p, y,
+                                                     n_in, h, w, rp, r0, r1);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (n_in, h, w) f32, thr (n_out,) f32, sel (n_out,) int32 in {0, 1}, y
+// (n_out, h, rp) f32, ds (2 rp, w) f32 -> out (n_out, h, w) f32: the sum
+// over the first r0 (sel 0) or r1 (sel 1) rows of the plane's half of ds,
+// 0 at stripes; rp even, 1 <= r0, r1 <= rp; v 1 or 2, the floats per load
+// along ds's rows (2: w even and ds 8-byte aligned); n_out and
+// ceil(h / 64) at most 65535.
+int destripe_notch_synth(const float* x, const float* thr, const int* sel,
+                         const float* y, const float* ds, float* out,
+                         int n_out, int n_in, int h, int w, int rp, int r0,
+                         int r1, int v, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_in < 1 || n_out % n_in || r0 < 1 || r1 < 1 || r0 > rp || r1 > rp ||
+      rp % 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((w + 127) / 128, (h + kNotchRows - 1) / kNotchRows, n_out);
+  const int threads = gemm_f32::Tile<kNotchRows, 128>::kThreads;
+  if (v == 2) {
+    notch_synth_kernel<2><<<grid, threads, 0, s>>>(x, thr, sel, y, ds, out,
+                                                   n_in, h, w, rp, r0, r1);
+  } else if (v == 1) {
+    notch_synth_kernel<1><<<grid, threads, 0, s>>>(x, thr, sel, y, ds, out,
+                                                   n_in, h, w, rp, r0, r1);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -86,6 +86,10 @@ _SIGNATURES = {
     + [ctypes.c_void_p],
     "destripe_notch_select": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
+    "destripe_notch_project": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p],
+    "destripe_notch_synth": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p],
     "destripe_blend": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     "destripe_div17_check": [ctypes.c_uint] + [ctypes.c_void_p] * 3,

@@ -17,6 +17,9 @@ launches in ``<wrapper>.launches``.
   ``where(sqrt(x*x) > thr[b], 0, x)``;
 - :func:`notch_delta`: stripe mask -> row-median inpaint -> the plane's
   notch operator -> the synthesis delta ``filtered - ch``;
+- :func:`notch_delta_lowrank`: the same delta from the notch's exact-rank
+  factors (``fft_notch.notch_factors``): a projection onto the frequencies
+  whose gain is not 1.0, then their synthesis;
 - :func:`notch_select`: the product ``x[b] @ op[sel[b]]`` alone, for the
   row-sharded route, with the operator bank of
   :func:`stacked_notch_operators`.
@@ -44,13 +47,16 @@ __all__ = [
     "row_median_batch",
     "row_median_masked",
     "notch_delta",
+    "notch_delta_lowrank",
     "notch_select",
     "stacked_notch_operators",
     "plan_notch_select",
     "plan_notch_delta",
+    "plan_notch_lowrank",
     "row_median_batch_plain",
     "row_median_masked_plain",
     "notch_delta_plain",
+    "notch_delta_lowrank_plain",
     "notch_select_plain",
     "KERNELS",
 ]
@@ -308,6 +314,99 @@ def plan_notch_delta(n_out: int, h: int, w: int, x_ptr: int = 0,
                copy_width(bank_ptr, 1, (2 * w, w)))
 
 
+def _check_ranks(ranks, rp):
+    if len(ranks) != 2 or not all(1 <= r <= rp for r in ranks):
+        raise ValueError(f"ranks {tuple(ranks)} not two ranks in [1, {rp}]")
+
+
+def notch_delta_lowrank_plain(ch, thr, sel, p, ds, ranks):
+    """Plain twin of :func:`notch_delta_lowrank`, on any device: two
+    ``torch.matmul``s and the mask. It sums over all ``rp`` factor terms:
+    ``ds``'s rows past a configuration's rank are zero."""
+    _check_ranks(ranks, p.shape[-1])
+    ch = _tiled(ch, _n_out(ch, thr))
+    stripes = torch.sqrt(ch * ch) > thr[:, None, None]
+    background = torch.where(stripes, 0.0, ch)
+    inpainted = torch.where(stripes, row_median(background), ch)
+    del background
+    y = torch.matmul(inpainted, p)
+    del inpainted
+    rp, w = p.shape[-1], ch.shape[-1]
+    delta = torch.matmul(y, ds.view(-1, rp, w)[sel.long()])
+    return torch.where(stripes, 0.0, delta)
+
+
+def notch_delta_lowrank(
+    ch: torch.Tensor,  # (B, h, w) float32 horizontal-detail band
+    thr: torch.Tensor,  # (kB,) float32 per-output-plane stripe threshold
+    sel: torch.Tensor,  # (kB,) int32: 0 = cells operator, 1 = no-cells
+    p: torch.Tensor,  # (w, rp) float32 packed analysis rows
+    ds: torch.Tensor,  # (2 rp, w) float32 [cells; no-cells] synthesis rows
+    ranks,  # (cells, no-cells) ranks, host ints in [1, rp]
+) -> torch.Tensor:
+    """The notch tail of :func:`notch_delta`, (kB, h, w) float32, from the
+    factors of each notch operator minus the identity
+    (:func:`.fft_notch.notch_factors`): with ``c = ch[b mod B]``,
+    ``stripes`` and the row median ``med`` as there, ``r = ranks[sel[b]]``
+    and ``d = ds[sel[b] rp:]``, ``where(stripes, 0, where(stripes, med, c)
+    @ p[:, :r] @ d[:r])``. Where ``c`` is not a stripe the inpainted value
+    is ``c``, so ``inpainted @ op - c`` there is ``inpainted @ (op - I)``:
+    the same delta, with the terms whose gain is exactly 1.0 left out.
+
+    On the card this is three launches: :func:`row_median_masked`, the
+    projection ``y = inpaint(c) @ p[:, :r]`` (h x r, the mask and the
+    inpainting applied as the band is loaded, as in :func:`notch_delta`)
+    and the synthesis ``stripes ? 0 : y @ d[:r]``, both on the shared GEMM
+    tile (``csrc/gemm_f32.cuh``), each plane to its own rank; each output
+    is summed in k order, one FMA per term from 0."""
+    if not on_cuda(ch):
+        return notch_delta_lowrank_plain(ch, thr, sel, p, ds, ranks)
+
+    B, h, w = ch.shape
+    n_out = _n_out(ch, thr)
+    rp = p.shape[-1]
+    dev = ch.device
+    check("ch", ch, (torch.float32,), dev)
+    check("thr", thr, (torch.float32,), dev, (n_out,))
+    check("sel", sel, (torch.int32,), dev, (n_out,))
+    check("p", p, (torch.float32,), dev, (w, rp))
+    check("ds", ds, (torch.float32,), dev, (2 * rp, w))
+    _check_ranks(ranks, rp)
+    vp, vs = plan_notch_lowrank(n_out, h, w, rp, ch.data_ptr() % 8,
+                                p.data_ptr() % 8, ds.data_ptr() % 8)
+    med = row_median_masked(ch, thr)
+    y = torch.empty((n_out, h, rp), dtype=torch.float32, device=dev)
+    launch("destripe_notch_project", dev, ch.data_ptr(), med.data_ptr(),
+           thr.data_ptr(), sel.data_ptr(), p.data_ptr(), y.data_ptr(),
+           n_out, B, h, w, rp, *ranks, vp)
+    del med
+    out = torch.empty((n_out, h, w), dtype=torch.float32, device=dev)
+    launch("destripe_notch_synth", dev, ch.data_ptr(), thr.data_ptr(),
+           sel.data_ptr(), y.data_ptr(), ds.data_ptr(), out.data_ptr(),
+           n_out, B, h, w, rp, *ranks, vs)
+    notch_delta_lowrank.launches += 2
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def plan_notch_lowrank(n_out: int, h: int, w: int, rp: int, x_ptr: int = 0,
+                       p_ptr: int = 0, ds_ptr: int = 0):
+    """The floats per load ``(v_project, v_synth)`` of the low-rank notch
+    tail's two launches for n_out planes of (h, w) and factors of rp
+    columns at these addresses (bytes; only their alignment is read), by
+    the shared GEMM tile's rule (:func:`.cuda_dense.copy_width`): the
+    projection reads the band's rows and p's, the synthesis ds's (y's rows
+    are even and aligned). Raises ValueError where a grid (64-row tiles)
+    would overflow or rp is odd."""
+    if n_out > _GRID_MAX or -(-h // _NOTCH_TILE_ROWS) > _GRID_MAX:
+        raise ValueError(f"{n_out} planes of {h} rows exceed the kernel's "
+                         f"grid")
+    if rp % 2:
+        raise ValueError(f"the factors' width {rp} must be even")
+    return (min(copy_width(x_ptr, 1, (w, h * w)), copy_width(p_ptr, 1, (rp,))),
+            copy_width(ds_ptr, 1, (w, rp * w)))
+
+
 # ---------------------------------------------------------------------------
 # The per-plane notch product of the row-sharded route
 # ---------------------------------------------------------------------------
@@ -374,7 +473,8 @@ def notch_select(
     return out
 
 
-KERNELS = (row_median_masked, row_median_batch, notch_delta, notch_select)
+KERNELS = (row_median_masked, row_median_batch, notch_delta,
+           notch_delta_lowrank, notch_select)
 for _k in KERNELS:
     _k.launches = 0
 row_median_batch.copies = 0

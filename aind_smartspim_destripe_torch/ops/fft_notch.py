@@ -12,11 +12,21 @@ columns, from one transform of the identity for both configurations).
 At widths where that (w, w) matrix is too large to build, the row-sharded
 route applies the same map with :func:`apply_notch_fft` (``torch.fft``;
 cuFFT on the card), at O(w) operator bytes.
+
+The operator minus the identity has exact rank ``r``, the number of packed
+positions whose float64 gain is not 1.0 (:func:`notch_rank`; the gain is
+1.0 past ~8.6 sigma): :func:`notch_factors` gives it as the product of the
+packed analysis rows of those positions and their synthesis rows scaled by
+``g - 1`` (:class:`NotchFactors`). Where ``r`` is small against the width
+(:func:`lowrank_pays`), the plane step applies the notch as those two
+products instead of the (w, w) one: the same map, with the terms whose
+gain is exactly 1.0 left out.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -24,7 +34,8 @@ import torch
 from .wavelets import f32_matmul
 
 __all__ = ["notch", "gaussian_filter", "packed_notch_matrix", "notch_cat",
-           "NOTCH_HOST_MAX_W", "apply_notch", "apply_notch_fft"]
+           "NOTCH_HOST_MAX_W", "apply_notch", "apply_notch_fft", "notch_rank",
+           "lowrank_pays", "NotchFactors", "notch_factors"]
 
 # Widths up to which notch_cat builds on the host (numpy's FFT of the
 # identity, once per configuration: a fraction of a second at 2000 columns,
@@ -139,3 +150,67 @@ def apply_notch_fft(rows: torch.Tensor, sigma: float) -> torch.Tensor:
     spec = torch.fft.rfft(rows, dim=-1)
     spec = torch.complex(a * spec.real, b * spec.imag)
     return torch.fft.irfft(spec, n=n, dim=-1).to(rows.dtype)
+
+
+def notch_rank(n: int, sigma: float) -> int:
+    """The rank of ``packed_notch_matrix(n, sigma) - I``: the packed
+    positions whose float64 gain is not 1.0. The gain grows with the
+    position, so they are the first ``r``."""
+    return int(np.count_nonzero(notch(n, float(sigma)) != 1.0))
+
+
+def lowrank_pays(n: int, sigmas) -> bool:
+    """Does a level of width ``n`` with these notch sigmas apply its notch
+    as the factors (:func:`notch_factors`: two products, 4 h n r operations
+    a plane at rank r) rather than the (n, n) operators (2 h n^2)? Where
+    ``2 max(r) <= n / 2``: below both crossovers that
+    ``scripts/kernel_ab.py`` measures on an H100 (the two routes tie at
+    2 r / n = 1.11 on even widths; odd widths run the factors at ~0.64 of
+    the dense kernel's FLOP rate, so they tie near 0.64)."""
+    return 4 * max(notch_rank(n, s) for s in sigmas) <= n
+
+
+class NotchFactors(NamedTuple):
+    """A level's notch as the factors of its operators minus the identity
+    (:func:`notch_factors`), the plane step's entry for the level in place
+    of the dense bank."""
+    p: object  # (n, rp) packed analysis rows: an array or a tensor
+    ds: object  # (len(sigmas) rp, n) synthesis rows times g - 1
+    ranks: Tuple[int, ...]  # each configuration's rank, host ints
+
+
+def notch_factors(n: int, sigmas, dtype=np.float32) -> NotchFactors:
+    """The factors of each notch operator minus the identity, for the
+    sigmas of one level: ``NotchFactors(p, ds, ranks)`` with ``ranks[c] =
+    notch_rank(n, sigmas[c])``, ``p`` (n, rp) the packed analysis rows of
+    the first ``rp`` positions (``rp``: the largest rank rounded up to a
+    multiple of 4; column x maps a row to its packed FFTPACK coefficient
+    x) and ``ds`` (len(sigmas) rp, n), whose rows ``c rp + x`` for
+    ``x < ranks[c]`` are position x's synthesis row (``irfft`` of a unit
+    coefficient there) times ``g_c[x] - 1``, and zero past ``ranks[c]``.
+    So ``rows @ p @ ds[c rp:(c + 1) rp]`` is the notch of configuration c
+    minus ``rows``: ``p @ ds[c rp:(c + 1) rp] ==
+    packed_notch_matrix(n, sigmas[c]).T - I``. Built in float64 from the
+    angles reduced mod n, cast to ``dtype`` once."""
+    sigmas = tuple(float(s) for s in sigmas)
+    ranks = tuple(notch_rank(n, s) for s in sigmas)
+    rp = -(-max(ranks) // 4) * 4
+    # pt = p.T: frequency k's real part at position 2k - 1, its imaginary
+    # part at 2k, element j at the angle 2 pi m / n, m = j k reduced mod n
+    m = np.outer(np.arange(1, rp // 2 + 1), np.arange(n)) % n
+    theta = 2.0 * np.pi * np.arange(n) / n
+    pt = np.empty((rp, n))
+    pt[0] = 1.0
+    pt[1::2] = np.cos(theta)[m]
+    pt[2::2] = -np.sin(theta)[m[:-1]]
+    pt[n:] = 0.0  # positions past the width (rp > n only where n < 4)
+    # synthesis weights: 1/n for the DC and Nyquist terms, 2/n for the rest
+    scale = np.full(rp, 2.0 / n)
+    scale[0] = 1.0 / n
+    if n % 2 == 0 and n - 1 < rp:  # the Nyquist term, position n - 1
+        scale[n - 1] = 1.0 / n
+    ds = np.zeros((len(sigmas) * rp, n), dtype=dtype)
+    for c, (s, r) in enumerate(zip(sigmas, ranks)):
+        g = notch(n, s)[:r]
+        ds[c * rp:c * rp + r] = ((g - 1.0) * scale[:r])[:, None] * pt[:r]
+    return NotchFactors(np.ascontiguousarray(pt.T, dtype=dtype), ds, ranks)

@@ -12,8 +12,11 @@ are built there. Planes run as a batch (B, H, W):
 
 - analysis keeps only the lowpass x half (only cA and cH are consumed);
 - each cH band goes through Otsu mask -> row-median inpaint -> notch of the
-  plane's configuration -> delta (:func:`.cuda_notch.notch_delta`, its
-  histogram through :func:`.cuda_hist.histogram256_batch`);
+  plane's configuration -> delta (:func:`.cuda_notch.notch_delta`, or
+  :func:`.cuda_notch.notch_delta_lowrank` at a level whose notch minus the
+  identity has a small exact rank against its width, which holds
+  :class:`.fft_notch.NotchFactors` in place of the dense bank; its histogram
+  through :func:`.cuda_hist.histogram256_batch`);
 - synthesis propagates only the deltas, by perfect reconstruction, and
   adds them to ``log(1 + x)``, then ``exp(y) + 1``.
 
@@ -155,6 +158,13 @@ class DestripePlan:
             for (h, _) in self.ladder
         )
 
+    def notch_lowrank(self):
+        """Per-level booleans, coarsest first: does the plane step apply the
+        level's notch as its factors (:func:`fft_notch.lowrank_pays` of the
+        width and the sigmas) rather than the dense operators?"""
+        return tuple(fft_notch.lowrank_pays(w, sigmas) for (_, w), sigmas in
+                     zip(self.ladder, self.notch_sigmas()))
+
     def level_inputs(self):
         """The (h, w) input of each analysis level, finest first."""
         shapes = [(self.height, self.width)] + list(self.ladder[::-1])
@@ -170,6 +180,11 @@ class DestripePlan:
         no-cells notch operators side by side, :func:`fft_notch.notch_cat`),
         coarsest first. Unless ``dense_only``, ``band{lvl}`` adds the band
         forms (:func:`cuda_band.band_level_forms`) of each banded level.
+        With neither ``dense_only`` nor ``banded_x_min_w``, a level that
+        :meth:`notch_lowrank` routes to the factors holds them in
+        ``notch_cat`` (:class:`fft_notch.NotchFactors`, from
+        :func:`fft_notch.notch_factors`) in place of the dense bank, and
+        the routed levels are counted in ``plan.notch_lowrank_levels``.
         ``banded_x_min_w``: the levels whose input width reaches it get
         None for all three x-axis operators (``an_x_lo``, ``syn_x_lo``,
         ``notch_cat``), which are O(w^2) and never built; the row-sharded
@@ -217,11 +232,17 @@ class DestripePlan:
                 "syn_x_lo": tuple(p[1] for p in syn[::-1]),
             }
             with span("plan.notch"):
+                plane_step = not dense_only and banded_x_min_w is None
+                lowrank = (self.notch_lowrank() if plane_step
+                           else (False,) * n)
                 out["notch_cat"] = tuple(
                     None if x_gated[n - 1 - i]
+                    else fft_notch.notch_factors(w, sigmas) if lowrank[i]
                     else fft_notch.notch_cat(w, sigmas, device)
                     for i, ((_, w), sigmas) in enumerate(
                         zip(self.ladder, self.notch_sigmas())))
+                if plane_step:
+                    add("plan.notch_lowrank_levels", sum(lowrank))
                 if any(isinstance(c, torch.Tensor) for c in out["notch_cat"]):
                     torch.cuda.synchronize(device)  # its time is set-up's
             if not dense_only:
@@ -277,7 +298,8 @@ def constants_from_numpy(consts: dict, device) -> dict:
     float32 matrices per key (None stays None: a banded level's dense
     operators in the plane step's constants on a card; tensors already
     built on ``device`` pass through), and a dict of band-form tensors per
-    banded level (built here from the dense operators where absent).
+    banded level (built here from the dense operators where absent); a
+    level's :class:`.fft_notch.NotchFactors` keep their ranks as host ints.
     Counts the bytes put on a card in ``plan.device_bytes``."""
     device = torch.device(device)
     with timed("plan.upload"):
@@ -289,6 +311,8 @@ def constants_from_numpy(consts: dict, device) -> dict:
         def put(a):
             if a is None:
                 return None
+            if isinstance(a, fft_notch.NotchFactors):
+                return a._replace(p=put(a.p), ds=put(a.ds))
             if isinstance(a, torch.Tensor):
                 return a.to(device)
             a = np.asarray(a)
@@ -303,7 +327,9 @@ def constants_from_numpy(consts: dict, device) -> dict:
                 tensors += out[k].values()
             elif k in ("an_y", "an_x_lo", "syn_y", "syn_x_lo", "notch_cat"):
                 out[k] = tuple(put(a) for a in v)
-                tensors += (t for t in out[k] if t is not None)
+                tensors += (t for a in out[k] for t in (
+                    a[:2] if isinstance(a, fft_notch.NotchFactors) else (a,))
+                    if t is not None)
         if device.type == "cuda":
             add("plan.device_bytes",
                 sum(t.numel() * t.element_size() for t in tensors))
@@ -459,7 +485,7 @@ def _row_median(x: torch.Tensor, pallas: bool = True) -> torch.Tensor:
 def _filter_level_delta(
     ch: torch.Tensor,  # (B, h, w) horizontal-detail band
     is_cells: torch.Tensor,  # (B,) bool
-    bmat_cat: torch.Tensor,  # (w, 2w): [cells | no_cells] notch operators
+    bmat_cat,  # (w, 2w) [cells | no_cells] notch operators, or factors
     thr_cells: float,
     thr_no_cells: float,
     abs_range=None,  # optional per-plane (min|ch|, max|ch|) for Otsu
@@ -470,10 +496,13 @@ def _filter_level_delta(
     """Per-level synthesis delta ``filter(ch) - ch``: the Otsu stripe
     threshold (capped by the configuration's), then
     :func:`.cuda_notch.notch_delta` (mask -> row-median inpaint -> notch ->
-    recombine). ``is_cells`` (and ``otsu_sqrt``) may hold k x B entries for
-    B band planes: k deltas per plane (dual band, k = 2). A width-gated
-    level (``bmat_cat`` None) applies both notches with ``notch_apply``
-    (the rfft form) in the dense formulation, as the JAX package does."""
+    recombine), or :func:`.cuda_notch.notch_delta_lowrank` where
+    ``bmat_cat`` is the level's :class:`.fft_notch.NotchFactors`.
+    ``is_cells`` (and ``otsu_sqrt``) may hold k x B entries for B band
+    planes: k deltas per plane (dual band, k = 2).
+    A width-gated level (``bmat_cat`` None) applies both
+    notches with ``notch_apply`` (the rfft form) in the dense formulation,
+    as the JAX package does."""
     # scalars, not tensors made from them: a tensor made on the card from a
     # host value is a blocking copy, and the step must not wait on the host
     max_thr = torch.where(is_cells, float(thr_cells), float(thr_no_cells))
@@ -484,6 +513,9 @@ def _filter_level_delta(
     with span(_SPAN_NOTCH[level]):
         threshold = torch.minimum(max_thr, otsu_sqrt)
         sel = torch.where(is_cells, 0, 1).to(torch.int32)
+        if isinstance(bmat_cat, fft_notch.NotchFactors):
+            return cuda_notch.notch_delta_lowrank(ch, threshold, sel,
+                                                  *bmat_cat)
         if bmat_cat is None:
             return cuda_notch.notch_delta_plain(ch, threshold, sel, None,
                                                 notch_apply)

@@ -104,7 +104,12 @@ Phases, each printing its lines:
    per-plane notch product with each operator choice, the histogram with a
    row bound, the masked median of the shard, and the dual route's blend
    on the level-0 window of the second shard, emitting the shard's rows
-   through the fused flat-field epilogue); ``[slice-halo]``
+   through the fused flat-field epilogue); ``[lowrank-kernels]`` the
+   exact-rank notch tail (``cuda_notch.notch_delta_lowrank``) against its
+   twin at the same plane's levels 0 (9002 columns) and 1 (4503) on a
+   batch of 4 (one cells plane, three no-cells), the single-device plane
+   path's notch at that size, bound by its 4 h w r operations a plane at
+   the plane's rank; ``[slice-halo]``
    ``run_capsule.run`` on a tile of 4 x 16384 x 18000 uint16 planes with
    flats and dark, on the mesh, through the row-sharded route (the plane
    alone passes ``DESTRIPE_HALO_THRESHOLD_BYTES``); ``[step-halo]`` /
@@ -113,7 +118,10 @@ Phases, each printing its lines:
    single-band one for another commit's package), and ``[check-halo]`` /
    ``[check-dual-halo]`` its output against the
    single-device plane path on the card, within 1 LSB outside the flip
-   budget at PSNR >= 100 dB; ``[check-banded]`` the same plane through
+   budget at PSNR >= 100 dB (``[plane-halo]`` / ``[plane-dual-halo]``:
+   that plane path's launches in its one step, the counts reset just
+   before it; every level runs the exact-rank notch, none the dense one);
+   ``[check-banded]`` the same plane through
    the row-sharded step with the dense-x gate forced to 64 columns (the
    banded/spectral x tier at every level that wide) against the dense
    tier, under 1e-3 of pixels > 1 LSB at >= 90 dB; ``[step-banded]`` one
@@ -227,6 +235,7 @@ SOURCE = {
     "dense_matmul": CSRC + "dense.cu",
     "otsu_tail": CSRC + "hist.cu",
     "abs_range_batch": CSRC + "hist.cu",
+    "notch_delta_lowrank": CSRC + "notch.cu",
 }
 REPLACES = {
     "an_x_lowpass_log1p": TPU + "pallas_band.py:178",
@@ -247,6 +256,9 @@ REPLACES = {
     # the |x| range of a band no analysis kernel gave it, which XLA fuses
     "otsu_tail": TPU + "otsu.py:67",
     "abs_range_batch": TPU + "otsu.py:67",
+    # the same notch tail, from the factors of the operator minus the
+    # identity where their rank is small against the width
+    "notch_delta_lowrank": TPU + "pallas_notch.py:89",
 }
 # the wrapper that launches each kernel, where its name differs
 WRAPPER = {"notch_select_chunked": "notch_select"}
@@ -287,6 +299,11 @@ MH_Z = 16
 # the wrapped forms, and the histogram of the blend centres (raw uint16)
 DUAL = ("syn_y_pass", "syn_x_exp", "histogram256_batch",
         "row_median_masked", "notch_delta")
+# the plane path at HALO_SHAPE: its notch runs from the factors at every
+# level, one cells plane and three no-cells ones a batch
+PLANE_WIDE = ("an_x_lowpass_log1p", "an_y_pass", "syn_y_pass", "syn_x_exp",
+              "histogram256_batch", "row_median_masked", "notch_delta_lowrank")
+LOWRANK_SEL = (0, 1, 1, 1)
 
 
 def _time_ms(fn, reps=10):
@@ -1664,17 +1681,67 @@ def halo_tile(dev, seed):
     return vol, flats, dark
 
 
+def phase_lowrank_kernels(hplan, dev, seed):
+    """[lowrank-kernels]: the exact-rank notch tail against its plain twin
+    at the HALO_SHAPE plane path's levels 0 (even width) and 1 (odd), on a
+    batch of LOWRANK_SEL's planes (one cells, three no-cells) with the
+    Otsu thresholds under the production caps; bound: 4 h w r operations
+    a plane at its configuration's rank, at the FP32 peak."""
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import cuda_notch as tn
+    from aind_smartspim_destripe_torch.ops import fft_notch
+    from aind_smartspim_destripe_torch.ops.otsu import threshold_otsu_batch
+
+    g = torch.Generator(device=dev).manual_seed(seed + 23)
+    n = hplan.n_levels
+    thr_cap = (hplan.cells.max_threshold, hplan.no_cells.max_threshold)
+    sel = torch.tensor(LOWRANK_SEL, dtype=torch.int32, device=dev)
+    rec = {"notch_delta_lowrank": {}}
+    for lvl in (0, 1):
+        i = n - 1 - lvl
+        if not hplan.notch_lowrank()[i]:
+            raise AssertionError(f"level {lvl} of {HALO_SHAPE[1:]} does not "
+                                 f"take the exact-rank notch")
+        (h, w), sigmas = hplan.ladder[i], hplan.notch_sigmas()[i]
+        ch = torch.randn((len(LOWRANK_SEL), h, w), generator=g,
+                         device=dev) * 0.5
+        otsu = torch.sqrt(threshold_otsu_batch(ch, square=True))
+        thr = torch.minimum(torch.where(sel == 0, thr_cap[0], thr_cap[1]),
+                            otsu)
+        f = fft_notch.notch_factors(w, sigmas)
+        p, ds = (torch.as_tensor(a, device=dev) for a in (f.p, f.ds))
+        ops = 4.0 * h * w * sum(f.ranks[s] for s in LOWRANK_SEL)
+        _compare(rec, "notch_delta_lowrank", lvl,
+                 lambda: tn.notch_delta_lowrank(ch, thr, sel, p, ds, f.ranks),
+                 lambda: tn.notch_delta_lowrank_plain(ch, thr, sel, p, ds,
+                                                      f.ranks),
+                 scale=ch.abs().max().item(), ins=(ch, thr, sel, p, ds),
+                 ops=ops, tag="lowrank-kernels")
+        del ch, otsu, thr, p, ds
+        torch.cuda.empty_cache()
+    return rec
+
+
 def step_check_halo(tag, plan, vol, flat, dark, dev, mesh, dual=False):
     """The row-sharded step alone on one resident plane (host clock around
     synchronised calls, peak device memory; the sha256 of its output, which
     scripts/step_hash.py computes for another commit's package), then its
     output against the single-device plane path on the card: within 1 LSB
-    outside the flip budget, PSNR >= 100 dB. Returns the output and its
-    sha256."""
+    outside the flip budget, PSNR >= 100 dB. Returns the output, its
+    sha256 and the plane path's launches in its one step
+    (``[plane-<tag>]``: the notch from the factors at every level, two
+    launches a level, and no dense notch)."""
     import numpy as np
 
-    outs = [halo_step(tag, plan, vol, flat, dark, mesh, dual),
-            halo_step(tag, plan, vol, flat, dark, [dev], dual)]
+    outs = [halo_step(tag, plan, vol, flat, dark, mesh, dual)[0]]
+    out, launches = halo_step(tag, plan, vol, flat, dark, [dev], dual)
+    outs.append(out)
+    _require(f"plane-{tag}", launches, PLANE_WIDE)
+    if (launches["notch_delta"]
+            or launches["notch_delta_lowrank"] != 2 * plan.n_levels):
+        raise AssertionError(f"plane-{tag}: the notch did not run from the "
+                             f"factors at each of {plan.n_levels} levels")
     digest = hashlib.sha256(np.ascontiguousarray(outs[0]).tobytes()
                             ).hexdigest()
     print(f"[step-{tag}] sha256 of the row-sharded step's output on plane 0 "
@@ -1689,16 +1756,18 @@ def step_check_halo(tag, plan, vol, flat, dark, dev, mesh, dual=False):
           f"(min {PSNR_MIN})")
     if flips > FLIP_BUDGET * d.size or psnr < PSNR_MIN:
         raise AssertionError(f"check-{tag}: the row-sharded step disagrees")
-    return outs[0], digest
+    return outs[0], digest, launches
 
 
 def halo_step(tag, plan, vol, flat, dark, devices, dual=False):
     """Plane 0 of ``vol`` through the step made for ``devices`` (the
     row-sharded route on a mesh, timed over 3 calls; the plane path on one
-    device); its output on the host."""
+    device); its output on the host, and the launches of the first call
+    (counts reset just before it)."""
     import numpy as np
     import torch
 
+    from aind_smartspim_destripe_torch import ops
     from aind_smartspim_destripe_torch.runtime.pipeline import (
         make_device_step,
     )
@@ -1710,8 +1779,10 @@ def halo_step(tag, plan, vol, flat, dark, devices, dual=False):
         raise AssertionError(f"{tag}: the wrong route was selected")
     args = (step.put(vol[:1]), step.put_const(flat),
             step.put_const(dark.astype(np.float32)))
+    ops.reset_launches()
     res = step(*args)
     _sync(devices)
+    launches = _launches()
     if len(devices) > 1:
         del res
         torch.cuda.empty_cache()
@@ -1733,7 +1804,7 @@ def halo_step(tag, plan, vol, flat, dark, devices, dual=False):
     out = step.to_host(res)
     del step, args, res
     torch.cuda.empty_cache()
-    return out
+    return out, launches
 
 
 def check_banded(plan, vol, flat, dark, mesh, ref):
@@ -1962,7 +2033,8 @@ def main(argv=None):
             "Compiling entry function")[1:]:
         fn = re.search(r"(k[1-4]|hist|otsu_tail|abs_range|row_median_batch|"
                        r"row_median_short|row_median_masked_warp|"
-                       r"row_median|notch_delta|notch_select|blend|"
+                       r"row_median|notch_delta|notch_select|"
+                       r"notch_project|notch_synth|blend|"
                        r"dense_matmul)_kernel(I(.*?)EE)?", part)
         n = re.search(r"Used (\d+) registers", part)
         if not (fn and n):
@@ -1984,17 +2056,20 @@ def main(argv=None):
           f"thread, spilled bytes: {regs or 'n/a'})")
     gemm = {k: v for k, v in ptxas.items()
             if k.startswith(("dense_matmul<", "notch_select<",
-                             "notch_delta<"))}
+                             "notch_delta<", "notch_project<",
+                             "notch_synth<"))}
     print("[build] shared GEMM tile (csrc/gemm_f32.cuh) instances, "
           "registers / shared memory bytes / spilled bytes: "
           + " ".join(f"{k}={v['registers']}/{v['smem']}/{v['spill']}"
                      for k, v in gemm.items()))
-    # every instance the three entry points launch: dense_matmul<va, b's
-    # columns unit-stride, vb>, notch_select<v>, notch_delta<v>
+    # every instance the five entry points launch: dense_matmul<va, b's
+    # columns unit-stride, vb>, notch_select<v>, notch_delta<v>, and the
+    # exact-rank tail's notch_project<v>, notch_synth<v>
     expect = {f"dense_matmul<{va},{u},{vb}>" for va in (1, 2)
               for u, vb in ((0, 1), (1, 1), (1, 2))}
     expect |= {"notch_select<1>", "notch_select<2>"}
     expect |= {"notch_delta<1>", "notch_delta<2>"}
+    expect |= {f"notch_{k}<{v}>" for k in ("project", "synth") for v in (1, 2)}
     if not cuda_build.kernel_library.build_log or expect - gemm.keys():
         raise AssertionError(
             "the build log does not report the GEMM tile instances "
@@ -2129,6 +2204,7 @@ def main(argv=None):
           f"operators built on the host in {time.perf_counter() - t0:.1f} s")
     hrec = phase_halo_kernels(hplan, hdense, dev, args.seed, len(mesh))
     del hdense
+    hrec.update(phase_lowrank_kernels(hplan, dev, args.seed))
     work_halo = ROOT / "build" / "smoke_capsule_halo"
     shutil.rmtree(work_halo, ignore_errors=True)
     try:
@@ -2139,10 +2215,10 @@ def main(argv=None):
         check_store(hresults, htile, HALO_SHAPE)
     finally:
         shutil.rmtree(work_halo, ignore_errors=True)
-    dense_out, hashes["step-halo"] = step_check_halo(
+    dense_out, hashes["step-halo"], paths["plane_wide"] = step_check_halo(
         "halo", hplan, hvol, hflat, hdark, dev, mesh)
-    hashes["step-dual-halo"] = step_check_halo(
-        "dual-halo", hplan, hvol, hflat, hdark, dev, mesh, dual=True)[1]
+    _, hashes["step-dual-halo"], paths["plane_wide_dual"] = step_check_halo(
+        "dual-halo", hplan, hvol, hflat, hdark, dev, mesh, dual=True)
     check_banded(hplan, hvol, hflat, hdark, mesh, dense_out)
     del dense_out, hvol
     banded = step_banded(mesh, dev, args.seed)
@@ -2161,6 +2237,8 @@ def main(argv=None):
         # unmasked median, which no capsule path launches
         if name == "row_median_batch":
             path = paths["flat_estimation"]
+        elif name == "notch_delta_lowrank":  # the plane path at HALO_SHAPE
+            path = paths["plane_wide"]
         else:
             path = (launches if name in SINGLE else launches_dual
                     if name in PLANE else launches_halo)

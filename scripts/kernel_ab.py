@@ -38,9 +38,19 @@ thresholds), the histogram of the raw uint16 planes (the dual centres),
 the median's dual form (two thresholds per plane, levels 0 and 1), and
 both on the level-0 and level-1 cH shards of a 16384 x 18000 plane on two
 devices (histogram with the route's row bound), each also summed over the
-step's 8 levels. These calls are also timed as a CUDA graph of ``--reps``
-calls (``graph``: the device's time without the host's launch time, which
-bounds the small levels' back-to-back wrapper calls). ``--only`` times
+step's 8 levels. These calls are also timed as a CUDA graph of
+``--reps`` calls (``graph``: the device's time without the host's launch
+time, which bounds the small levels' back-to-back wrapper calls). Last,
+the notch tail both ways, the dense ``notch_delta`` and, where the
+package has it, the exact-rank ``notch_delta_lowrank`` (the masked
+median included in each; also its plain twin and its two products alone,
+``torch.matmul`` over every factor column), at level 0 of the 1600 x
+2000 plan (B = 64, every 4th plane the cells operator), on bands of its
+height and sigmas widened to 1236, 1484 and 1854 columns (2 max(r) / w
+0.90, 0.75 and 0.60: where the two routes cross) and at levels 0 and 1
+of the 16384 x 18000 plan (B = 4, one cells plane and three no-cells
+ones), each with its FLOP count (2 h w^2 a plane dense, 4 h w r at the
+plane's rank) and its bound at the FP32 peak. ``--only`` times
 the calls whose name matches REGEX alone. Each line names the call and
 its time; the last line is all of them as
 JSON, with the card's name and power limit.
@@ -239,6 +249,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     blend_calls(record_graph, dev, g)
     tail_calls(out, record_graph, plan, dev, g)
+    notch_calls(out, record, dev, g)
     print(json.dumps({"card": smi, "root": str(root), "ms": out}))
     return 0
 
@@ -449,6 +460,76 @@ def tail_calls(out, record_graph, plan, dev, g):
                      lambda: tn.row_median_masked(ch, thr))
         del ch
     torch.cuda.empty_cache()
+
+
+FP32_PEAK = 67e12  # FLOP/s of one H100 SXM outside the tensor cores
+
+
+def notch_calls(out, record, dev, g):
+    """The dense and the exact-rank notch tail at the tile plan's level 0,
+    at three wider bands of its height and sigmas (the crossover), and at
+    the fused plane's levels 0 and 1, each with its FLOP count and bound
+    (``<key> flop``, ``<key> bound``)."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch import run_capsule
+    from aind_smartspim_destripe_torch.ops import cuda_notch as tn
+    from aind_smartspim_destripe_torch.ops import fft_notch as fn
+    from aind_smartspim_destripe_torch.ops import filter as tf
+
+    cfg = run_capsule.PRODUCTION_PARAMETERS
+    pair = (tf.FilterConfig.from_dict(cfg["cells_config"]),
+            tf.FilterConfig.from_dict(cfg["no_cells_config"]))
+    lowrank = hasattr(tn, "notch_delta_lowrank")
+    shapes = []
+    for tag, hw, lvl, B in (("tile level 0", (1600, 2000), 0, 64),
+                            ("stitched level 0", (16384, 18000), 0, 4),
+                            ("stitched level 1", (16384, 18000), 1, 4)):
+        plan = tf.build_plan(*hw, *pair)
+        i = plan.n_levels - 1 - lvl
+        shapes.append((tag, *plan.ladder[i], plan.notch_sigmas()[i], B))
+        if tag == "tile level 0":  # its rank (556) on wider bands
+            shapes += [(f"tile level 0 at w {w}", shapes[0][1], w,
+                        shapes[0][3], B) for w in (1236, 1484, 1854)]
+    for tag, h, w, sigmas, B in shapes:
+        ch = torch.randn((B, h, w), generator=g, device=dev) * 0.3
+        thr = torch.rand(B, generator=g, device=dev) * 0.3 + 0.3
+        sel = (torch.arange(B, device=dev) % 4 != 0).to(torch.int32)
+        cells = B // 4
+        cat = fn.notch_cat(w, sigmas, dev)  # numpy up to the host gate
+        cat = torch.as_tensor(np.ascontiguousarray(cat) if isinstance(
+            cat, np.ndarray) else cat, device=dev)
+        calls = [("notch_delta", 2.0 * B * h * w * w,
+                  lambda: tn.notch_delta(ch, thr, sel, cat))]
+        if lowrank:
+            p, ds, ranks = fn.notch_factors(w, sigmas)
+            p, ds = (torch.as_tensor(a, device=dev) for a in (p, ds))
+            flop = 4.0 * h * w * (cells * ranks[0] + (B - cells) * ranks[1])
+            rp = p.shape[1]
+            ds_sel = ds.view(2, rp, w)[sel.long()]
+            calls += [
+                ("notch_delta_lowrank", flop,
+                 lambda: tn.notch_delta_lowrank(ch, thr, sel, p, ds, ranks)),
+                ("notch_delta_lowrank_plain", flop,
+                 lambda: tn.notch_delta_lowrank_plain(ch, thr, sel, p, ds,
+                                                      ranks)),
+                ("notch factors, two torch.matmul", 4.0 * B * h * w * rp,
+                 lambda: torch.matmul(torch.matmul(ch, p), ds_sel))]
+        for name, flop, fn_ in calls:
+            key = f"{name} {tag}"
+            ms = record(key, fn_)
+            if ms is None:
+                continue
+            out[f"{key} flop"] = flop
+            out[f"{key} bound"] = flop / FP32_PEAK * 1e3
+            print(f"[kernel-ab] {key}: {flop:.4e} FLOP, bound "
+                  f"{out[f'{key} bound']:.4f} ms, {flop / ms / 1e9:.2f} "
+                  f"TFLOP/s")
+        del ch, cat, calls
+        if lowrank:
+            del p, ds, ds_sel
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -31,6 +31,7 @@ from aind_smartspim_destripe_torch.ops import cuda_dense as td  # noqa: E402
 from aind_smartspim_destripe_torch.ops import cuda_hist as th  # noqa: E402
 from aind_smartspim_destripe_torch.ops import cuda_notch as tn  # noqa: E402
 from aind_smartspim_destripe_torch.ops import dual_band as tdb  # noqa: E402
+from aind_smartspim_destripe_torch.ops import fft_notch  # noqa: E402
 from aind_smartspim_destripe_torch.ops import filter as tf  # noqa: E402
 
 F32_RTOL = 1e-5
@@ -41,8 +42,10 @@ HALO = (cb.an_x_lowpass_chunked, cb.syn_x_exp_chunked, tn.notch_select)
 # the kernels the plane step does not launch: the row-sharded route's, the
 # unmasked median, reached through ops.filter._row_median alone, and the
 # histogram over (lo, span) ranges, which the row-sharded Otsu sums over
-# shards (the plane step's Otsu bins through histogram256_range)
-OFF_PLANE = HALO + (tn.row_median_batch, th.histogram256_batch)
+# shards (the plane step's Otsu bins through histogram256_range), and the
+# exact-rank notch, which only planes far wider than the notch's rank take
+OFF_PLANE = HALO + (tn.row_median_batch, th.histogram256_batch,
+                    tn.notch_delta_lowrank)
 
 
 @pytest.fixture(scope="module")
@@ -1284,8 +1287,6 @@ def test_card_notch_cat_within_an_ulp(card, w):
     gate (cuFFT in float64): within a float32 ulp of the host's, of
     max(|entry|, 2^-20); at or under the gate (the accepted cells' widths)
     the host's, bit for bit. The host takes seconds at 9002 columns."""
-    from aind_smartspim_destripe_torch.ops import fft_notch
-
     sigmas = (w * 64.0 / 16384, w * 128.0 / 16384)
     got = fft_notch.notch_cat(w, sigmas, card)
     host = fft_notch.notch_cat(w, sigmas)
@@ -1314,7 +1315,129 @@ def test_card_stitched_plane_constants(card):
         for key, idx in (("an_y", lvl), ("an_x_lo", lvl),
                          ("syn_y", n - 1 - lvl), ("syn_x_lo", n - 1 - lvl)):
             assert (consts[key][idx] is None) == banded
-    tensors = [t for k, v in consts.items() for t in (
+    # every level's notch runs from its factors: no (w, 2w) operator
+    assert all(isinstance(c, fft_notch.NotchFactors)
+               for c in consts["notch_cat"])
+    for (_, w), sigmas, (p, ds, ranks) in zip(
+            plan.ladder, plan.notch_sigmas(), consts["notch_cat"]):
+        want = fft_notch.notch_factors(w, sigmas)
+        assert ranks == want.ranks
+        assert torch.equal(p.cpu(), torch.from_numpy(want.p))
+        assert torch.equal(ds.cpu(), torch.from_numpy(want.ds))
+    factor_tensors = [t for c in consts["notch_cat"] for t in c[:2]]
+    tensors = [t for k, v in consts.items() if k != "notch_cat" for t in (
         v.values() if k.startswith("band") else v) if t is not None]
+    tensors += factor_tensors
     assert all(t.device.type == "cuda" for t in tensors)
-    assert sum(t.numel() * t.element_size() for t in tensors) < 1.0e9
+    factors = sum(t.numel() * t.element_size() for t in factor_tensors)
+    # 80.3 MB over the 11 levels, 60 MB of it level 0's (9002, 556) p and
+    # (1112, 9002) ds, in place of the dense operators' 865 MB (notch_cat)
+    assert factors < 8.5e7
+    assert sum(t.numel() * t.element_size() for t in tensors) < 1.0e8
+
+
+def _lowrank_witness(ch, thr, sel, p, ds, ranks):
+    """The exact-rank notch tail term by term: the kernel's median (exact,
+    held against its twin above), the inpainted band, each plane's
+    projection over the w terms and its synthesis over its rank's, as
+    sequential multiply-adds in k order, 0 at the stripes."""
+    n_out, rp = thr.shape[0], p.shape[1]
+    c = ch.repeat(n_out // ch.shape[0], 1, 1)
+    stripes = torch.sqrt(c * c) > thr[:, None, None]
+    inpainted = torch.where(stripes, tn.row_median_masked(ch, thr), c)
+    out = []
+    for b, s in enumerate(sel.tolist()):
+        r = ranks[s]
+        y = _sequential(inpainted[b], p[:, :r])
+        out.append(_sequential(y, ds[s * rp:s * rp + r]))
+    return torch.where(stripes, 0.0, torch.stack(out))
+
+
+def _lowrank_inputs(card, level, B, n_out, seed, offset=0):
+    """A band of the 16384 x 18000 plan's level ``level`` (B planes, from
+    ``offset`` floats into its buffer), ``n_out`` thresholds (the first
+    0.0: every nonzero coefficient a stripe) and the level's factors."""
+    plan = tf.build_plan(16384, 18000, tf.FilterConfig(sigma=64,
+                                                       max_threshold=3),
+                         tf.FilterConfig(sigma=128, max_threshold=12))
+    i = plan.n_levels - 1 - level
+    (h, w), sigmas = plan.ladder[i], plan.notch_sigmas()[i]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    buf = (torch.randn(offset + B * h * w, generator=g) * 0.3).to(card)
+    ch = buf[offset:].view(B, h, w)
+    thr = torch.linspace(0.2, 0.6, n_out, device=card)
+    thr[0] = 0.0
+    p, ds, ranks = fft_notch.notch_factors(w, sigmas)
+    return (ch, thr, torch.as_tensor(p, device=card),
+            torch.as_tensor(ds, device=card), ranks)
+
+
+# (band planes, output planes, operator choices, offset in floats): two
+# planes each with its operator, the wrapped dual form (one band plane,
+# both operators) and a base 4 bytes off 8-byte alignment
+LOWRANK_FORMS = {"single": (2, 2, [0, 1], 0), "wrapped": (1, 2, [0, 1], 0),
+                 "misaligned": (1, 1, [1], 1)}
+
+
+@pytest.mark.parametrize("form", sorted(LOWRANK_FORMS))
+@pytest.mark.parametrize("level", [0, 1])
+def test_card_notch_delta_lowrank_fixed_order(card, level, form):
+    """The exact-rank notch tail at the fused plane's levels 0 (9002
+    columns) and 1 (4503): bit-equal to its term-by-term k-order witness,
+    within f32 rounding of its plain twin, two launches."""
+    B, n_out, sels, offset = LOWRANK_FORMS[form]
+    ch, thr, p, ds, ranks = _lowrank_inputs(card, level, B, n_out,
+                                            300 + level, offset)
+    sel = torch.tensor(sels, dtype=torch.int32, device=card)
+    h, w = ch.shape[1:]
+    vp, vs = tn.plan_notch_lowrank(n_out, h, w, p.shape[1],
+                                   ch.data_ptr() % 8, p.data_ptr() % 8,
+                                   ds.data_ptr() % 8)
+    assert vp == (1 if offset or w % 2 else 2) and vs == (1 if w % 2 else 2)
+    tops.reset_launches()
+    got = tn.notch_delta_lowrank(ch, thr, sel, p, ds, ranks)
+    assert tn.notch_delta_lowrank.launches == 2
+    assert tn.row_median_masked.launches == 1
+    assert torch.equal(got, _lowrank_witness(ch, thr, sel, p, ds, ranks))
+    want = tn.notch_delta_lowrank_plain(ch, thr, sel, p, ds, ranks)
+    _close(got, want)
+    assert torch.all(got[0] == 0.0)  # thr 0: every coefficient a stripe
+
+
+def test_card_notch_delta_lowrank_plane_alone_as_in_a_batch(card):
+    """A plane's delta does not depend on the planes beside it: plane 2 of
+    a 4-plane batch (one cells plane, three no-cells) alone, bit for
+    bit."""
+    ch, thr, p, ds, ranks = _lowrank_inputs(card, 1, 4, 4, 310)
+    sel = torch.tensor([0, 1, 1, 1], dtype=torch.int32, device=card)
+    batch = tn.notch_delta_lowrank(ch, thr, sel, p, ds, ranks)
+    alone = tn.notch_delta_lowrank(ch[2:3].contiguous(), thr[2:3],
+                                   sel[2:3], p, ds, ranks)
+    assert torch.equal(alone[0], batch[2])
+
+
+@pytest.mark.parametrize("hw", [(1600, 2000), (16384, 18000)],
+                         ids=["tile", "stitched"])
+def test_card_notch_route_launches(card, hw):
+    """The plan's route on the card: one plane of the tile plan runs the
+    dense notch at its 8 levels and no factor, one fused plane the
+    factors at its 11 levels (two launches each) and no dense notch;
+    ``plan.notch_lowrank_levels`` counts the routed levels."""
+    from aind_smartspim_destripe_torch.runtime import tracing
+
+    plan = tf.build_plan(*hw, tf.FilterConfig(sigma=64, max_threshold=3),
+                         tf.FilterConfig(sigma=128, max_threshold=12))
+    before = tracing.counters().get("plan.notch_lowrank_levels", 0)
+    consts = tf.device_constants(plan, card)
+    routed = tracing.counters()["plan.notch_lowrank_levels"] - before
+    assert routed == sum(plan.notch_lowrank())
+    assert routed == (0 if hw == (1600, 2000) else 11)
+    x = torch.randint(200, 400, (1,) + hw, dtype=torch.int32,
+                      device=card).to(torch.uint16)
+    tops.reset_launches()
+    tf.destripe_batch(plan, x, 2500.0, consts)
+    torch.cuda.synchronize()
+    n = plan.n_levels
+    assert tn.notch_delta_lowrank.launches == 2 * routed
+    assert tn.notch_delta.launches == n - routed
+    assert tn.row_median_masked.launches == n

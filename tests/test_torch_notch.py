@@ -126,8 +126,8 @@ def test_registry_lists_every_kernel():
                      "syn_x_exp", "an_x_lowpass_chunked", "syn_x_exp_chunked",
                      "histogram256_batch", "histogram256_range",
                      "abs_range_batch", "otsu_tail", "row_median_masked",
-                     "row_median_batch", "notch_delta", "notch_select",
-                     "blend_smooth_mix", "dense_matmul"]
+                     "row_median_batch", "notch_delta", "notch_delta_lowrank",
+                     "notch_select", "blend_smooth_mix", "dense_matmul"]
     tops.reset_launches()
     assert all(k.launches == 0 for k in tops.kernels())
 
@@ -143,3 +143,99 @@ def test_wrappers_refuse_other_devices():
         tn.notch_select(x, t, t)
     with pytest.raises(ValueError, match="no kernel or plain route"):
         tn.row_median_batch(x)
+
+
+# --- the exact-rank notch (notch_delta_lowrank) ----------------------------
+
+from aind_smartspim_destripe_torch.ops import fft_notch as tfn  # noqa: E402
+
+
+def _stitched_pairs(max_w):
+    """(width, sigma) of every level of the 16384 x 18000 plan up to
+    ``max_w`` columns, both configurations."""
+    tp = tf.build_plan(16384, 18000, tf.FilterConfig(sigma=64.0),
+                       tf.FilterConfig(sigma=128.0))
+    return [(w, s) for (_, w), sigmas in zip(tp.ladder, tp.notch_sigmas())
+            if w <= max_w for s in sigmas]
+
+
+# the stitched ladder up to 2254 columns, an odd width and a prime one
+FACTOR_CASES = _stitched_pairs(2254) + [(1001, 12.0), (1009, 25.0)]
+
+
+@pytest.mark.parametrize("w,sigma", FACTOR_CASES)
+def test_notch_factors_exact(w, sigma):
+    """``p @ ds`` is the notch operator minus the identity in float64, at
+    the rank of the gains that are not 1.0: to 1e-13 of its largest entry
+    against the packed-gain map of ``g - 1`` applied to the identity by
+    numpy's FFT, and to 1e-13 of the operator's largest entry against
+    ``packed_notch_matrix - I`` (the operator's FFT rounds to ulps of its
+    unit diagonal, up to 1.4e-13 of the difference's largest entry)."""
+    p, ds, (r,) = tfn.notch_factors(w, (sigma,), np.float64)
+    g = tfn.notch(w, sigma)
+    assert r == np.count_nonzero(g != 1.0) == tfn.notch_rank(w, sigma)
+    rp = p.shape[1]
+    assert p.shape == (w, rp) and ds.shape == (rp, w) and rp % 4 == 0
+    assert r <= rp < r + 4 and not ds[r:].any()
+    a, b = tfn._packed_gains(w, g)
+    spec = np.fft.rfft(np.eye(w), axis=-1)
+    want = np.fft.irfft((a - 1.0) * spec.real + 1j * (b - 1.0) * spec.imag,
+                        n=w, axis=-1)
+    assert np.abs(p @ ds - want).max() <= 1e-13 * np.abs(want).max()
+    op = tfn.packed_notch_matrix(w, sigma)
+    assert (np.abs(p @ ds - (op.T - np.eye(w))).max()
+            <= 1e-13 * np.abs(op).max())
+
+
+def _lowrank_case(k_out):
+    """A band of the stitched plan's level 2 (2254 columns): 3 planes,
+    ``k_out`` outputs per plane, both operator choices, its thresholds,
+    float32 factors and dense operators."""
+    w = 2254
+    sigmas = (8.015625, 16.03125)
+    rng = np.random.default_rng(2254 + k_out)
+    ch = torch.from_numpy((rng.normal(size=(3, 24, w)) * 0.4).astype(
+        np.float32))
+    thr = torch.from_numpy(np.linspace(0.3, 0.9, 3 * k_out).astype(
+        np.float32))
+    sel = torch.tensor([0, 1, 1] if k_out == 1 else [0] * 3 + [1] * 3,
+                       dtype=torch.int32)
+    p, ds, ranks = tfn.notch_factors(w, sigmas)
+    cat = torch.from_numpy(tfn.notch_cat(w, sigmas))
+    return ch, thr, sel, torch.from_numpy(p), torch.from_numpy(ds), ranks, \
+        cat, sigmas
+
+
+@pytest.mark.parametrize("k_out", [1, 2], ids=["single", "dual"])
+def test_notch_delta_lowrank_against_dense_and_float64(k_out):
+    """The low-rank tail is the dense tail's delta (within float32
+    rounding), and at least as close as the dense one to the float64
+    delta on the same mask and inpainting, for both operators and the
+    wrapped dual form."""
+    ch, thr, sel, p, ds, ranks, cat, sigmas = _lowrank_case(k_out)
+    got = tn.notch_delta_lowrank(ch, thr, sel, p, ds, ranks)
+    dense = tn.notch_delta_plain(ch, thr, sel, cat)
+    assert got.shape == dense.shape == (3 * k_out, 24, 2254)
+    c = ch.repeat(k_out, 1, 1)
+    stripes = torch.sqrt(c * c) > thr[:, None, None]
+    assert torch.all(got[stripes] == 0.0) and torch.all(dense[stripes] == 0.0)
+    # float64 truth of the same inpainted band
+    med = tn.row_median(torch.where(stripes, 0.0, c))
+    inpainted = torch.where(stripes, med, c).double()
+    ops = [torch.from_numpy(tfn.packed_notch_matrix(2254, s).T) for s in sigmas]
+    truth = torch.stack([inpainted[b] @ ops[s] - c[b].double()
+                         for b, s in enumerate(sel.tolist())])
+    truth = torch.where(stripes, 0.0, truth)
+    err_lr = (got.double() - truth)[~stripes]
+    err_dense = (dense.double() - truth)[~stripes]
+    scale = truth.abs().max()
+    assert err_lr.abs().max() <= 1e-5 * scale
+    assert err_lr.pow(2).mean().sqrt() <= err_dense.pow(2).mean().sqrt()
+    assert err_lr.abs().max() <= err_dense.abs().max()
+
+
+def test_notch_delta_lowrank_refuses_bad_ranks():
+    ch, thr, sel, p, ds, ranks, _, _ = _lowrank_case(1)
+    for bad in ((0, ranks[1]), (ranks[0], p.shape[1] + 1), (ranks[0],)):
+        with pytest.raises(ValueError, match="ranks"):
+            tn.notch_delta_lowrank(ch, thr, sel, p, ds, bad)

@@ -350,3 +350,96 @@ def test_counters_read_after_a_plan_build(monkeypatch):
     assert reader.read(None) is None
     monkeypatch.delattr(tracing, "counters")
     assert reader.read(None) is None
+
+
+# --- the notch route: the dense operators or the exact-rank factors -------
+
+ROUTE_PLANS = {"tile": (1600, 2000), "stitched": (16384, 18000)}
+
+
+@pytest.mark.parametrize("name", sorted(ROUTE_PLANS))
+def test_notch_route_by_width_and_rank(name):
+    """Every level of the production tile plan runs the dense notch, every
+    level of the fused plane's plan the factors: the rule read from the
+    widths and the sigmas alone (2 max(r) against the width), no operator
+    built."""
+    tp = _plans(*ROUTE_PLANS[name])[1]
+    ranks = [tuple(tn.notch_rank(w, s) for s in sigmas)
+             for (_, w), sigmas in zip(tp.ladder, tp.notch_sigmas())]
+    for (_, w), sigmas, r in zip(tp.ladder, tp.notch_sigmas(), ranks):
+        assert r == tuple(int(np.count_nonzero(tn.notch(w, s) != 1.0))
+                          for s in sigmas)
+    share = [2 * max(r) / w for (_, w), r in zip(tp.ladder, ranks)]
+    if name == "tile":
+        assert min(share) >= 1.1 and not any(tp.notch_lowrank())
+    else:
+        assert max(share) <= 0.19 and all(tp.notch_lowrank())
+        assert len(tp.notch_lowrank()) == 11
+
+
+LOWRANK_CFG = (dict(CELLS, sigma=8.0), dict(NO_CELLS, sigma=16.0))
+
+
+@pytest.mark.parametrize("hw,levels", [((256, 1024), 5), ((200, 240), 0)],
+                         ids=["factors", "dense"])
+def test_constants_hold_the_factors_where_routed(hw, levels):
+    """The plane step's constants give a routed level its factors in place
+    of the dense bank in ``notch_cat`` and count the routed levels in
+    ``plan.notch_lowrank_levels``; the row-sharded route's constants
+    (``dense_only``) keep the dense bank everywhere."""
+    from aind_smartspim_destripe_torch.runtime import tracing
+
+    cfgs = LOWRANK_CFG if levels else (CELLS, NO_CELLS)
+    tp = tf.build_plan(*hw, *(tf.FilterConfig(**c) for c in cfgs))
+    before = tracing.counters().get("plan.notch_lowrank_levels", 0)
+    consts = tp.constants()
+    assert (tracing.counters()["plan.notch_lowrank_levels"] - before
+            == levels == sum(tp.notch_lowrank()))
+    routed = tp.notch_lowrank()
+    moved = tf.constants_from_numpy(consts, "cpu")
+    for i, ((_, w), sigmas) in enumerate(zip(tp.ladder, tp.notch_sigmas())):
+        entry = consts["notch_cat"][i]
+        if not routed[i]:
+            assert entry.shape == (w, 2 * w)
+            assert moved["notch_cat"][i].shape == (w, 2 * w)
+            continue
+        assert isinstance(entry, tn.NotchFactors)
+        p, ds, ranks = tn.notch_factors(w, sigmas)
+        assert entry.ranks == ranks == tuple(tn.notch_rank(w, s)
+                                             for s in sigmas)
+        np.testing.assert_array_equal(entry.p, p)
+        np.testing.assert_array_equal(entry.ds, ds)
+        got = moved["notch_cat"][i]
+        assert isinstance(got, tn.NotchFactors) and got.ranks == ranks
+        assert torch.equal(got.p, torch.from_numpy(p))
+        assert torch.equal(got.ds, torch.from_numpy(ds))
+    dense = tp.constants(dense_only=True)
+    assert all(isinstance(c, np.ndarray) for c in dense["notch_cat"])
+
+
+def test_lowrank_plane_step_matches_jax():
+    """A 256 x 1024 plan with sigmas 8 / 16 runs every level's notch from
+    its factors; the step stays within the CPU suite's flip budget and
+    PSNR of the JAX package's dense notch, single band and dual."""
+    import jax
+    import jax.numpy as jnp
+
+    from aind_smartspim_destripe_torch.ops import dual_band as tdb
+    from aind_smartspim_destripe_tpu.ops import dual_band as jdb
+    from tests.test_torch_filter import HIGH_INT, _batch, _gate_vs_jax
+
+    h, w = 256, 1024
+    jp = jf.build_plan(h, w, *(jf.FilterConfig(**c) for c in LOWRANK_CFG))
+    tp = tf.build_plan(h, w, *(tf.FilterConfig(**c) for c in LOWRANK_CFG))
+    assert all(tp.notch_lowrank()) and tp.banded_levels() == ()
+    x = _batch(2, h, w, seed=8)
+    want = np.asarray(jax.jit(lambda im: jf.destripe_batch(
+        jp, im, HIGH_INT, jp.constants(), wrap=True))(jnp.asarray(x)))
+    got = tf.destripe_batch(tp, torch.from_numpy(x), HIGH_INT,
+                            wrap=True).numpy()
+    _gate_vs_jax(got, want)
+    want = np.asarray(jdb.dual_band_destripe_batch(
+        jp, jnp.asarray(x), 100.0, -1.0))
+    got = tdb.dual_band_destripe_batch(tp, torch.from_numpy(x), 100.0,
+                                       -1.0).numpy()
+    _gate_vs_jax(got, want)
