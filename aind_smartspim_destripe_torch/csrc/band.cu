@@ -7,12 +7,12 @@
 //   destripe_k4 <- aind_smartspim_destripe_tpu/ops/pallas_band.py:syn_x_exp
 //
 // The TPU kernels multiply 128-lane operator windows on the MXU. Here every
-// output is a direct stencil of K taps: the host derives, from the same
-// dense operator the plan builds, a first source index start[i] and K
-// coefficients coef[i, 0:K] per output (K = 6 for db3 analysis, 3 for
-// synthesis), and checks that the band form rebuilds the operator exactly
-// (aind_smartspim_destripe_torch/ops/cuda_band.py:band_form). Sums are f32
-// FMAs, as f32 as the plain PyTorch twins.
+// output is a direct stencil of K taps: the host derives, from the
+// wavelet's taps, a first source index start[i] and K coefficients
+// coef[i, 0:K] per output (K = 6 for db3 analysis, 3 for synthesis), the
+// band form of the dense operator the plain twins read
+// (aind_smartspim_destripe_torch/ops/cuda_band.py:band_form_taps). Sums are
+// f32 FMAs, as f32 as the plain PyTorch twins.
 //
 // What bounds them: all four move ~8 bytes per output and do 2K flops, so
 // they are bound by device memory. The design keeps each pass to one read

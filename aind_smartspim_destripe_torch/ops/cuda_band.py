@@ -1,6 +1,7 @@
 """
 The banded DWT passes of the destripe step: K1-K4 wrappers, their plain
-PyTorch twins, and the host builder of the band form the kernels read.
+PyTorch twins, and the host builder of the band forms the kernels read
+(from the wavelet's taps).
 
 Counterpart of ``aind_smartspim_destripe_tpu/ops/pallas_band.py``. Each
 wrapper dispatches on the device of its input: a CPU tensor takes the plain
@@ -44,7 +45,6 @@ from .cuda_build import check, launch, on_cuda
 from .flatfield import flatfield_correction, wrap_cast
 
 __all__ = [
-    "band_form",
     "band_form_taps",
     "analysis_taps",
     "synthesis_taps",
@@ -53,7 +53,6 @@ __all__ = [
     "check_k3_band",
     "check_k4_band",
     "band_dense",
-    "band_level_forms",
     "band_level_forms_taps",
     "an_x_lowpass_log1p",
     "an_y_pass",
@@ -89,7 +88,7 @@ _GRID_MAX = 65535  # grid.y and grid.z
 
 
 # ---------------------------------------------------------------------------
-# Host: band form of a dense operator
+# Host: band forms from the wavelet's taps
 # ---------------------------------------------------------------------------
 
 
@@ -102,45 +101,16 @@ def band_dense(start: np.ndarray, coef: np.ndarray, n: int) -> np.ndarray:
     return dense
 
 
-def band_form(*mats: np.ndarray) -> Tuple[np.ndarray, Tuple[np.ndarray, ...]]:
-    """Compact band form of dense operators sharing their rows' support:
-    ``start`` (m,) int32 and one ``coef`` (m, K) float32 per operator, with
-    ``A[i, start[i] + k] = coef[i, k]`` and every other entry zero. K is the
-    widest row support; starts clamp to ``n - K`` so every window stays in
-    bounds. Raises ValueError unless the band form rebuilds each operator
-    exactly."""
-    mats = tuple(np.asarray(a, np.float32) for a in mats)
-    m, n = mats[0].shape
-    nz = np.zeros((m, n), bool)
-    for a in mats:
-        if a.shape != (m, n):
-            raise ValueError(f"operator shapes differ: {a.shape} vs {(m, n)}")
-        nz |= a != 0
-    has = nz.any(axis=1)
-    first = np.where(has, nz.argmax(axis=1), 0)
-    last = np.where(has, n - 1 - nz[:, ::-1].argmax(axis=1), 0)
-    K = int((last - first + 1)[has].max()) if has.any() else 1
-    if K > n:  # pragma: no cover - a row cannot be wider than the matrix
-        raise ValueError(f"band width {K} exceeds the axis length {n}")
-    start = np.minimum(first, n - K).astype(np.int32)
-    cols = start[:, None].astype(np.int64) + np.arange(K)[None, :]
-    coefs = tuple(
-        np.ascontiguousarray(np.take_along_axis(a, cols, axis=1))
-        for a in mats
-    )
-    for a, c in zip(mats, coefs):
-        if not np.array_equal(band_dense(start, c, n), a):
-            raise ValueError("operator is not banded within its row support")
-    return start, coefs
-
-
 def band_form_taps(cols: np.ndarray, n: int, *vals: np.ndarray):
-    """:func:`band_form` of the (m, n) operators whose row i is the sum of
+    """Compact band form of the (m, n) operators whose row i is the sum of
     its taps ``v[i, t]`` (float64) at columns ``cols[i, t]``, rounded to
     float32, for each ``v`` of ``vals`` (the operators share their taps'
     columns), without building them: O(m t) memory where a dense operator
-    is O(m n). The same ``start`` and ``coefs`` as ``band_form`` of the
-    dense operators (taps at one column add in the order given)."""
+    is O(m n). Returns ``start`` (m,) int32 and one ``coef`` (m, K)
+    float32 per operator, with ``A[i, start[i] + k] = coef[i, k]`` and
+    every other entry zero (:func:`band_dense` rebuilds it; taps at one
+    column add in the order given). K is the widest row support; starts
+    clamp to ``n - K`` so every window stays in bounds."""
     cols = np.asarray(cols, np.int64)
     m, t = cols.shape
     lo = cols.min(axis=1)
@@ -254,23 +224,15 @@ def check_k3_band(start: np.ndarray, K: int) -> None:
                          f"run of {_K3_ROWS}, 1 <= K <= {_BAND_MAX_K}")
 
 
-def band_level_forms(an_y, an_x_lo, syn_y, syn_x_lo) -> dict:
-    """Band forms of one banded level's four dense operators (numpy):
-    ``an_x_lo`` (L_w, W) for K1, ``an_y`` (2 L_h, H) for K2 (lowpass and
-    highpass halves share their starts), ``syn_y`` (H, 2 L_h) for K3 (the
-    cA-correction and cH-delta halves share theirs) and ``syn_x_lo``
-    (W, L_w) for K4."""
-    L_h = an_y.shape[0] // 2
-    return _level_forms(band_form(an_x_lo), band_form(an_y[:L_h], an_y[L_h:]),
-                        band_form(syn_y[:, :L_h], syn_y[:, L_h:]),
-                        band_form(syn_x_lo))
-
-
 def band_level_forms_taps(h: int, w: int, wavelet_name: str) -> dict:
-    """:func:`band_level_forms` of the banded level whose input is (h, w),
-    bit for bit, from the wavelet's taps (:func:`analysis_taps`,
-    :func:`synthesis_taps`) in O((h + w) flen), without building the four
-    dense operators (O(h^2 + w^2): 2 GB each in float64 at 16384)."""
+    """Band forms of the four operators of the banded level whose input is
+    (h, w), from the wavelet's taps (:func:`analysis_taps`,
+    :func:`synthesis_taps`) in O((h + w) flen), without building the dense
+    operators (O(h^2 + w^2): 2 GB each in float64 at 16384): ``an_x_lo``
+    (L_w, w) for K1, ``an_y`` (2 L_h, h) for K2 (lowpass and highpass
+    halves share their starts), ``syn_y`` (h, 2 L_h) for K3 (the
+    cA-correction and cH-delta halves share theirs) and ``syn_x_lo`` (w,
+    L_w) for K4."""
     flen = wavelets.wavelet(wavelet_name).flen
     L_h = wavelets.dwt_coeff_len(h, flen)
     L_w = wavelets.dwt_coeff_len(w, flen)

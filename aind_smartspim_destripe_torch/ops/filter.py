@@ -3,11 +3,11 @@ The destripe step in PyTorch: plan, classifier, per-level filter and the
 batched log-space wavelet-FFT destripe.
 
 Counterpart of ``aind_smartspim_destripe_tpu/ops/filter.py``. A *plan* is
-built once per image geometry: the per-level shape ladder and, in numpy,
-the dense DWT and packed-FFT notch operators (:meth:`DestripePlan.constants`),
-which :func:`constants_from_numpy` moves to a device. The plane step's
-constants on a card (:func:`device_constants`) hold a banded level's band
-forms alone, built from the wavelet's taps, and the widest notch operators
+built once per image geometry: the per-level shape ladder. The plane
+step's constants on a device (:func:`device_constants`, the one builder)
+hold the dense DWT operators, the packed-FFT notch operators and each
+banded level's band forms, built from the wavelet's taps; on a card a
+banded level holds its band forms alone, and the widest notch operators
 are built there. Planes run as a batch (B, H, W):
 
 - analysis keeps only the lowpass x half (only cA and cH are consumed);
@@ -64,7 +64,6 @@ __all__ = [
     "DestripePlan",
     "build_plan",
     "band_gate",
-    "constants_from_numpy",
     "device_constants",
     "destripe_batch",
     "classify_planes",
@@ -80,10 +79,6 @@ __all__ = [
 # banded kernels when its input has at least this many pixels and sides.
 _BAND_MIN_PX = 400_000
 _BAND_MIN_SIDE = 560
-# The JAX package's kernel pay-off gate (ops/filter.py _PALLAS_MIN_PX): the
-# row-sharded route runs a cH band of at least this many pixels through the
-# sharded histogram, median and notch kernels, smaller ones whole.
-_PALLAS_MIN_PX = 32 * 1024
 
 # span names per level, made once: a span's name is evaluated on every call
 _SPAN_AN = tuple(f"an.L{lvl}" for lvl in range(32))
@@ -170,144 +165,96 @@ class DestripePlan:
         shapes = [(self.height, self.width)] + list(self.ladder[::-1])
         return shapes[:self.n_levels]
 
-    def constants(self, dense_only: bool = False,
-                  banded_x_min_w: Optional[int] = None,
-                  device=None) -> dict:
-        """The operator matrices as a dict of numpy arrays. Keys:
-        ``an_y`` (2L_h x h) and ``an_x_lo`` (L_w x w), finest first;
-        ``syn_y`` (h_t x 2L_h, rows trimmed to the crop-rule target),
-        ``syn_x_lo`` (w_t x L_w) and ``notch_cat`` ((w, 2w): the cells and
-        no-cells notch operators side by side, :func:`fft_notch.notch_cat`),
-        coarsest first. Unless ``dense_only``, ``band{lvl}`` adds the band
-        forms (:func:`cuda_band.band_level_forms`) of each banded level.
-        With neither ``dense_only`` nor ``banded_x_min_w``, a level that
-        :meth:`notch_lowrank` routes to the factors holds them in
-        ``notch_cat`` (:class:`fft_notch.NotchFactors`, from
-        :func:`fft_notch.notch_factors`) in place of the dense bank, and
-        the routed levels are counted in ``plan.notch_lowrank_levels``.
-        ``banded_x_min_w``: the levels whose input width reaches it get
-        None for all three x-axis operators (``an_x_lo``, ``syn_x_lo``,
-        ``notch_cat``), which are O(w^2) and never built; the row-sharded
-        route applies them as the blocked lowpass passes and the rfft
-        notch instead (the JAX package's gate, line for line).
-
-        ``device`` (with neither of the two above): the constants of the
-        plane step on ``device``, which :func:`device_constants` moves
-        there. On a CUDA ``device`` a banded level's four dense operators
-        are None, never built: its band forms come from the wavelet's taps
-        (:func:`cuda_band.band_level_forms_taps`, the same arrays) and the
-        band kernels read nothing else; ``notch_cat`` holds tensors built
-        there past :data:`fft_notch.NOTCH_HOST_MAX_W` columns. On any other
-        device the constants are those of ``constants()``, since the plain
-        twins of the band kernels read the dense operators."""
-        if device is not None and (dense_only or banded_x_min_w is not None):
-            raise ValueError("device constants are the plane step's: "
-                             "neither dense_only nor banded_x_min_w")
-        device = None if device is None else torch.device(device)
-        on_card = device is not None and device.type == "cuda"
-        with timed("plan.constants"):
-            name, n = self.wavelet, self.n_levels
-            inputs = self.level_inputs()
-            x_gated = [banded_x_min_w is not None and w >= banded_x_min_w
-                       for _, w in inputs]
-            banded = self.banded_levels() if on_card else ()
-            an, syn = [], []  # finest first
-            for lvl, (h, w) in enumerate(inputs):
-                if lvl in banded:
-                    an.append((None, None))
-                    syn.append((None, None))
-                    continue
-                L_h, L_w = self.ladder[n - 1 - lvl]
-                an.append((wavelets.analysis_operator(h, name),
-                           None if x_gated[lvl]
-                           else wavelets.analysis_operator(w, name)[:L_w]))
-                syn.append((wavelets.synthesis_operator(L_h, name)[:h],
-                            None if x_gated[lvl]
-                            else wavelets.synthesis_operator(L_w, name)
-                            [:w, :L_w]))
-            out = {
-                "an_y": tuple(p[0] for p in an),
-                "an_x_lo": tuple(p[1] for p in an),
-                "syn_y": tuple(p[0] for p in syn[::-1]),
-                "syn_x_lo": tuple(p[1] for p in syn[::-1]),
-            }
-            with span("plan.notch"):
-                plane_step = not dense_only and banded_x_min_w is None
-                lowrank = (self.notch_lowrank() if plane_step
-                           else (False,) * n)
-                out["notch_cat"] = tuple(
-                    None if x_gated[n - 1 - i]
-                    else fft_notch.notch_factors(w, sigmas) if lowrank[i]
-                    else fft_notch.notch_cat(w, sigmas, device)
-                    for i, ((_, w), sigmas) in enumerate(
-                        zip(self.ladder, self.notch_sigmas())))
-                if plane_step:
-                    add("plan.notch_lowrank_levels", sum(lowrank))
-                if any(isinstance(c, torch.Tensor) for c in out["notch_cat"]):
-                    torch.cuda.synchronize(device)  # its time is set-up's
-            if not dense_only:
-                with span("plan.band_forms"):
-                    if on_card:
-                        out.update({
-                            f"band{lvl}": cuda_band.band_level_forms_taps(
-                                *inputs[lvl], name) for lvl in banded})
-                    else:
-                        out.update(_band_constants(out))
-            return out
-
     def banded_levels(self) -> Tuple[int, ...]:
-        """The levels that run the band kernels (:func:`_leading_banded` of
-        the levels' inputs)."""
-        return _leading_banded(self.level_inputs())
+        """The levels that run the band kernels: the leading levels whose
+        (h, w) input passes :func:`band_gate` (coarser levels only shrink,
+        so the first miss ends the run)."""
+        out = []
+        for lvl, (h, w) in enumerate(self.level_inputs()):
+            if not band_gate(h, w):
+                break
+            out.append(lvl)
+        return tuple(out)
 
 
-def _leading_banded(inputs) -> Tuple[int, ...]:
-    """The leading levels whose (h, w) input passes :func:`band_gate`
-    (coarser levels only shrink, so the first miss ends the run)."""
-    out = []
-    for lvl, (h, w) in enumerate(inputs):
-        if not band_gate(h, w):
-            break
-        out.append(lvl)
-    return tuple(out)
+def device_constants(plan: DestripePlan, device) -> dict:
+    """The constants the plane step reads on ``device``, as tensors there.
+    Keys: ``an_y`` (2L_h x h) and ``an_x_lo`` (L_w x w), finest first;
+    ``syn_y`` (h_t x 2L_h, rows trimmed to the crop-rule target),
+    ``syn_x_lo`` (w_t x L_w) and ``notch_cat``, coarsest first; and
+    ``band{lvl}``, the band forms of each banded level
+    (:meth:`DestripePlan.banded_levels`), built from the wavelet's taps
+    (:func:`cuda_band.band_level_forms_taps`).
+
+    A banded level's four dense operators are None on a card, never
+    built: the band kernels read the band forms alone. Off the card they
+    are built, since the plain twins of the band kernels read them. A
+    level's ``notch_cat`` is its :class:`fft_notch.NotchFactors`
+    (:func:`fft_notch.notch_factors`) where :meth:`DestripePlan.
+    notch_lowrank` routes it, counted in ``plan.notch_lowrank_levels``;
+    elsewhere the dense bank (:func:`fft_notch.notch_cat`: the cells and
+    no-cells operators side by side, (w, 2w)), built on a card past
+    :data:`fft_notch.NOTCH_HOST_MAX_W` columns. Counts the bytes put on a
+    card in ``plan.device_bytes``."""
+    device = torch.device(device)
+    return _upload(_build_constants(plan, device), device)
 
 
-def _band_constants(consts: dict) -> dict:
-    """``band{lvl}`` band forms of the banded levels (up to the first
-    width-gated one), from the dense operators of ``consts``."""
-    n = len(consts["an_y"])
-    inputs = []
-    for an_y, an_x_lo in zip(consts["an_y"], consts["an_x_lo"]):
-        if an_x_lo is None:  # a width-gated level
-            break
-        inputs.append((an_y.shape[1], an_x_lo.shape[1]))
+def _build_constants(plan: DestripePlan, device: torch.device) -> dict:
+    """:func:`device_constants` before the upload: numpy arrays, and the
+    notch banks built on a card as tensors there."""
+    with timed("plan.constants"):
+        banded = plan.banded_levels()
+        skip = banded if device.type == "cuda" else ()
+        out = _dwt_operators(plan, skip, skip)
+        with span("plan.notch"):
+            lowrank = plan.notch_lowrank()
+            out["notch_cat"] = tuple(
+                fft_notch.notch_factors(w, sigmas) if routed
+                else fft_notch.notch_cat(w, sigmas, device)
+                for routed, (_, w), sigmas in zip(
+                    lowrank, plan.ladder, plan.notch_sigmas()))
+            add("plan.notch_lowrank_levels", sum(lowrank))
+            if any(isinstance(c, torch.Tensor) for c in out["notch_cat"]):
+                torch.cuda.synchronize(device)  # its time is set-up's
+        with span("plan.band_forms"):
+            inputs = plan.level_inputs()
+            out.update({f"band{lvl}": cuda_band.band_level_forms_taps(
+                *inputs[lvl], plan.wavelet) for lvl in banded})
+        return out
+
+
+def _dwt_operators(plan: DestripePlan, no_y=(), no_x=()) -> dict:
+    """The plan's dense DWT operators, numpy float32: ``an_y`` (2L_h x h)
+    and ``an_x_lo`` (L_w x w), finest first; ``syn_y`` (h_t x 2L_h, rows
+    trimmed to the crop-rule target) and ``syn_x_lo`` (w_t x L_w),
+    coarsest first. The levels in ``no_y`` (``no_x``) get None for their
+    y (x) pair, never built."""
+    name, n = plan.wavelet, plan.n_levels
+    an, syn = [], []  # finest first
+    for lvl, (h, w) in enumerate(plan.level_inputs()):
+        L_h, L_w = plan.ladder[n - 1 - lvl]
+        y, x = lvl not in no_y, lvl not in no_x
+        an.append((
+            wavelets.analysis_operator(h, name) if y else None,
+            wavelets.analysis_operator(w, name)[:L_w] if x else None))
+        syn.append((
+            wavelets.synthesis_operator(L_h, name)[:h] if y else None,
+            wavelets.synthesis_operator(L_w, name)[:w, :L_w] if x else None))
     return {
-        f"band{lvl}": cuda_band.band_level_forms(
-            np.asarray(consts["an_y"][lvl]),
-            np.asarray(consts["an_x_lo"][lvl]),
-            np.asarray(consts["syn_y"][n - 1 - lvl]),
-            np.asarray(consts["syn_x_lo"][n - 1 - lvl]),
-        )
-        for lvl in _leading_banded(inputs)
+        "an_y": tuple(p[0] for p in an),
+        "an_x_lo": tuple(p[1] for p in an),
+        "syn_y": tuple(p[0] for p in syn[::-1]),
+        "syn_x_lo": tuple(p[1] for p in syn[::-1]),
     }
 
 
-def constants_from_numpy(consts: dict, device) -> dict:
-    """Move a plan's constants (this package's ``DestripePlan.constants()``
-    dict, or the JAX package's) to ``device`` as tensors: tuples of
-    float32 matrices per key (None stays None: a banded level's dense
-    operators in the plane step's constants on a card; tensors already
-    built on ``device`` pass through), and a dict of band-form tensors per
-    banded level (built here from the dense operators where absent); a
-    level's :class:`.fft_notch.NotchFactors` keep their ranks as host ints.
-    Counts the bytes put on a card in ``plan.device_bytes``."""
-    device = torch.device(device)
+def _upload(consts: dict, device: torch.device) -> dict:
+    """Put :func:`_build_constants`' arrays on ``device`` as float32 (int32
+    band starts) tensors; None stays None, tensors already there pass
+    through, and a level's :class:`.fft_notch.NotchFactors` keep their
+    ranks as host ints."""
     with timed("plan.upload"):
-        consts = dict(consts)
-        if not any(k.startswith("band") and "k1_start" in v
-                   for k, v in consts.items()):
-            consts.update(_band_constants(consts))
-
         def put(a):
             if a is None:
                 return None
@@ -315,17 +262,16 @@ def constants_from_numpy(consts: dict, device) -> dict:
                 return a._replace(p=put(a.p), ds=put(a.ds))
             if isinstance(a, torch.Tensor):
                 return a.to(device)
-            a = np.asarray(a)
             dtype = torch.int32 if a.dtype.kind in "iu" else torch.float32
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                    device=device)
 
         out, tensors = {}, []
         for k, v in consts.items():
-            if k.startswith("band") and "k1_start" in v:
+            if isinstance(v, dict):  # a banded level's band forms
                 out[k] = {name: put(a) for name, a in v.items()}
                 tensors += out[k].values()
-            elif k in ("an_y", "an_x_lo", "syn_y", "syn_x_lo", "notch_cat"):
+            else:
                 out[k] = tuple(put(a) for a in v)
                 tensors += (t for a in out[k] for t in (
                     a[:2] if isinstance(a, fft_notch.NotchFactors) else (a,))
@@ -334,15 +280,6 @@ def constants_from_numpy(consts: dict, device) -> dict:
             add("plan.device_bytes",
                 sum(t.numel() * t.element_size() for t in tensors))
         return out
-
-
-def device_constants(plan: DestripePlan, device) -> dict:
-    """The constants the plane step reads on ``device``:
-    ``plan.constants(device=device)`` (on a card, band forms alone for a
-    banded level and the widest notch operators built there; elsewhere
-    ``plan.constants()``) moved there by :func:`constants_from_numpy`."""
-    device = torch.device(device)
-    return constants_from_numpy(plan.constants(device=device), device)
 
 
 @lru_cache(maxsize=32)
@@ -466,13 +403,13 @@ def classifier_sums(images: torch.Tensor, threshold_mask: float = 0.3):
     )
 
 
-def _row_median(x: torch.Tensor, pallas: bool = True) -> torch.Tensor:
-    """Exact median over the last axis, keepdims. Float32 with ``pallas``
-    (the default) runs :func:`.cuda_notch.row_median_batch`: the Hopper
-    radix-select kernel for a CUDA tensor, its plain twin for a CPU one.
-    ``pallas=False`` or another dtype sorts, as the JAX package does there;
-    both are exact and average the two middle values of even rows."""
-    if pallas and x.dtype == torch.float32:
+def _row_median(x: torch.Tensor) -> torch.Tensor:
+    """Exact median over the last axis, keepdims. Float32 runs
+    :func:`.cuda_notch.row_median_batch`: the Hopper radix-select kernel
+    for a CUDA tensor, its plain twin for a CPU one. Another dtype sorts
+    (:func:`.cuda_notch.row_median`), as the JAX package does there; both
+    are exact and average the two middle values of even rows."""
+    if x.dtype == torch.float32:
         return cuda_notch.row_median_batch(x)
     return cuda_notch.row_median(x)
 

@@ -31,7 +31,7 @@ through the kernels of :mod:`..ops`: K1 and K4 (:func:`.cuda_band.
 an_x_lowpass_chunked`, :func:`.cuda_band.syn_x_exp_chunked`), the Otsu
 histogram with a row bound, the masked row median and the per-plane notch
 product (:func:`.cuda_notch.notch_select`); bands under the kernels'
-pay-off gate (:data:`..ops.filter._PALLAS_MIN_PX`) are filtered whole.
+pay-off gate (:data:`_PALLAS_MIN_PX`) are filtered whole.
 
 The same operator-slice passes, planned on the fly, give one DWT level of
 row-sharded planes: :func:`banded_apply_y_sharded`, :func:`dwt2_y_sharded`
@@ -58,7 +58,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops import cuda_band, cuda_notch, wavelets
+from ..ops import cuda_band, cuda_notch, fft_notch, wavelets
 from ..ops.cuda_band import (
     analysis_taps,
     band_form_taps,
@@ -71,8 +71,8 @@ from ..ops.cuda_hist import histogram256_batch
 from ..ops.cuda_notch import row_median_masked
 from ..ops.dual_band import check_crossover
 from ..ops.filter import (
-    _PALLAS_MIN_PX,
     DestripePlan,
+    _dwt_operators,
     _filter_level_delta,
     classifier_sums,
     classify_from_sums,
@@ -98,6 +98,12 @@ __all__ = [
     "destripe_y_sharded",
     "dual_band_destripe_y_sharded",
 ]
+
+
+# The JAX package's kernel pay-off gate (ops/filter.py _PALLAS_MIN_PX): the
+# route runs a cH band of at least this many pixels through the sharded
+# histogram, median and notch kernels, smaller ones whole.
+_PALLAS_MIN_PX = 32 * 1024
 
 
 def banded_x_min_w_default() -> int:
@@ -350,8 +356,27 @@ def _plan_x_blocks(plan: DestripePlan):
     return (k1, k4), (k1_static, k4_static)
 
 
+def _dense_operators(plan: DestripePlan) -> dict:
+    """The dense operators the route reads, as numpy arrays: ``an_y`` and
+    ``an_x_lo`` finest first, ``syn_y``, ``syn_x_lo`` and ``notch_cat``
+    (the dense bank, :func:`..ops.fft_notch.notch_cat`) coarsest first, the
+    layout of :func:`..ops.filter.device_constants`. The y operators are
+    built at every level; a level whose input width reaches the dense-x
+    gate (:func:`banded_x_min_w_default`) gets None for its three x-axis
+    operators, which are O(w^2) and never built: the route applies the
+    blocked lowpass passes and the rfft notch there instead (the JAX
+    package's gate, line for line)."""
+    n, gate = plan.n_levels, banded_x_min_w_default()
+    gated = {lvl for lvl, (_, w) in enumerate(plan.level_inputs())
+             if w >= gate}
+    return dict(_dwt_operators(plan, no_x=gated), notch_cat=tuple(
+        None if n - 1 - i in gated else fft_notch.notch_cat(w, sigmas)
+        for i, ((_, w), sigmas) in enumerate(
+            zip(plan.ladder, plan.notch_sigmas()))))
+
+
 def halo_constants(plan: DestripePlan, n_devices: int,
-                   notch_blocks: bool = True, dense: Optional[dict] = None):
+                   notch_blocks: bool = True):
     """Host planning of the row-sharded route for one geometry and mesh
     size, as the JAX package plans it. Returns ``(arrays, static)``:
 
@@ -369,13 +394,13 @@ def halo_constants(plan: DestripePlan, n_devices: int,
       dense ``notch_cat`` instead.
 
     Levels at or above the dense-x gate get no notch bank (it costs the
-    O(w^2) bytes the gate bounds; their notch runs spectrally).
+    O(w^2) bytes the gate bounds; their notch runs spectrally)."""
+    return _plan_route(plan, n_devices, notch_blocks, _dense_operators(plan))
 
-    ``dense``: the plan's ``constants(dense_only=True, banded_x_min_w=
-    banded_x_min_w_default())``, when the caller has them already."""
-    if dense is None:
-        dense = plan.constants(dense_only=True,
-                               banded_x_min_w=banded_x_min_w_default())
+
+def _plan_route(plan: DestripePlan, n_devices: int, notch_blocks: bool,
+                dense: dict):
+    """:func:`halo_constants` from the plan's :func:`_dense_operators`."""
     D = int(n_devices)
     arrays: dict = {}
     static: dict = {}
@@ -440,7 +465,8 @@ def halo_device_constants(plan: DestripePlan, mesh,
                           notch_blocks: bool = True) -> HaloConstants:
     """:func:`halo_constants` moved to the mesh: each entry's y operator
     slices on its device; the K1/K4 band forms, the notch banks and the
-    dense operators the route still reads once per distinct device. Dense
+    dense operators the route still reads (of :func:`_dense_operators`)
+    once per distinct device. Dense
     operators that the route replaces are dropped before they reach a
     device: ``notch_cat`` where a bank serves, the y operators of sharded
     levels, and on a CUDA device the x operators of K1/K4 levels (the
@@ -449,9 +475,8 @@ def halo_device_constants(plan: DestripePlan, mesh,
     the dense-x gate have no dense x operators at all."""
     mesh = tuple(make_mesh(mesh))
     devices = tuple(dict.fromkeys(mesh))
-    dense = plan.constants(dense_only=True,
-                           banded_x_min_w=banded_x_min_w_default())
-    arrays, static = halo_constants(plan, len(mesh), notch_blocks, dense)
+    dense = _dense_operators(plan)
+    arrays, static = _plan_route(plan, len(mesh), notch_blocks, dense)
     n = plan.n_levels
 
     sharded = [lvl for lvl in range(n) if static.get(lvl) is not None]

@@ -40,7 +40,7 @@ Phases, each printing its lines:
    (``cuda_band.an_y_pass_ordered``, ``syn_y_pass_ordered``,
    ``syn_x_exp_ordered``; K2's bands and their |cH| range); then
    ``[kernels] row_median_batch``, the unmasked median through
-   ``ops.filter._row_median(x, pallas=True)`` on its main path's call
+   ``ops.filter._row_median(x)`` on its main path's call
    (BaSiC's darkfield medians in flat estimation: the (12, 128, 128) stack
    with its axis moved last, as ``models.basic._median0`` passes it, which
    the kernel must read without a copy), the same values contiguous, the
@@ -528,6 +528,21 @@ def _notch_parts(ch, thr, sel, notch_cat):
     return {"gemm": gemm, "product_alone": lambda: torch.matmul(band, op)}
 
 
+def _twin_consts(plan, dev):
+    """The plane step's constants on ``dev`` (the band forms and notch
+    operators the kernels read), with each banded level's dense operators,
+    which only the plain twins read and the card's constants leave None,
+    from the constants off the card."""
+    from aind_smartspim_destripe_torch.ops import filter as tf
+
+    consts = tf.device_constants(plan, dev)
+    host = tf.device_constants(plan, "cpu")
+    for key in ("an_y", "an_x_lo", "syn_y", "syn_x_lo"):
+        consts[key] = tuple(a if a is not None else b.to(dev)
+                            for a, b in zip(consts[key], host[key]))
+    return consts
+
+
 def phase_kernels(plan, consts, dev, seed):
     """Every kernel vs its plain twin at the step's shapes (B=64): K1-K4 at
     levels 0 and 1, the tail kernels at every level."""
@@ -789,7 +804,7 @@ def _blend_modes(rec, lvl, x, both, centers, flat, dark, tag,
 
 
 def phase_median(dev, seed):
-    """``row_median_batch`` through ``ops.filter._row_median(x, pallas=True)``
+    """``row_median_batch`` through ``ops.filter._row_median(x)``
     against its twin (the sort), exactly, at MEDIAN_SHAPES (``path``: the
     ``movedim`` view of the stack, as ``models.basic._median0`` passes it,
     timed with any copy the wrapper makes; it must make none); the library
@@ -807,7 +822,7 @@ def phase_median(dev, seed):
         if key == "path":
             x = x.movedim(0, -1)
             tn.row_median_batch.copies = 0
-            tf._row_median(x, pallas=True)
+            tf._row_median(x)
             if tn.row_median_batch.copies:
                 raise AssertionError("the median copied BaSiC's stack")
         k1, k2 = (x.shape[-1] - 1) // 2, x.shape[-1] // 2
@@ -820,7 +835,7 @@ def phase_median(dev, seed):
                                         keepdim=True).values) * 0.5
 
         _compare(rec, "row_median_batch", key,
-                 lambda: tf._row_median(x, pallas=True),
+                 lambda: tf._row_median(x),
                  lambda: tn.row_median_batch_plain(x),
                  ins=(x,), ops=float(x.numel()), library=kthvalue)
         del x
@@ -1165,7 +1180,7 @@ def phase_mesh_helpers(plan, vol, flats, dark, dev, mesh):
               torch.from_numpy(dark32).to(dev))
     b = BATCH // len(mesh)
     # the float32 step on the helper's shares, for its statistics
-    consts = tf.constants_from_numpy(plan.constants(), dev)
+    consts = tf.device_constants(plan, dev)
     with torch.inference_mode():
         floats = [tf.destripe_batch(plan, images[d * b:(d + 1) * b], 2500.0,
                                     consts) for d in range(len(mesh))]
@@ -1237,7 +1252,7 @@ def phase_mesh_helpers(plan, vol, flats, dark, dev, mesh):
 
     # one share's float32 destripe, as each step launches it: the 1-D
     # helper's (b planes) and the 2-D step's (b / 2)
-    consts = tf.constants_from_numpy(plan.constants(), dev)
+    consts = tf.device_constants(plan, dev)
     for nb in (b, b // 2):
         def share(nb=nb):
             with torch.inference_mode():
@@ -1996,6 +2011,7 @@ def main(argv=None):
     from aind_smartspim_destripe_torch.io import ensure_native_codec
     from aind_smartspim_destripe_torch.ops import cuda_build
     from aind_smartspim_destripe_torch.ops import filter as tf
+    from aind_smartspim_destripe_torch.parallel.halo import _dense_operators
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -2111,7 +2127,7 @@ def main(argv=None):
     plan = tf.build_plan(SHAPE[1], SHAPE[2],
                          tf.FilterConfig.from_dict(cfg["cells_config"]),
                          tf.FilterConfig.from_dict(cfg["no_cells_config"]))
-    consts = tf.constants_from_numpy(plan.constants(), dev)
+    consts = _twin_consts(plan, dev)
     rec = phase_kernels(plan, consts, dev, args.seed)
     torch.cuda.empty_cache()
     drec = phase_dual_kernels(plan, consts, dev, args.seed)
@@ -2127,7 +2143,7 @@ def main(argv=None):
     del consts
     torch.cuda.empty_cache()
     mrec = phase_median(dev, args.seed)
-    consts = tf.constants_from_numpy(plan.constants(), dev)
+    consts = tf.device_constants(plan, dev)
     mrec.update(phase_dense(plan, consts, dev, args.seed))
     del consts
     torch.cuda.empty_cache()
@@ -2199,7 +2215,7 @@ def main(argv=None):
                           tf.FilterConfig.from_dict(cfg["cells_config"]),
                           tf.FilterConfig.from_dict(cfg["no_cells_config"]))
     t0 = time.perf_counter()
-    hdense = hplan.constants(dense_only=True)
+    hdense = _dense_operators(hplan)  # the row-sharded route's
     print(f"[halo] plan {HALO_SHAPE[1:]}: {hplan.n_levels} levels, dense "
           f"operators built on the host in {time.perf_counter() - t0:.1f} s")
     hrec = phase_halo_kernels(hplan, hdense, dev, args.seed, len(mesh))

@@ -155,7 +155,7 @@ def main(argv=None):
     plan = tf.build_plan(H, W,
                          tf.FilterConfig.from_dict(cfg["cells_config"]),
                          tf.FilterConfig.from_dict(cfg["no_cells_config"]))
-    consts = tf.constants_from_numpy(plan.constants(), dev)
+    consts = tf.device_constants(plan, dev)
     vol, flat, dark = _volume(dev, args.seed, H, W)
     print(f"[plan] {(H, W)}: {plan.n_levels} levels, banded levels "
           f"{sorted(int(k[4:]) for k in consts if k.startswith('band'))}, "

@@ -153,7 +153,7 @@ def main(argv=None):
     plan = tf.build_plan(1600, 2000,
                          tf.FilterConfig.from_dict(cfg["cells_config"]),
                          tf.FilterConfig.from_dict(cfg["no_cells_config"]))
-    consts = tf.constants_from_numpy(plan.constants(), dev)
+    consts = tf.device_constants(plan, dev)
     n = plan.n_levels
     B, H, W = 64, 1600, 2000
     # K2 and K3 on inputs of the step's shapes; K3 also on 2B corrections
@@ -181,15 +181,15 @@ def main(argv=None):
     dark = torch.full((H, W), 3.0, device=dev)
     for lvl in (0, 1):
         bd = consts[f"band{lvl}"]
-        s_x = consts["syn_x_lo"][n - 1 - lvl]
+        s_x = consts["syn_x_lo"][n - 1 - lvl]  # None: the kernel's band
         h = H if lvl == 0 else plan.ladder[n - 1][0]
-        st = torch.randn((B, h, s_x.shape[1]), generator=g,
-                         device=dev) * 0.01
+        L_w = plan.ladder[n - 1 - lvl][1]
+        st = torch.randn((B, h, L_w), generator=g, device=dev) * 0.01
         if lvl == 0:
             record("syn_x_exp level 0", lambda: cb.syn_x_exp(
                 st, x, s_x, bd["k4_start"], bd["k4_coef"], flat=flat,
                 dark=dark))
-            st2 = torch.randn((2 * B, h, s_x.shape[1]), generator=g,
+            st2 = torch.randn((2 * B, h, L_w), generator=g,
                               device=dev) * 0.01
             record("syn_x_exp dual", lambda: cb.syn_x_exp(
                 st2, x, s_x, bd["k4_start"], bd["k4_coef"]))
@@ -229,7 +229,7 @@ def main(argv=None):
 
     stack = torch.randn((12, 128, 128), generator=g, device=dev) * 0.3
     record("row_median_batch path (movedim view)",
-           lambda: tf._row_median(stack.movedim(0, -1), pallas=True))
+           lambda: tf._row_median(stack.movedim(0, -1)))
     moved = stack.movedim(0, -1)
     k = 6
     record("kthvalue path (movedim view)", lambda: (torch.kthvalue(
@@ -237,13 +237,13 @@ def main(argv=None):
             moved, k + 1, -1, keepdim=True).values) * 0.5)
     flat_stack = moved.contiguous()
     record("row_median_batch path contiguous",
-           lambda: tf._row_median(flat_stack, pallas=True))
+           lambda: tf._row_median(flat_stack))
     for key, shape in (("level 0", (64, 802, 1002)),
                        ("level 1", (64, 403, 503)),
                        ("4d", (2, 64, 802, 1002))):
         xm = torch.randn(shape, generator=g, device=dev) * 0.3
         record(f"row_median_batch {key}",
-               lambda: tf._row_median(xm, pallas=True))
+               lambda: tf._row_median(xm))
         del xm
     del stack, moved, flat_stack
     torch.cuda.empty_cache()
@@ -376,7 +376,7 @@ def tail_calls(out, record_graph, plan, dev, g):
 
     B, H, W = 64, 1600, 2000
     n = plan.n_levels
-    consts = tf.constants_from_numpy(plan.constants(), dev)
+    consts = tf.device_constants(plan, dev)
     x = torch.randint(0, 4000, (B, H, W), generator=g, device=dev,
                       dtype=torch.int32).to(torch.uint16)
     xi = x.to(torch.int32)

@@ -100,7 +100,7 @@ def main(argv=None):
     plan = tf.build_plan(H, W,
                          tf.FilterConfig.from_dict(cfg["cells_config"]),
                          tf.FilterConfig.from_dict(cfg["no_cells_config"]))
-    consts = tf.constants_from_numpy(plan.constants(), dev)
+    consts = tf.device_constants(plan, dev)
     vol, flat, dark = _volume(dev, args.seed, H, W)
 
     rec = Recorder()
@@ -129,7 +129,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
     x_cpu = vol.cpu()[planes]
     fl_c, dk_c = flat.cpu(), dark.cpu()
-    consts_c = tf.constants_from_numpy(plan.constants(), cpu)
+    consts_c = tf.device_constants(plan, cpu)
     cpu_calls, cpu_out = run(x_cpu, fl_c, dk_c, consts_c)
     if [c[0] for c in card_calls] != [c[0] for c in cpu_calls]:
         raise AssertionError("the card and the CPU ran other stages")

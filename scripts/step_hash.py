@@ -73,8 +73,8 @@ def main(argv=None):
     for tag, dual in (("halo", False), ("dual-halo", True)):
         got = set()
         for _ in range(args.repeat):
-            out = smoke.halo_step(tag, hplan, vol, flats[0], dark,
-                                  [dev, dev], dual=dual)
+            out, _ = smoke.halo_step(tag, hplan, vol, flats[0], dark,
+                                     [dev, dev], dual=dual)
             got.add(hashlib.sha256(np.ascontiguousarray(out).tobytes())
                     .hexdigest())
             del out

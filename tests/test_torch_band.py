@@ -37,7 +37,7 @@ def _plans(h, w, level):
 def _level(h, w, level, lvl, device="cpu"):
     """(jax plan, jax band spec, jax band ops, port tensors of level lvl)."""
     jp, tp = _plans(h, w, level)
-    consts = tf.constants_from_numpy(tp.constants(), device)
+    consts = tf.device_constants(tp, device)
     n = tp.n_levels
     ops = {
         "an_x_lo": consts["an_x_lo"][lvl],
@@ -236,13 +236,13 @@ def test_check_k2_k3_band_accept_every_plan(name):
     hw, wav = name.split()
     h, w = map(int, hw.split("x"))
     cfg = tf.FilterConfig(wavelet=wav, level=None, sigma=64, max_threshold=3)
-    consts = tf.build_plan(h, w, cfg, cfg).constants()
+    consts = tf.device_constants(tf.build_plan(h, w, cfg, cfg), "cpu")
     levels = [k for k in consts if k.startswith("band")]
     assert levels
     for key in levels:
         bd = consts[key]
-        cb.check_k2_band(bd["k2_start"], bd["k2_lo"].shape[1])
-        cb.check_k3_band(bd["k3_start"], bd["k3_lo"].shape[1])
+        cb.check_k2_band(bd["k2_start"].numpy(), bd["k2_lo"].shape[1])
+        cb.check_k3_band(bd["k3_start"].numpy(), bd["k3_lo"].shape[1])
 
 
 @pytest.mark.parametrize("case", ["step 3", "back", "K too wide",
@@ -380,8 +380,8 @@ def _k4_form(name):
     hw, lvl = name.split(" level ")
     h, w = map(int, hw.split("x"))
     _, tp = _plans(h, w, None if h == 1600 else 2)
-    band = tp.constants()[f"band{lvl}"]
-    return band["k4_start"], band["k4_coef"]
+    band = tf.device_constants(tp, "cpu")[f"band{lvl}"]
+    return band["k4_start"].numpy(), band["k4_coef"].numpy()
 
 
 @pytest.mark.parametrize("name", K4_FORMS)

@@ -68,18 +68,20 @@ def _close(got, want, scale=None):
 
 
 def _ops(hw, lvl, device):
-    """The dense operators and band forms of analysis level ``lvl``."""
+    """The band forms of banded analysis level ``lvl`` in the plane step's
+    constants on ``device``, with the level's dense operators, which only
+    the plain twins read, from the constants off the card."""
     cfg = tf.FilterConfig(wavelet="db3", level=None, sigma=64,
                           max_threshold=3)
     plan = tf.build_plan(*hw, cfg, cfg)
-    consts = tf.constants_from_numpy(plan.constants(), device)
+    host = tf.device_constants(plan, "cpu")
     n = plan.n_levels
     return {
-        "an_x_lo": consts["an_x_lo"][lvl],
-        "an_y": consts["an_y"][lvl],
-        "syn_y": consts["syn_y"][n - 1 - lvl],
-        "syn_x_lo": consts["syn_x_lo"][n - 1 - lvl],
-        **consts[f"band{lvl}"],
+        "an_x_lo": host["an_x_lo"][lvl].to(device),
+        "an_y": host["an_y"][lvl].to(device),
+        "syn_y": host["syn_y"][n - 1 - lvl].to(device),
+        "syn_x_lo": host["syn_x_lo"][n - 1 - lvl].to(device),
+        **tf.device_constants(plan, device)[f"band{lvl}"],
     }
 
 
@@ -187,7 +189,7 @@ def test_card_row_median_batch_matches_twin(card, shape):
     flat[3::389] = -float("inf")
     x = x.to(card)
     tops.reset_launches()
-    got = tf._row_median(x, pallas=True)
+    got = tf._row_median(x)
     assert tn.row_median_batch.launches == 1
     want = tn.row_median_batch_plain(x)
     assert got.shape == want.shape == shape[:-1] + (1,)
@@ -206,7 +208,7 @@ def test_card_row_median_batch_any_layout(card):
         assert not view.is_contiguous()
         tops.reset_launches()
         tn.row_median_batch.copies = 0
-        got = tf._row_median(view, pallas=True)
+        got = tf._row_median(view)
         assert tn.row_median_batch.launches == 1
         assert tn.row_median_batch.copies == copies
         assert torch.equal(got, tn.row_median_batch_plain(view))
@@ -348,7 +350,7 @@ def dense_levels(card):
     cfg = tf.FilterConfig(wavelet="db3", level=None, sigma=64,
                           max_threshold=3)
     plan = tf.build_plan(1600, 2000, cfg, cfg)
-    consts = tf.constants_from_numpy(plan.constants(), card)
+    consts = tf.device_constants(plan, card)
     n = plan.n_levels
     return {lvl: plan.ladder[n - lvl] + (
         consts["an_x_lo"][lvl], consts["an_y"][lvl],
@@ -551,7 +553,7 @@ def _y_band(hw, lvl, device, wavelet="db3"):
     cfg = tf.FilterConfig(wavelet=wavelet, level=None, sigma=64,
                           max_threshold=3)
     plan = tf.build_plan(*hw, cfg, cfg)
-    bd = tf.constants_from_numpy(plan.constants(), device)[f"band{lvl}"]
+    bd = tf.device_constants(plan, device)[f"band{lvl}"]
     H = plan.height if lvl == 0 else plan.ladder[plan.n_levels - lvl][0]
     return bd, H, bd["k2_start"].shape[0], plan.ladder[-1 - lvl][1]
 
@@ -686,8 +688,8 @@ def test_card_k4_wide_band_fixed_order(card):
     cfg = tf.FilterConfig(wavelet="db6", level=None, sigma=64,
                           max_threshold=3)
     plan = tf.build_plan(640, 768, cfg, cfg)
-    consts = tf.constants_from_numpy(plan.constants(), card)
-    s_x = consts["syn_x_lo"][plan.n_levels - 1]
+    consts = tf.device_constants(plan, card)
+    s_x = consts["syn_x_lo"][plan.n_levels - 1]  # None: the kernel's band
     start, coef = consts["band0"]["k4_start"], consts["band0"]["k4_coef"]
     assert coef.shape[1] > 3
     W = coef.shape[0]
@@ -741,7 +743,7 @@ def test_card_k1_row_shard_fixed_order(card):
 
 
 def _level_ops(h, w, lvl):
-    """One level's dense operators, as ``DestripePlan.constants`` builds
+    """One level's dense operators, as ``ops.filter.device_constants`` builds
     them, without the plan's full-width operators (a wide plan's finest
     x operator is gigabytes)."""
     from aind_smartspim_destripe_torch.ops import wavelets as tw

@@ -104,15 +104,13 @@ def _dense_products(batch):
     1600x2000 plan, with the step's operand forms (views, no data)."""
     cfg = tf.FilterConfig(wavelet="db3", sigma=64, max_threshold=3)
     plan = tf.build_plan(1600, 2000, cfg, cfg)
-    c = plan.constants()
+    c = tf.device_constants(plan, "cpu")
     n = plan.n_levels
     out = []
     for lvl in range(2, n):
         h, w = plan.ladder[n - lvl]
-        an_x_lo = torch.from_numpy(c["an_x_lo"][lvl])
-        an_y = torch.from_numpy(c["an_y"][lvl])
-        syn_y = torch.from_numpy(c["syn_y"][n - 1 - lvl])
-        syn_x_lo = torch.from_numpy(c["syn_x_lo"][n - 1 - lvl])
+        an_x_lo, an_y = c["an_x_lo"][lvl], c["an_y"][lvl]
+        syn_y, syn_x_lo = c["syn_y"][n - 1 - lvl], c["syn_x_lo"][n - 1 - lvl]
         L = an_x_lo.shape[0]
         out += [
             (lvl, "an_x", torch.empty(batch, h, w), an_x_lo.t()),

@@ -284,7 +284,7 @@ def test_destripe_batch_matches_oracle(runs, case):
 def test_band_path_taken_at_640x768():
     for hw, want in (((640, 768), {"band0"}), ((96, 128), set())):
         _, tp = _plans(*hw)
-        consts = tf.constants_from_numpy(tp.constants(), "cpu")
+        consts = tf.device_constants(tp, "cpu")
         assert {k for k in consts if k.startswith("band")} == want
 
 

@@ -1,8 +1,8 @@
 """The port's exact row median against the JAX package on the CPU.
 
-``ops.filter._row_median(x, pallas=True)`` runs ``cuda_notch.row_median_batch``
-(on a CPU tensor: its plain twin, the sort) and ``pallas=False`` the sort;
-both are held exactly (``assert_array_equal``, which compares by value, so
+``ops.filter._row_median(x)`` runs ``cuda_notch.row_median_batch`` on a
+float32 tensor (on a CPU tensor: its plain twin, the sort), and
+``cuda_notch.row_median`` is the sort; both are held exactly (``assert_array_equal``, which compares by value, so
 -0.0 equals +0.0 and NaN equals NaN) against the JAX
 ``pallas_median.row_median_batch`` in interpret mode, the TPU kernel itself,
 and against JAX ``_row_median(x, pallas=False)``, on every shape the
@@ -39,8 +39,8 @@ def _check(x):
     t = torch.from_numpy(x)
     want_kernel = _jax_kernel(x)
     want_sort = np.asarray(jf._row_median(jnp.asarray(x), pallas=False))
-    got = tf._row_median(t, pallas=True).numpy()
-    got_sort = tf._row_median(t, pallas=False).numpy()
+    got = tf._row_median(t).numpy()
+    got_sort = tn.row_median(t).numpy()
     assert got.shape == want_kernel.shape == x.shape[:-1] + (1,)
     np.testing.assert_array_equal(got, want_kernel)
     np.testing.assert_array_equal(got, want_sort)
@@ -84,16 +84,16 @@ def test_row_median_ragged_lengths(n):
 
 @pytest.mark.parametrize("dtype", [np.float16, np.int32])
 def test_non_f32_dtypes_take_the_sort(dtype, monkeypatch):
-    """Another dtype sorts on both sides, even with ``pallas=True``: the
-    port never reaches the kernel's wrapper for it."""
+    """Another dtype sorts on both sides, through ``_row_median`` as through
+    the sort itself: the port never reaches the kernel's wrapper for it."""
     def no_kernel(x):
         raise AssertionError("row_median_batch was called")
 
     monkeypatch.setattr(tn, "row_median_batch", no_kernel)
     x = (np.random.default_rng(3).normal(size=(3, 5, 9)) * 100).astype(dtype)
     want = np.asarray(jf._row_median(jnp.asarray(x), pallas=True))
-    for pallas in (True, False):
-        got = tf._row_median(torch.from_numpy(x), pallas=pallas).numpy()
+    for median in (tf._row_median, tn.row_median):
+        got = median(torch.from_numpy(x)).numpy()
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
 

@@ -3,9 +3,10 @@
 Filter banks, operator builders, notch operators, shape ladders, the dense
 constants and the classifier cut must be equal (np.array_equal) at the
 production geometry 1600x2000, at 2048x2048 and at an odd geometry. The
-band form the Hopper kernels read must rebuild each dense operator exactly
-(float64), and constants_from_numpy must carry the arrays to torch
-unchanged, from either package's constants.
+band forms the Hopper kernels read, built from the wavelet's taps, must
+rebuild each dense operator exactly (float64), and the plane step's
+constants (device_constants) must carry the JAX package's arrays to torch
+unchanged.
 """
 
 import numpy as np
@@ -20,6 +21,7 @@ from aind_smartspim_destripe_torch.ops import cuda_band as cb  # noqa: E402
 from aind_smartspim_destripe_torch.ops import fft_notch as tn  # noqa: E402
 from aind_smartspim_destripe_torch.ops import filter as tf  # noqa: E402
 from aind_smartspim_destripe_torch.ops import wavelets as tw  # noqa: E402
+from aind_smartspim_destripe_torch.parallel import halo as th_  # noqa: E402
 
 GEOMETRIES = [(1600, 2000), (2048, 2048), (1001, 777)]
 CELLS = dict(wavelet="db3", level=None, sigma=64.0, max_threshold=3.0)
@@ -45,7 +47,7 @@ def test_filter_banks_equal(name):
 def _banded(tp):
     """The levels that run the banded kernels, as destripe_batch reads
     them: the band keys of the plan's constants on a device."""
-    consts = tf.constants_from_numpy(tp.constants(), "cpu")
+    consts = tf.device_constants(tp, "cpu")
     return tuple(sorted(int(k[4:]) for k in consts if k.startswith("band")))
 
 
@@ -92,7 +94,7 @@ def test_plan_and_dense_constants_equal(hw):
         np.testing.assert_array_equal(ta, ja)
         np.testing.assert_array_equal(tx, jx)
     jc = jp.constants(dense_only=True)
-    tc = tp.constants(dense_only=True)
+    tc = th_._dense_operators(tp)  # the row-sharded route's dense set
     assert set(tc) == set(jc)
     for key in jc:
         assert len(tc[key]) == len(jc[key])
@@ -140,16 +142,27 @@ def test_classifier_cut_equal():
 
 @pytest.mark.parametrize("hw", GEOMETRIES)
 def test_band_forms_rebuild_dense_operators(hw):
+    """The plane step's constants off the card: each banded level's band
+    forms (what the kernels read) rebuild the same dict's dense operators
+    (what the plain twins read)."""
     _, tp = _plans(*hw)
-    consts = tp.constants()
-    n = tp.n_levels
+    consts = tf.device_constants(tp, "cpu")
     lvls = _banded(tp)
     assert lvls and all(f"band{lvl}" in consts for lvl in lvls)
     assert f"band{len(lvls)}" not in consts
-    for lvl in lvls:
-        bd = consts[f"band{lvl}"]
-        an_y, an_x = consts["an_y"][lvl], consts["an_x_lo"][lvl]
-        syn_y, syn_x = consts["syn_y"][n - 1 - lvl], consts["syn_x_lo"][n - 1 - lvl]
+    _check_band_forms(tp, consts, {
+        key: tuple(a.numpy() for a in consts[key])
+        for key in ("an_y", "an_x_lo", "syn_y", "syn_x_lo")})
+
+
+def _check_band_forms(tp, consts, dense):
+    """Each banded level's band forms of ``consts`` (tensors) rebuild the
+    dense operators of ``dense`` (numpy, the constants' layout) exactly."""
+    n = tp.n_levels
+    for lvl in tp.banded_levels():
+        bd = {k: v.numpy() for k, v in consts[f"band{lvl}"].items()}
+        an_y, an_x = dense["an_y"][lvl], dense["an_x_lo"][lvl]
+        syn_y, syn_x = dense["syn_y"][n - 1 - lvl], dense["syn_x_lo"][n - 1 - lvl]
         L_h = an_y.shape[0] // 2
         pairs = [
             (bd["k1_start"], bd["k1_coef"], an_x),
@@ -159,47 +172,49 @@ def test_band_forms_rebuild_dense_operators(hw):
             (bd["k3_start"], bd["k3_hi"], syn_y[:, L_h:]),
             (bd["k4_start"], bd["k4_coef"], syn_x),
         ]
-        for start, coef, dense in pairs:
+        for start, coef, op in pairs:
             assert start.dtype == np.int32 and coef.dtype == np.float32
             assert start.min() >= 0
-            assert start.max() + coef.shape[1] <= dense.shape[1]
+            assert start.max() + coef.shape[1] <= op.shape[1]
             np.testing.assert_array_equal(
-                cb.band_dense(start, coef.astype(np.float64), dense.shape[1]),
-                dense.astype(np.float64))
-        # db3: 6 analysis taps, 3 synthesis taps per output
-        assert bd["k1_coef"].shape[1] == bd["k2_lo"].shape[1] == 6
-        assert bd["k3_lo"].shape[1] == bd["k4_coef"].shape[1] == 3
+                cb.band_dense(start, coef.astype(np.float64), op.shape[1]),
+                op.astype(np.float64))
+        # K: the wavelet's analysis taps, half as many in synthesis
+        flen = tw.wavelet(tp.wavelet).flen
+        assert bd["k1_coef"].shape[1] == bd["k2_lo"].shape[1] == flen
+        assert bd["k3_lo"].shape[1] == bd["k4_coef"].shape[1] == flen // 2
 
 
 def test_band_form_of_a_small_operator():
+    """``band_form_taps`` of a (3, 40) operator: a row of width 4, two taps
+    at one column (they add), and a row whose start clamps to n - K."""
+    cols = np.array([[0, 3], [10, 10], [38, 39]])
+    vals = np.array([[1.0, 1.0], [0.5, 0.25], [2.0, 2.0]])
+    start, (coef, twice) = cb.band_form_taps(cols, 40, vals, 2 * vals)
+    assert start.dtype == np.int32 and coef.dtype == np.float32
+    assert coef.shape == twice.shape == (3, 4)
+    np.testing.assert_array_equal(start, [0, 10, 36])
     A = np.zeros((3, 40), np.float32)
-    A[0, 0] = A[0, 3] = 1.0  # width 4
-    A[1, 10] = 1.0
-    A[2, 20] = A[2, 23] = 2.0
-    start, (coef,) = cb.band_form(A)
-    assert coef.shape == (3, 4)
+    A[0, 0] = A[0, 3] = 1.0
+    A[1, 10] = 0.75
+    A[2, 38] = A[2, 39] = 2.0
     np.testing.assert_array_equal(cb.band_dense(start, coef, 40), A)
-    with pytest.raises(ValueError, match="shapes differ"):
-        cb.band_form(A, A[:, :30])
+    np.testing.assert_array_equal(cb.band_dense(start, twice, 40), 2 * A)
 
 
 def test_constants_from_numpy_round_trip():
+    """The plane step's constants on the CPU carry the JAX package's dense
+    operators (``constants(dense_only=True)``) to torch unchanged: float32
+    tensors, equal entry for entry."""
     jp, tp = _plans(1001, 777)
-    mine = tf.constants_from_numpy(tp.constants(), "cpu")
-    theirs = tf.constants_from_numpy(jp.constants(dense_only=True), "cpu")
-    ref = tp.constants()
-    assert set(mine) == set(theirs) == set(ref)
-    for key, val in ref.items():
-        if key.startswith("band"):
-            for name, arr in val.items():
-                for got in (mine[key][name], theirs[key][name]):
-                    assert got.dtype == (torch.int32 if arr.dtype == np.int32
-                                         else torch.float32)
-                    np.testing.assert_array_equal(got.numpy(), arr)
-            continue
-        for arr, a, b in zip(val, mine[key], theirs[key]):
-            np.testing.assert_array_equal(a.numpy(), arr)
-            np.testing.assert_array_equal(b.numpy(), arr)
+    mine = tf.device_constants(tp, "cpu")
+    theirs = jp.constants(dense_only=True)
+    assert set(theirs) < set(mine)
+    for key, val in theirs.items():
+        assert len(mine[key]) == len(val)
+        for arr, got in zip(val, mine[key]):
+            assert got.dtype == torch.float32
+            np.testing.assert_array_equal(got.numpy(), arr)
 
 
 # --- the plane step's constants (device_constants) -------------------------
@@ -219,52 +234,56 @@ def _plan_of(hw, name):
 
 @pytest.mark.parametrize("hw,name", TAP_GEOMETRIES)
 def test_band_forms_from_taps_equal_the_dense_operators_forms(hw, name):
-    # a card's constants, built here: every ladder width is under the notch
-    # gate, so nothing of them is built on the card
+    """The band forms of ``device_constants(plan, "cpu")``, built from the
+    wavelet's taps, rebuild the row-sharded route's dense operators
+    (``test_plan_and_dense_constants_equal`` holds them against the JAX
+    package's) exactly, and are those of ``band_level_forms_taps``."""
     tp = _plan_of(hw, name)
-    dense, taps = tp.constants(), tp.constants(device="cuda")
+    consts = tf.device_constants(tp, "cpu")
     lvls = tp.banded_levels()
     assert lvls and lvls == _banded(tp)
+    _check_band_forms(tp, consts, th_._dense_operators(tp))
     for lvl in lvls:
-        h, w = tp.level_inputs()[lvl]
-        assert f"band{lvl}" in taps
-        for forms in (taps[f"band{lvl}"],
-                      cb.band_level_forms_taps(h, w, name)):
-            assert set(forms) == set(dense[f"band{lvl}"])
-            for key, want in dense[f"band{lvl}"].items():
-                assert forms[key].dtype == want.dtype
-                np.testing.assert_array_equal(forms[key], want)
-    assert f"band{len(lvls)}" not in taps
+        want = cb.band_level_forms_taps(*tp.level_inputs()[lvl], name)
+        assert set(consts[f"band{lvl}"]) == set(want)
+        for key, arr in want.items():
+            np.testing.assert_array_equal(consts[f"band{lvl}"][key].numpy(),
+                                          arr)
+    assert f"band{len(lvls)}" not in consts
 
 
 @pytest.mark.parametrize("hw,name", TAP_GEOMETRIES[:2])
 def test_device_constants_hold_no_dense_operator_of_a_banded_level(hw, name):
-    """On a card a banded level's dense operators are None, the rest as
-    ``constants()``; off the card the plane step's constants are those of
-    ``constants()`` (the plain twins read the dense operators)."""
+    """On a card a banded level's dense operators are None, the rest as off
+    the card; off the card every dense operator is built (the plain twins
+    read them), and both hold the same band forms and notch operators."""
     tp = _plan_of(hw, name)
     n, lvls = tp.n_levels, tp.banded_levels()
-    dense, card = tp.constants(), tp.constants(device="cuda")
-    assert lvls and set(card) == set(dense)
+    host = tf._build_constants(tp, torch.device("cpu"))
+    # a card's constants, built here: every ladder width is under the notch
+    # gate, so nothing of them is built on the card
+    card = tf._build_constants(tp, torch.device("cuda"))
+    assert lvls and set(card) == set(host)
     for lvl in range(n):
         for key, idx in (("an_y", lvl), ("an_x_lo", lvl),
                          ("syn_y", n - 1 - lvl), ("syn_x_lo", n - 1 - lvl)):
             if lvl in lvls:
                 assert card[key][idx] is None
+                assert host[key][idx] is not None
             else:
-                np.testing.assert_array_equal(card[key][idx], dense[key][idx])
-    for a, b in zip(card["notch_cat"], dense["notch_cat"]):
+                np.testing.assert_array_equal(card[key][idx], host[key][idx])
+    for a, b in zip(card["notch_cat"], host["notch_cat"]):
         np.testing.assert_array_equal(a, b)
-    want = tf.constants_from_numpy(dense, "cpu")
+    for lvl in lvls:
+        for key, arr in host[f"band{lvl}"].items():
+            np.testing.assert_array_equal(card[f"band{lvl}"][key], arr)
     got = tf.device_constants(tp, "cpu")
-    assert set(got) == set(want)
-    for key, val in want.items():
+    assert set(got) == set(host)
+    for key, val in host.items():
         pairs = (zip(val.values(), got[key].values()) if isinstance(val, dict)
                  else zip(val, got[key]))
         for a, b in pairs:
-            assert torch.equal(a, b)
-    with pytest.raises(ValueError, match="plane step"):
-        tp.constants(dense_only=True, device="cpu")
+            assert torch.equal(torch.from_numpy(a), b)
 
 
 def _ladder_widths():
@@ -314,8 +333,7 @@ def test_destripe_batch_same_output_with_device_constants(dual):
                            dtype=torch.float32)
     dark = torch.full((640, 720), 3.0)
     outs = []
-    for consts in (tf.constants_from_numpy(tp.constants(), "cpu"),
-                   tf.device_constants(tp, "cpu"), None):
+    for consts in (tf.device_constants(tp, "cpu"), None):
         if dual:
             outs.append(tdb.dual_band_destripe_batch(
                 tp, x, 100.0, consts=consts, flat=flat, dark=dark))
@@ -385,35 +403,29 @@ LOWRANK_CFG = (dict(CELLS, sigma=8.0), dict(NO_CELLS, sigma=16.0))
 def test_constants_hold_the_factors_where_routed(hw, levels):
     """The plane step's constants give a routed level its factors in place
     of the dense bank in ``notch_cat`` and count the routed levels in
-    ``plan.notch_lowrank_levels``; the row-sharded route's constants
-    (``dense_only``) keep the dense bank everywhere."""
+    ``plan.notch_lowrank_levels``; the row-sharded route's dense set keeps
+    the dense bank everywhere."""
     from aind_smartspim_destripe_torch.runtime import tracing
 
     cfgs = LOWRANK_CFG if levels else (CELLS, NO_CELLS)
     tp = tf.build_plan(*hw, *(tf.FilterConfig(**c) for c in cfgs))
     before = tracing.counters().get("plan.notch_lowrank_levels", 0)
-    consts = tp.constants()
+    consts = tf.device_constants(tp, "cpu")
     assert (tracing.counters()["plan.notch_lowrank_levels"] - before
             == levels == sum(tp.notch_lowrank()))
     routed = tp.notch_lowrank()
-    moved = tf.constants_from_numpy(consts, "cpu")
     for i, ((_, w), sigmas) in enumerate(zip(tp.ladder, tp.notch_sigmas())):
         entry = consts["notch_cat"][i]
         if not routed[i]:
-            assert entry.shape == (w, 2 * w)
-            assert moved["notch_cat"][i].shape == (w, 2 * w)
+            assert tuple(entry.shape) == (w, 2 * w)
             continue
         assert isinstance(entry, tn.NotchFactors)
         p, ds, ranks = tn.notch_factors(w, sigmas)
         assert entry.ranks == ranks == tuple(tn.notch_rank(w, s)
                                              for s in sigmas)
-        np.testing.assert_array_equal(entry.p, p)
-        np.testing.assert_array_equal(entry.ds, ds)
-        got = moved["notch_cat"][i]
-        assert isinstance(got, tn.NotchFactors) and got.ranks == ranks
-        assert torch.equal(got.p, torch.from_numpy(p))
-        assert torch.equal(got.ds, torch.from_numpy(ds))
-    dense = tp.constants(dense_only=True)
+        assert torch.equal(entry.p, torch.from_numpy(p))
+        assert torch.equal(entry.ds, torch.from_numpy(ds))
+    dense = th_._dense_operators(tp)
     assert all(isinstance(c, np.ndarray) for c in dense["notch_cat"])
 
 

@@ -117,7 +117,7 @@ def test_plan_spans_once_per_cache_miss(recorder):
     tracing.enable()
     plan = _plan()
     assert _plan() is plan
-    consts = tf.constants_from_numpy(plan.constants(), CPU)
+    consts = tf.device_constants(plan, CPU)
     tf.destripe_batch(plan, torch.ones((1, H, W)), consts=consts)
     spans = tracing.collect()
     names = [s[NAME] for s in spans]
