@@ -8,7 +8,8 @@
 //   destripe_notch        <- aind_smartspim_destripe_tpu/ops/pallas_notch.py:notch_delta
 //   destripe_notch_select <- aind_smartspim_destripe_tpu/ops/pallas_notch.py:notch_select_chunked
 // and adds destripe_notch_project / destripe_notch_synth, the notch tail at
-// its exact rank (below).
+// its exact rank, and destripe_notch_fft, the notch tail by chirp-z
+// transforms (below).
 //
 // notch_delta computes, per plane b with threshold t = thr[b]:
 //   stripes   = sqrt(ch * ch) > t           (the rounded sqrt-of-square)
@@ -45,7 +46,8 @@
 // store (K = r); each is bound by its operations, and each output is
 // summed by one thread in k order, one fmaf per term from 0. The host
 // takes this route where 2 r <= w / 2 (the fused plane's levels: 2 r / w
-// 0.12-0.18), and notch_delta elsewhere (the tile's: 1.11-1.33).
+// 0.12-0.18); at the tile's (1.11-1.12), destripe_notch_fft where the
+// width passes its crossover against notch_delta, notch_delta below it.
 //
 // The masked median and the notch tails take an output batch n_out that is
 // a multiple of the band's batch n_in: output plane b reads band plane
@@ -715,6 +717,303 @@ __global__ void __launch_bounds__(gemm_f32::Tile<kNotchRows, 128>::kThreads,
       MaskedStore{xb, stripe_cut(thr[b])});
 }
 
+// The chirp-z notch tail (notch_delta_fft; no TPU kernel: the JAX package
+// runs every level's notch dense). The notch minus the identity only moves
+// the frequencies k <= K whose packed gains are not 1.0, so the delta is
+// irfft((g - 1) . rfft(inpainted)) over those, which equals inpainted @ op
+// - ch wherever ch is not a stripe (the identity notch_project uses). A
+// DFT of length n is a circular convolution with the chirp w_j = exp(-i pi
+// j^2 / n) (Bluestein): the analysis Z_k = w_k sum_j (z_j w_j) conj(w_{k-j})
+// for k = -K..K, the synthesis y_j = conj(w_j) sum_k (E_k conj(w_k))
+// w_{j-k}, each run as power-of-two FFTs of M >= n + 2K points with the
+// chirp filter's transform (ops/fft_notch.py notch_chirp builds the tables
+// in float64: chirp, the two filters' FFTs over M, the twiddles, each
+// configuration's packed gains minus 1 over 2n). Two real rows ride in one
+// complex sequence z = x1 + i x2 (single band: rows 2p and 2p + 1 of a
+// plane, an odd last row paired with zeros; dual: the two outputs of one
+// band row, so the band is read once for both), split after the analysis
+// as 2 X1 = Z_k + conj(Z_-k), 2i X2 = Z_k - conj(Z_-k), each spectrum
+// scaled by its own output's gains and recombined for one synthesis. So a
+// pair takes four FFTs of M points: O(M log M) work in place of the dense
+// tail's 2 n^2 a row (at the tile's level 0, n = 1002 and M = 2048: ~9x
+// fewer operations).
+//
+// A block of M / 8 threads runs one pair. Each thread holds kP = 8 complex
+// values in registers, those of indices t + q M / 8: the Stockham FFT's
+// first pass (radix 8) reads them and its last pass (radix 8) writes them,
+// so the four FFTs, the pointwise products between them, the load of the
+// band and the store of the delta all stay in the same registers; the
+// passes between exchange through M complex values of shared memory
+// (padded one slot in 8, which spreads a pass's strided stores over the
+// banks), the middle passes of radix 8, then one of radix 4 or 2. The
+// inverse FFTs are forward ones between conjugations, folded into the
+// products around them. Only the split of the spectra exchanges once more
+// (each k needs -k). The mask and the inpainting are applied as the band
+// is loaded, the stripes kept as bits until the masked store. Bound by the
+// butterflies' FP32 operations and the exchanges' shared-memory traffic;
+// each band row is read from device memory once and each output row
+// written once. In practice it is bound by latency: a thread holds 128
+// registers (its 8 values, a pass's twiddles, the DFT's temporaries), so
+// an SM runs two blocks of M = 2048; fewer registers spilled and ran
+// slower. On an H100, 4 values a thread (more exchanges, more warps) ran
+// level 0 of the tile 1.7x slower, and 16 (fewer exchanges, fewer warps)
+// no faster over levels 0-2. A pass loads the twiddles of the powers of
+// two and forms the others as products, which held fewer registers and
+// ran ~9% faster than loading all seven. Every value of a pair is
+// computed in one fixed order, whatever the batch: a plane's rows come out
+// the same at any B.
+namespace fftz {
+
+// Complex values a thread holds: the radix of the first and last passes.
+constexpr int kP = 8;
+
+__device__ __forceinline__ float2 add(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 sub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 mul(float2 a, float2 b) {
+  return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
+}
+__device__ __forceinline__ float2 cconj(float2 a) {
+  return make_float2(a.x, -a.y);
+}
+// a * (-i)
+__device__ __forceinline__ float2 mul_mi(float2 a) {
+  return make_float2(a.y, -a.x);
+}
+
+__device__ __forceinline__ void dft2(float2& a0, float2& a1) {
+  const float2 t = a0;
+  a0 = add(t, a1);
+  a1 = sub(t, a1);
+}
+
+__device__ __forceinline__ void dft4(float2& a0, float2& a1, float2& a2,
+                                     float2& a3) {
+  const float2 s0 = add(a0, a2), d0 = sub(a0, a2);
+  const float2 s1 = add(a1, a3), d1 = mul_mi(sub(a1, a3));
+  a0 = add(s0, s1);
+  a2 = sub(s0, s1);
+  a1 = add(d0, d1);
+  a3 = sub(d0, d1);
+}
+
+__device__ __forceinline__ void dft8(float2& a0, float2& a1, float2& a2,
+                                     float2& a3, float2& a4, float2& a5,
+                                     float2& a6, float2& a7) {
+  constexpr float kR = 0.70710678118654752440f;  // 1 / sqrt(2)
+  dft4(a0, a2, a4, a6);
+  dft4(a1, a3, a5, a7);
+  // the odd half times exp(-2 pi i k / 8), k = 0..3
+  a3 = make_float2((a3.x + a3.y) * kR, (a3.y - a3.x) * kR);
+  a5 = mul_mi(a5);
+  a7 = make_float2((a7.y - a7.x) * kR, -(a7.x + a7.y) * kR);
+  // output k is E_k + O_k, output k + 4 is E_k - O_k (E_k in a_2k, O_k in
+  // a_2k+1)
+  const float2 y0 = add(a0, a1), y4 = sub(a0, a1);
+  const float2 y1 = add(a2, a3), y5 = sub(a2, a3);
+  const float2 y2 = add(a4, a5), y6 = sub(a4, a5);
+  const float2 y3 = add(a6, a7), y7 = sub(a6, a7);
+  a0 = y0; a1 = y1; a2 = y2; a3 = y3;
+  a4 = y4; a5 = y5; a6 = y6; a7 = y7;
+}
+
+__device__ __forceinline__ int pad(int i) { return i + (i >> 3); }
+
+// One Stockham pass of radix R over M points at input stride NS (the
+// product of the radices before it): the thread's B = kP / R butterflies
+// jb = t + c M / kP take v[c + B r], r < R (indices jb + r M / R), times the
+// twiddles exp(-2 pi i (jb mod NS) r / (NS R)), through a DFT of R points.
+template <int M, int R, int NS>
+__device__ __forceinline__ void twiddle_dft(float2 (&v)[kP],
+                                            const float2* __restrict__ tw,
+                                            int t) {
+  constexpr int T = M / kP, B = kP / R;
+#pragma unroll
+  for (int c = 0; c < B; ++c) {
+    if constexpr (NS > 1) {
+      // the twiddles of the powers of two from the table, the others as
+      // products of two (w_r = w_hi w_lo, lo the lowest set bit of r)
+      const int k = (t + c * T) & (NS - 1);
+      float2 wr[R];
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        const int lo = r & -r;
+        wr[r] = lo == r ? __ldg(tw + k * r * (M / (NS * R)))
+                        : mul(wr[r - lo], wr[lo]);
+        v[c + B * r] = mul(v[c + B * r], wr[r]);
+      }
+    }
+    if constexpr (R == 8) {
+      dft8(v[c], v[c + B], v[c + 2 * B], v[c + 3 * B], v[c + 4 * B],
+           v[c + 5 * B], v[c + 6 * B], v[c + 7 * B]);
+    } else if constexpr (R == 4) {
+      dft4(v[c], v[c + B], v[c + 2 * B], v[c + 3 * B]);
+    } else {
+      dft2(v[c], v[c + B]);
+    }
+  }
+}
+
+// The exchange after a pass: output r of butterfly jb goes to index
+// (jb / NS) NS R + jb mod NS + r NS; then each thread reads back the
+// indices t + q M / kP for the next pass. The leading barrier keeps the
+// stores behind every read of the previous exchange. (Two buffers in
+// turn, with one barrier an exchange, measured no faster.)
+template <int M, int R, int NS>
+__device__ __forceinline__ void exchange(float2 (&v)[kP], float2* s,
+                                         int t) {
+  constexpr int T = M / kP, B = kP / R;
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < B; ++c) {
+    const int jb = t + c * T;
+    const int base = (jb / NS) * NS * R + (jb & (NS - 1));
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[pad(base + r * NS)] = v[c + B * r];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kP; ++q) v[q] = s[pad(t + q * T)];
+}
+
+// The forward FFT of M points from the pass at input stride NS on: radix
+// kP first and last, kP between while kP^2 or more points remain, then
+// the rest. In and out, v[q] holds index t + q M / kP (natural order).
+template <int M, int NS = 1>
+__device__ __forceinline__ void fft(float2 (&v)[kP], float2* s,
+                                    const float2* __restrict__ tw, int t) {
+  constexpr int REST = M / NS;
+  if constexpr (REST == kP) {
+    twiddle_dft<M, kP, NS>(v, tw, t);
+  } else {
+    constexpr int R = NS == 1 || REST >= kP * kP ? kP : REST / kP;
+    twiddle_dft<M, R, NS>(v, tw, t);
+    exchange<M, R, NS>(v, s, t);
+    fft<M, NS * R>(v, s, tw, t);
+  }
+}
+
+}  // namespace fftz
+
+// out[b] = stripes ? 0 : the chirp-z notch delta of where(stripes, med, x)
+// for the output rows of one pair (blockIdx.x) of planes blockIdx.y: k_out
+// 1, rows 2p and 2p + 1 of plane b (the second only below h); k_out 2, row
+// p of band plane b for outputs b and b + n_in. chirp (w), filt (2, M),
+// tw (M) complex; gains (2, K + 1) complex: (a - 1, b - 1) / 2n of each
+// configuration.
+template <int M>
+__global__ void __launch_bounds__(M / fftz::kP, 4096 / M)
+    notch_fft_kernel(const float* __restrict__ x,
+                     const float* __restrict__ med,
+                     const float* __restrict__ thr,
+                     const int* __restrict__ sel,
+                     const float2* __restrict__ chirp,
+                     const float2* __restrict__ filt,
+                     const float2* __restrict__ tw,
+                     const float2* __restrict__ gains,
+                     float* __restrict__ out, int n_in, int h, int w,
+                     int k_out, int K) {
+  using namespace fftz;
+  constexpr int T = M / kP;
+  __shared__ float2 s[M + M / 8];
+  const int t = threadIdx.x;
+  int b1, r1, b2, r2;
+  if (k_out == 1) {
+    b1 = b2 = blockIdx.y;
+    r1 = 2 * blockIdx.x;
+    r2 = r1 + 1;
+  } else {
+    b1 = blockIdx.y;
+    b2 = b1 + n_in;
+    r1 = r2 = blockIdx.x;
+  }
+  const bool two = r2 < h;
+  const float* x1 = x + ((size_t)(b1 % n_in) * h + r1) * w;
+  const float* x2 = x + ((size_t)(b2 % n_in) * h + (two ? r2 : r1)) * w;
+  const float cut1 = stripe_cut(thr[b1]);
+  const float cut2 = two ? stripe_cut(thr[b2]) : INFINITY;
+  const float m1 = med[(size_t)b1 * h + r1];
+  const float m2 = two ? med[(size_t)b2 * h + r2] : 0.0f;
+
+  // load, mask, inpaint, times the chirp; zero past the row
+  float2 v[kP];
+  unsigned int stripes = 0u;
+#pragma unroll
+  for (int q = 0; q < kP; ++q) {
+    const int j = t + q * T;
+    v[q] = make_float2(0.0f, 0.0f);
+    if (j < w) {
+      const float a = __ldg(x1 + j);
+      const float c = two ? __ldg(x2 + j) : 0.0f;
+      const bool s1 = __fmul_rn(a, a) > cut1, s2 = __fmul_rn(c, c) > cut2;
+      stripes |= (s1 ? 1u : 0u) << q | (s2 ? 1u : 0u) << (q + 8);
+      v[q] = mul(make_float2(s1 ? m1 : a, s2 ? m2 : c), __ldg(chirp + j));
+    }
+  }
+  // analysis: conj(FFT(conj(FFT(v) H_an))) is the convolution
+  fft<M>(v, s, tw, t);
+#pragma unroll
+  for (int q = 0; q < kP; ++q) {
+    v[q] = cconj(mul(v[q], __ldg(filt + t + q * T)));
+  }
+  fft<M>(v, s, tw, t);
+  // Z_k = conj(v) w_|k| at k = -K..K (index k mod M); split, gains, E_k
+  // conj(w_|k|) for the synthesis, zero elsewhere
+  const float2* g1 = gains + (size_t)sel[b1] * (K + 1);
+  const float2* g2 = gains + (size_t)sel[two ? b2 : b1] * (K + 1);
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kP; ++q) {
+    const int i = t + q * T;
+    const bool kept = i <= K || i >= M - K;
+    const int ka = i <= K ? i : M - i;
+    if (kept) {
+      v[q] = mul(cconj(v[q]), __ldg(chirp + ka));
+      s[pad(i)] = v[q];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kP; ++q) {
+    const int i = t + q * T;
+    const bool kept = i <= K || i >= M - K;
+    const int ka = i <= K ? i : M - i;
+    if (kept) {
+      const float2 zm = cconj(s[pad((M - i) & (M - 1))]);
+      const float2 sum = add(v[q], zm), dif = sub(v[q], zm);
+      const float2 ga = __ldg(g1 + ka), gb = __ldg(g2 + ka);
+      const float2 e = make_float2(fmaf(ga.x, sum.x, gb.y * dif.x),
+                                   fmaf(ga.y, sum.y, gb.x * dif.y));
+      v[q] = mul(e, cconj(__ldg(chirp + ka)));
+    } else {
+      v[q] = make_float2(0.0f, 0.0f);
+    }
+  }
+  // synthesis: conj(FFT(conj(FFT(v) H_syn))) is the convolution
+  fft<M>(v, s, tw, t);
+#pragma unroll
+  for (int q = 0; q < kP; ++q) {
+    v[q] = cconj(mul(v[q], __ldg(filt + M + t + q * T)));
+  }
+  fft<M>(v, s, tw, t);
+  // the convolution is conj(v), so y_j = conj(w_j) conj(v_j) = conj(w_j
+  // v_j): row 1 its real part, row 2 its imaginary part; 0 at stripes
+  float* o1 = out + ((size_t)b1 * h + r1) * w;
+  float* o2 = out + ((size_t)b2 * h + r2) * w;
+#pragma unroll
+  for (int q = 0; q < kP; ++q) {
+    const int j = t + q * T;
+    if (j < w) {
+      const float2 y = mul(__ldg(chirp + j), v[q]);
+      o1[j] = (stripes >> q) & 1u ? 0.0f : y.x;
+      if (two) o2[j] = (stripes >> (q + 8)) & 1u ? 0.0f : -y.y;
+    }
+  }
+}
+
 // out[b, r, c] = sum_k x[b, r, k] * op[k, sel[b]*w + c]; op is (w, 2w)
 // row-major. gemm_f32.cuh's 128 x 128 tile (K = w runs long on the route,
 // where the larger tile wins), V floats per load along the rows of x and
@@ -931,6 +1230,47 @@ int destripe_notch_select(const float* x, const int* sel, const float* op,
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (n_in, h, w) f32, med (n_out, h) f32, thr (n_out,) f32, sel (n_out,)
+// int32 in {0, 1}, the chirp-z tables of ops/fft_notch.py notch_chirp
+// (chirp (w, 2), filters (2, m, 2), twiddle (m, 2), gains (2, k + 1, 2)
+// f32) -> out (n_out, h, w) f32; n_out = n_in (pairs of rows of a plane)
+// or 2 n_in (the two outputs of a band row); m in 256..4096 a power of two,
+// 2k < w, w + 2k <= m; n_out (n_in for 2 n_in) at most 65535.
+int destripe_notch_fft(const float* x, const float* med, const float* thr,
+                       const int* sel, const float* chirp,
+                       const float* filters, const float* twiddle,
+                       const float* gains, float* out, int n_out, int n_in,
+                       int h, int w, int m, int k, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_in < 1 || h < 1 || w < 1 || k < 0 || 2 * k >= w || w + 2 * k > m ||
+      (n_out != n_in && n_out != 2 * n_in)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int k_out = n_out / n_in;
+  const dim3 grid(k_out == 1 ? (h + 1) / 2 : h, n_in);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const float2* c2 = reinterpret_cast<const float2*>(chirp);
+  const float2* f2 = reinterpret_cast<const float2*>(filters);
+  const float2* t2 = reinterpret_cast<const float2*>(twiddle);
+  const float2* g2 = reinterpret_cast<const float2*>(gains);
+#define DESTRIPE_NOTCH_FFT(M)                                              \
+  case M:                                                                  \
+    notch_fft_kernel<M><<<grid, M / fftz::kP, 0, s>>>(                    \
+        x, med, thr, sel, c2, f2, t2, g2, out, n_in, h, w, k_out, k);      \
+    break;
+  switch (m) {
+    DESTRIPE_NOTCH_FFT(256)
+    DESTRIPE_NOTCH_FFT(512)
+    DESTRIPE_NOTCH_FFT(1024)
+    DESTRIPE_NOTCH_FFT(2048)
+    DESTRIPE_NOTCH_FFT(4096)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef DESTRIPE_NOTCH_FFT
   return static_cast<int>(cudaGetLastError());
 }
 

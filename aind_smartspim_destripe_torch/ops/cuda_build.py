@@ -3,7 +3,8 @@ Build, load and launch the port's CUDA kernels.
 
 The CUDA sources in ``csrc/`` of this package (``band.cu``: K1-K4,
 ``hist.cu``: the Otsu histogram and tail, ``notch.cu``: row medians (masked and
-plain), the notch tail and the per-plane notch product, ``blend.cu``: the
+plain), the notch tails (dense, exact-rank and chirp-z) and the per-plane
+notch product, ``blend.cu``: the
 dual-band blend, ``dense.cu``: the dense levels' fixed-order products;
 ``notch.cu`` and ``dense.cu`` share the GEMM tile of ``gemm_f32.cuh``,
 ``band.cu`` and ``blend.cu`` the uint16 epilogues of ``epilogue.cuh``) are
@@ -89,6 +90,8 @@ _SIGNATURES = {
     "destripe_notch_project": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
     "destripe_notch_synth": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p],
+    "destripe_notch_fft": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
     "destripe_blend": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],

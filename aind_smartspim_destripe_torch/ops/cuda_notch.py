@@ -20,6 +20,9 @@ launches in ``<wrapper>.launches``.
 - :func:`notch_delta_lowrank`: the same delta from the notch's exact-rank
   factors (``fft_notch.notch_factors``): a projection onto the frequencies
   whose gain is not 1.0, then their synthesis;
+- :func:`notch_delta_fft`: the same delta by chirp-z transforms
+  (``fft_notch.notch_chirp``): the spectrum at the frequencies whose gain
+  is not 1.0, scaled by the gains minus 1 and synthesised back;
 - :func:`notch_select`: the product ``x[b] @ op[sel[b]]`` alone, for the
   row-sharded route, with the operator bank of
   :func:`stacked_notch_operators`.
@@ -37,6 +40,7 @@ import functools
 import numpy as np
 import torch
 
+from . import fft_notch
 from .cuda_build import check, launch, on_cuda
 from .cuda_dense import _GRID_MAX, copy_width
 
@@ -48,6 +52,7 @@ __all__ = [
     "row_median_masked",
     "notch_delta",
     "notch_delta_lowrank",
+    "notch_delta_fft",
     "notch_select",
     "stacked_notch_operators",
     "plan_notch_select",
@@ -57,6 +62,7 @@ __all__ = [
     "row_median_masked_plain",
     "notch_delta_plain",
     "notch_delta_lowrank_plain",
+    "notch_delta_fft_plain",
     "notch_select_plain",
     "KERNELS",
 ]
@@ -407,6 +413,118 @@ def plan_notch_lowrank(n_out: int, h: int, w: int, rp: int, x_ptr: int = 0,
             copy_width(ds_ptr, 1, (w, rp * w)))
 
 
+def _fft_pairs(x, k_out):
+    """The (n_out, h, w) rows as the pairs the chirp-z kernel puts in one
+    complex sequence: ``(first, second)``, each (P, h', w). k_out 1: rows
+    2p and 2p + 1 of each plane (an odd last row paired with zeros); k_out
+    2: the two outputs of each band row."""
+    if k_out == 2:
+        return x.chunk(2)
+    if x.shape[1] % 2:
+        x = torch.cat([x, x.new_zeros(x.shape[:1] + (1,) + x.shape[2:])], 1)
+    return x[:, 0::2], x[:, 1::2]
+
+
+def _complex(t):
+    """A (..., 2) float tensor of (re, im) pairs as complex128."""
+    t = t.double()
+    return torch.complex(t[..., 0], t[..., 1])
+
+
+def notch_delta_fft_plain(ch, thr, sel, rec):
+    """Plain twin of :func:`notch_delta_fft`, on any device: the kernel's
+    chirp-z arithmetic on the same pairs of rows, in float64 from the
+    float32 tables of ``rec`` (:class:`.fft_notch.NotchChirp`), with
+    ``torch.fft`` for the M-point FFTs."""
+    B, h, w = ch.shape
+    n_out = _n_out(ch, thr)
+    k_out = n_out // B
+    if k_out not in (1, 2):
+        raise ValueError(f"{k_out} outputs per band plane: the chirp-z tail "
+                         f"takes 1 or 2")
+    c = _tiled(ch, n_out)
+    stripes = torch.sqrt(c * c) > thr[:, None, None]
+    inp = torch.where(stripes, row_median(torch.where(stripes, 0.0, c)), c)
+    chirp, filt = _complex(rec.chirp), _complex(rec.filters)
+    gains = rec.gains.double()[sel.long()][:, None]  # (n_out, 1, K + 1, 2)
+    gains = gains.expand(n_out, h, *gains.shape[2:])
+    m, k = filt.shape[-1], rec.k
+    x1, x2 = _fft_pairs(inp.double(), k_out)
+    g1, g2 = _fft_pairs(gains, k_out)
+    z = torch.complex(x1, x2) * chirp
+    conv = torch.fft.ifft(torch.fft.fft(z, n=m) * filt[0], norm="forward")
+    ks = torch.arange(-k, k + 1, device=ch.device)
+    ka = ks.abs()
+    zk = conv[..., ks % m] * chirp[ka]
+    zm = zk.flip(-1).conj()  # conj(Z_-k)
+    sm, df = zk + zm, zk - zm
+    ga, gb = g1[..., ka, :], g2[..., ka, :]
+    e = torch.complex(ga[..., 0] * sm.real + gb[..., 1] * df.real,
+                      ga[..., 1] * sm.imag + gb[..., 0] * df.imag)
+    b = z.new_zeros(z.shape[:-1] + (m,))
+    b[..., ks % m] = e * chirp[ka].conj()
+    conv = torch.fft.ifft(torch.fft.fft(b) * filt[1], norm="forward")
+    y = chirp.conj() * conv[..., :w]
+    if k_out == 2:
+        out = torch.cat([y.real, y.imag])
+    else:
+        out = torch.stack([y.real, y.imag], 2).flatten(1, 2)[:, :h]
+    return torch.where(stripes, 0.0, out.to(ch.dtype))
+
+
+def notch_delta_fft(
+    ch: torch.Tensor,  # (B, h, w) float32 horizontal-detail band
+    thr: torch.Tensor,  # (kB,) float32 per-output-plane stripe threshold
+    sel: torch.Tensor,  # (kB,) int32: 0 = cells gains, 1 = no-cells
+    rec,  # the level's fft_notch.NotchChirp, its tables on ch's device
+) -> torch.Tensor:
+    """The notch tail of :func:`notch_delta`, (kB, h, w) float32, k 1 or
+    2, by chirp-z transforms (:func:`.fft_notch.notch_chirp`): with ``c =
+    ch[b mod B]``, ``stripes`` and the row median ``med`` as there and
+    ``g`` the packed gains of configuration ``sel[b]``, ``where(stripes,
+    0, irfft((g - 1) . rfft(where(stripes, med, c))))``, the spectrum
+    taken at the frequencies ``0..rec.k`` alone (the gain is 1.0 past
+    them). That is ``inpainted @ (op - I)``, which equals ``inpainted @ op
+    - c`` wherever ``c`` is not a stripe, with no cancellation of the two.
+
+    On the card this is two launches: :func:`row_median_masked`, then one
+    block per pair of output rows (rows 2p and 2p + 1 of a plane; the two
+    outputs of a band row for k = 2) through four FFTs of ``M`` points
+    in shared memory and registers (``csrc/notch.cu`` notch_fft_kernel),
+    the mask and inpainting applied as the band is loaded. A pair is
+    computed in one fixed order, so a plane's output is the same at any
+    batch size."""
+    if not on_cuda(ch):
+        return notch_delta_fft_plain(ch, thr, sel, rec)
+
+    B, h, w = ch.shape
+    n_out = _n_out(ch, thr)
+    dev = ch.device
+    m = rec.twiddle.shape[0]
+    check("ch", ch, (torch.float32,), dev)
+    check("thr", thr, (torch.float32,), dev, (n_out,))
+    check("sel", sel, (torch.int32,), dev, (n_out,))
+    check("chirp", rec.chirp, (torch.float32,), dev, (w, 2))
+    check("filters", rec.filters, (torch.float32,), dev, (2, m, 2))
+    check("twiddle", rec.twiddle, (torch.float32,), dev, (m, 2))
+    check("gains", rec.gains, (torch.float32,), dev, (2, rec.k + 1, 2))
+    if n_out not in (B, 2 * B) or B > _GRID_MAX:
+        raise ValueError(f"{n_out} outputs of {B} band planes: the chirp-z "
+                         f"tail takes 1 or 2 per plane, at most {_GRID_MAX} "
+                         f"planes")
+    if m not in fft_notch.CHIRP_M or 2 * rec.k >= w or w + 2 * rec.k > m:
+        raise ValueError(f"tables of {m} points and frequencies 0..{rec.k} "
+                         f"do not fit width {w}")
+    med = row_median_masked(ch, thr)
+    out = torch.empty((n_out, h, w), dtype=torch.float32, device=dev)
+    launch("destripe_notch_fft", dev, ch.data_ptr(), med.data_ptr(),
+           thr.data_ptr(), sel.data_ptr(), rec.chirp.data_ptr(),
+           rec.filters.data_ptr(), rec.twiddle.data_ptr(),
+           rec.gains.data_ptr(), out.data_ptr(), n_out, B, h, w, m, rec.k)
+    notch_delta_fft.launches += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The per-plane notch product of the row-sharded route
 # ---------------------------------------------------------------------------
@@ -474,7 +592,7 @@ def notch_select(
 
 
 KERNELS = (row_median_masked, row_median_batch, notch_delta,
-           notch_delta_lowrank, notch_select)
+           notch_delta_lowrank, notch_delta_fft, notch_select)
 for _k in KERNELS:
     _k.launches = 0
 row_median_batch.copies = 0

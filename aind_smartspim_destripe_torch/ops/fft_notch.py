@@ -18,9 +18,18 @@ positions whose float64 gain is not 1.0 (:func:`notch_rank`; the gain is
 1.0 past ~8.6 sigma): :func:`notch_factors` gives it as the product of the
 packed analysis rows of those positions and their synthesis rows scaled by
 ``g - 1`` (:class:`NotchFactors`). Where ``r`` is small against the width
-(:func:`lowrank_pays`), the plane step applies the notch as those two
+(:func:`notch_route`), the plane step applies the notch as those two
 products instead of the (w, w) one: the same map, with the terms whose
 gain is exactly 1.0 left out.
+
+Only the packed positions below ``r`` move a row, so only the frequencies
+``k <= K = r // 2`` are needed. Where the rank is too large for the
+factors to pay, the plane step computes those frequencies and synthesises
+them back by chirp-z (Bluestein) transforms: each DFT of length n becomes
+a circular convolution with a chirp, run as power-of-two FFTs of M >= n +
+2K points, O(M log M) work a row in place of the (n, n) product.
+:func:`notch_chirp` builds the tables it reads (:class:`NotchChirp`), and
+:func:`notch_route` picks a level's route from its width and ranks.
 """
 
 from __future__ import annotations
@@ -35,7 +44,8 @@ from .wavelets import f32_matmul
 
 __all__ = ["notch", "gaussian_filter", "packed_notch_matrix", "notch_cat",
            "NOTCH_HOST_MAX_W", "apply_notch", "apply_notch_fft", "notch_rank",
-           "lowrank_pays", "NotchFactors", "notch_factors"]
+           "notch_route", "chirp_size", "NotchFactors", "notch_factors",
+           "NotchChirp", "notch_chirp"]
 
 # Widths up to which notch_cat builds on the host (numpy's FFT of the
 # identity, once per configuration: a fraction of a second at 2000 columns,
@@ -159,15 +169,45 @@ def notch_rank(n: int, sigma: float) -> int:
     return int(np.count_nonzero(notch(n, float(sigma)) != 1.0))
 
 
-def lowrank_pays(n: int, sigmas) -> bool:
-    """Does a level of width ``n`` with these notch sigmas apply its notch
-    as the factors (:func:`notch_factors`: two products, 4 h n r operations
-    a plane at rank r) rather than the (n, n) operators (2 h n^2)? Where
-    ``2 max(r) <= n / 2``: below both crossovers that
-    ``scripts/kernel_ab.py`` measures on an H100 (the two routes tie at
-    2 r / n = 1.11 on even widths; odd widths run the factors at ~0.64 of
-    the dense kernel's FLOP rate, so they tie near 0.64)."""
-    return 4 * max(notch_rank(n, s) for s in sigmas) <= n
+# The chirp-z route's bounds (csrc/notch.cu notch_fft_kernel): its FFT
+# lengths (one block of M / 8 threads a pair of rows, M complex values in
+# shared memory), and the least width at which it beats the dense tail.
+CHIRP_M = (256, 512, 1024, 2048, 4096)
+CHIRP_MIN_W = 192
+
+
+def chirp_size(n: int, sigmas):
+    """``(K, M)`` of the chirp-z notch at width ``n``: the highest frequency
+    whose gain minus 1 is not zero in any configuration (``max(r) // 2``),
+    and the least power of two ``M >= n + 2K`` (the linear convolutions
+    of the analysis, outputs ``-K..K``, and of the synthesis, inputs
+    ``-K..K``, must not wrap)."""
+    k = max(notch_rank(n, s) for s in sigmas) // 2
+    return k, 1 << (n + 2 * k - 1).bit_length()
+
+
+def notch_route(n: int, sigmas) -> str:
+    """How the plane step applies a level's notch, from its width ``n``
+    and the ranks of its sigmas (:func:`notch_rank`), on an H100:
+
+    - ``"lowrank"``, the factors (:func:`notch_factors`; 4 h n r operations
+      a plane at rank r), where ``2 max(r) <= n / 2``: below both
+      crossovers against the dense (n, n) product that
+      ``scripts/kernel_ab.py`` measures (the two tie at 2 r / n = 1.11 on
+      even widths; odd widths run the factors at ~0.64 of the dense
+      kernel's FLOP rate, so they tie near 0.64);
+    - ``"chirp"``, the chirp-z transforms (:func:`notch_chirp`), where
+      ``n >= CHIRP_MIN_W`` (the crossover against the dense kernel) and
+      the frequencies kept leave the Nyquist term out (``2K < n``) in an
+      FFT length of :data:`CHIRP_M`;
+    - ``"dense"``, the (n, n) operators, elsewhere."""
+    r = max(notch_rank(n, s) for s in sigmas)
+    if 4 * r <= n:
+        return "lowrank"
+    k, m = chirp_size(n, sigmas)
+    if n >= CHIRP_MIN_W and 2 * k < n and m in CHIRP_M:
+        return "chirp"
+    return "dense"
 
 
 class NotchFactors(NamedTuple):
@@ -214,3 +254,64 @@ def notch_factors(n: int, sigmas, dtype=np.float32) -> NotchFactors:
         g = notch(n, s)[:r]
         ds[c * rp:c * rp + r] = ((g - 1.0) * scale[:r])[:, None] * pt[:r]
     return NotchFactors(np.ascontiguousarray(pt.T, dtype=dtype), ds, ranks)
+
+
+class NotchChirp(NamedTuple):
+    """A level's notch as the tables of its chirp-z transforms
+    (:func:`notch_chirp`), the plane step's entry for the level in place of
+    the dense bank. Complex values are (re, im) pairs on the last axis."""
+    chirp: object  # (n, 2): w_j = exp(-i pi j^2 / n)
+    filters: object  # (2, M, 2): the analysis and synthesis filters' FFTs
+    twiddle: object  # (M, 2): exp(-2 pi i t / M)
+    gains: object  # (len(sigmas), K + 1, 2): (a_k - 1, b_k - 1) / (2 n)
+    k: int  # the highest frequency kept, a host int
+
+
+def notch_chirp(n: int, sigmas, dtype=np.float32) -> NotchChirp:
+    """The tables of the chirp-z notch tail at width ``n`` for the sigmas of
+    one level (``(K, M) = chirp_size(n, sigmas)``), built in float64 and
+    cast to ``dtype`` once. With ``w_j = exp(-i pi j^2 / n)`` (the angle
+    reduced exactly as the integer ``j^2 mod 2n``) and ``jk = (j^2 + k^2 -
+    (k - j)^2) / 2``, the DFT of a row z is ``Z_k = w_k sum_j (z_j w_j)
+    conj(w_{k-j})``, a circular convolution of M points for the outputs
+    ``k = -K..K``: ``filters[0]`` is the FFT of ``conj(w_m)`` at the lags
+    ``m = -(n - 1) - K..K`` (zero at the other residues of M), over M. The
+    synthesis ``y_j = sum_k E_k exp(2 pi i jk / n)``, ``k = -K..K``, is
+    ``conj(w_j) sum_k (E_k conj(w_k)) w_{j-k}``: ``filters[1]`` is the FFT of
+    ``w_m`` at ``m = -K..n - 1 + K``, over M. ``gains[c, k]`` are the
+    packed gains minus 1 of frequency k's real and imaginary parts (packed
+    positions ``2k - 1`` and ``2k``; the DC term's at position 0) of
+    configuration c, over 2n: the halves of splitting two rows' spectra
+    from one complex sequence, and irfft's 1/n. ``twiddle`` holds the M
+    roots of unity of the FFTs."""
+    sigmas = tuple(float(s) for s in sigmas)
+    k, m = chirp_size(n, sigmas)
+    if 2 * k >= n:
+        raise ValueError(f"the kept frequencies 0..{k} reach the Nyquist "
+                         f"term of width {n}")
+
+    def chirp(lags):
+        return np.exp(-1j * np.pi * (lags.astype(np.int64) ** 2 % (2 * n)) / n)
+
+    def filt(lags, values):
+        f = np.zeros(m, complex)
+        f[lags % m] = values
+        return np.fft.fft(f) / m
+
+    an = np.arange(-(n - 1) - k, k + 1)
+    syn = np.arange(-k, n + k)
+    filters = np.stack([filt(an, np.conj(chirp(an))), filt(syn, chirp(syn))])
+    gains = np.zeros((len(sigmas), k + 1, 2))
+    for c, s in enumerate(sigmas):
+        g = notch(n, s) - 1.0
+        gains[c, 0] = g[0]
+        gains[c, 1:, 0] = g[1:2 * k:2]
+        gains[c, 1:, 1] = g[2:2 * k + 1:2]
+    twiddle = np.exp(-2j * np.pi * np.arange(m) / m)
+
+    def pairs(z):
+        return np.ascontiguousarray(np.stack([z.real, z.imag], -1),
+                                    dtype=dtype)
+
+    return NotchChirp(pairs(chirp(np.arange(n))), pairs(filters),
+                      pairs(twiddle), (gains / (2 * n)).astype(dtype), k)

@@ -12,11 +12,13 @@ are built there. Planes run as a batch (B, H, W):
 
 - analysis keeps only the lowpass x half (only cA and cH are consumed);
 - each cH band goes through Otsu mask -> row-median inpaint -> notch of the
-  plane's configuration -> delta (:func:`.cuda_notch.notch_delta`, or
+  plane's configuration -> delta (:func:`.cuda_notch.notch_delta`;
   :func:`.cuda_notch.notch_delta_lowrank` at a level whose notch minus the
   identity has a small exact rank against its width, which holds
-  :class:`.fft_notch.NotchFactors` in place of the dense bank; its histogram
-  through :func:`.cuda_hist.histogram256_batch`);
+  :class:`.fft_notch.NotchFactors` in place of the dense bank;
+  :func:`.cuda_notch.notch_delta_fft` at a wide level whose rank is not
+  small, which holds :class:`.fft_notch.NotchChirp`, its chirp-z tables;
+  its histogram through :func:`.cuda_hist.histogram256_batch`);
 - synthesis propagates only the deltas, by perfect reconstruction, and
   adds them to ``log(1 + x)``, then ``exp(y) + 1``.
 
@@ -47,7 +49,7 @@ packed FFTPACK notch gains.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import Optional, Tuple
 
 import numpy as np
@@ -153,11 +155,12 @@ class DestripePlan:
             for (h, _) in self.ladder
         )
 
-    def notch_lowrank(self):
-        """Per-level booleans, coarsest first: does the plane step apply the
-        level's notch as its factors (:func:`fft_notch.lowrank_pays` of the
-        width and the sigmas) rather than the dense operators?"""
-        return tuple(fft_notch.lowrank_pays(w, sigmas) for (_, w), sigmas in
+    def notch_routes(self):
+        """Per-level routes of the plane step's notch, coarsest first:
+        ``"lowrank"`` (the factors), ``"chirp"`` (the chirp-z transforms)
+        or ``"dense"`` (the (w, w) operators), by
+        :func:`fft_notch.notch_route` of the width and the sigmas."""
+        return tuple(fft_notch.notch_route(w, sigmas) for (_, w), sigmas in
                      zip(self.ladder, self.notch_sigmas()))
 
     def level_inputs(self):
@@ -189,10 +192,12 @@ def device_constants(plan: DestripePlan, device) -> dict:
     A banded level's four dense operators are None on a card, never
     built: the band kernels read the band forms alone. Off the card they
     are built, since the plain twins of the band kernels read them. A
-    level's ``notch_cat`` is its :class:`fft_notch.NotchFactors`
-    (:func:`fft_notch.notch_factors`) where :meth:`DestripePlan.
-    notch_lowrank` routes it, counted in ``plan.notch_lowrank_levels``;
-    elsewhere the dense bank (:func:`fft_notch.notch_cat`: the cells and
+    level's ``notch_cat`` follows :meth:`DestripePlan.notch_routes`: its
+    :class:`fft_notch.NotchFactors` (:func:`fft_notch.notch_factors`) on
+    the ``"lowrank"`` route, counted in ``plan.notch_lowrank_levels``; its
+    :class:`fft_notch.NotchChirp` (:func:`fft_notch.notch_chirp`) on the
+    ``"chirp"`` route, counted in ``plan.notch_fft_levels``; elsewhere the
+    dense bank (:func:`fft_notch.notch_cat`: the cells and
     no-cells operators side by side, (w, 2w)), built on a card past
     :data:`fft_notch.NOTCH_HOST_MAX_W` columns. Counts the bytes put on a
     card in ``plan.device_bytes``."""
@@ -208,13 +213,15 @@ def _build_constants(plan: DestripePlan, device: torch.device) -> dict:
         skip = banded if device.type == "cuda" else ()
         out = _dwt_operators(plan, skip, skip)
         with span("plan.notch"):
-            lowrank = plan.notch_lowrank()
+            routes = plan.notch_routes()
+            build = {"lowrank": fft_notch.notch_factors,
+                     "chirp": fft_notch.notch_chirp,
+                     "dense": partial(fft_notch.notch_cat, device=device)}
             out["notch_cat"] = tuple(
-                fft_notch.notch_factors(w, sigmas) if routed
-                else fft_notch.notch_cat(w, sigmas, device)
-                for routed, (_, w), sigmas in zip(
-                    lowrank, plan.ladder, plan.notch_sigmas()))
-            add("plan.notch_lowrank_levels", sum(lowrank))
+                build[route](w, sigmas) for route, (_, w), sigmas in zip(
+                    routes, plan.ladder, plan.notch_sigmas()))
+            add("plan.notch_lowrank_levels", routes.count("lowrank"))
+            add("plan.notch_fft_levels", routes.count("chirp"))
             if any(isinstance(c, torch.Tensor) for c in out["notch_cat"]):
                 torch.cuda.synchronize(device)  # its time is set-up's
         with span("plan.band_forms"):
@@ -249,17 +256,21 @@ def _dwt_operators(plan: DestripePlan, no_y=(), no_x=()) -> dict:
     }
 
 
+_NOTCH_RECORDS = (fft_notch.NotchFactors, fft_notch.NotchChirp)
+
+
 def _upload(consts: dict, device: torch.device) -> dict:
     """Put :func:`_build_constants`' arrays on ``device`` as float32 (int32
     band starts) tensors; None stays None, tensors already there pass
-    through, and a level's :class:`.fft_notch.NotchFactors` keep their
-    ranks as host ints."""
+    through, and a level's notch record (:class:`.fft_notch.NotchFactors`,
+    :class:`.fft_notch.NotchChirp`) keeps its host ints."""
     with timed("plan.upload"):
         def put(a):
             if a is None:
                 return None
-            if isinstance(a, fft_notch.NotchFactors):
-                return a._replace(p=put(a.p), ds=put(a.ds))
+            if isinstance(a, _NOTCH_RECORDS):
+                return a._replace(**{f: put(v) for f, v in a._asdict().items()
+                                     if isinstance(v, np.ndarray)})
             if isinstance(a, torch.Tensor):
                 return a.to(device)
             dtype = torch.int32 if a.dtype.kind in "iu" else torch.float32
@@ -274,8 +285,8 @@ def _upload(consts: dict, device: torch.device) -> dict:
             else:
                 out[k] = tuple(put(a) for a in v)
                 tensors += (t for a in out[k] for t in (
-                    a[:2] if isinstance(a, fft_notch.NotchFactors) else (a,))
-                    if t is not None)
+                    a if isinstance(a, _NOTCH_RECORDS) else (a,))
+                    if isinstance(t, torch.Tensor))
         if device.type == "cuda":
             add("plan.device_bytes",
                 sum(t.numel() * t.element_size() for t in tensors))
@@ -422,7 +433,7 @@ def _row_median(x: torch.Tensor) -> torch.Tensor:
 def _filter_level_delta(
     ch: torch.Tensor,  # (B, h, w) horizontal-detail band
     is_cells: torch.Tensor,  # (B,) bool
-    bmat_cat,  # (w, 2w) [cells | no_cells] notch operators, or factors
+    bmat_cat,  # (w, 2w) [cells | no_cells] notch operators, or a record
     thr_cells: float,
     thr_no_cells: float,
     abs_range=None,  # optional per-plane (min|ch|, max|ch|) for Otsu
@@ -434,7 +445,9 @@ def _filter_level_delta(
     threshold (capped by the configuration's), then
     :func:`.cuda_notch.notch_delta` (mask -> row-median inpaint -> notch ->
     recombine), or :func:`.cuda_notch.notch_delta_lowrank` where
-    ``bmat_cat`` is the level's :class:`.fft_notch.NotchFactors`.
+    ``bmat_cat`` is the level's :class:`.fft_notch.NotchFactors`, or
+    :func:`.cuda_notch.notch_delta_fft` where it is its
+    :class:`.fft_notch.NotchChirp`.
     ``is_cells`` (and ``otsu_sqrt``) may hold k x B entries for B band
     planes: k deltas per plane (dual band, k = 2).
     A width-gated level (``bmat_cat`` None) applies both
@@ -453,6 +466,8 @@ def _filter_level_delta(
         if isinstance(bmat_cat, fft_notch.NotchFactors):
             return cuda_notch.notch_delta_lowrank(ch, threshold, sel,
                                                   *bmat_cat)
+        if isinstance(bmat_cat, fft_notch.NotchChirp):
+            return cuda_notch.notch_delta_fft(ch, threshold, sel, bmat_cat)
         if bmat_cat is None:
             return cuda_notch.notch_delta_plain(ch, threshold, sel, None,
                                                 notch_apply)

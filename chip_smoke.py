@@ -236,6 +236,7 @@ SOURCE = {
     "otsu_tail": CSRC + "hist.cu",
     "abs_range_batch": CSRC + "hist.cu",
     "notch_delta_lowrank": CSRC + "notch.cu",
+    "notch_delta_fft": CSRC + "notch.cu",
 }
 REPLACES = {
     "an_x_lowpass_log1p": TPU + "pallas_band.py:178",
@@ -259,6 +260,8 @@ REPLACES = {
     # the same notch tail, from the factors of the operator minus the
     # identity where their rank is small against the width
     "notch_delta_lowrank": TPU + "pallas_notch.py:89",
+    # the same notch tail, by chirp-z transforms at the tile's wide levels
+    "notch_delta_fft": TPU + "pallas_notch.py:89",
 }
 # the wrapper that launches each kernel, where its name differs
 WRAPPER = {"notch_select_chunked": "notch_select"}
@@ -269,7 +272,7 @@ LAUNCHED_BY = {"histogram256_batch": ("histogram256_batch",
                                       "histogram256_range")}
 # the kernels of the single-band path, and of the plane paths (the blend)
 SINGLE = tuple(REPLACES)[:7] + ("dense_matmul", "otsu_tail",
-                                "abs_range_batch")
+                                "abs_range_batch", "notch_delta_fft")
 PLANE = SINGLE + ("blend_smooth_mix",)
 # the kernels of the row-sharded route (the small bands' tail included)
 HALO = ("an_x_lowpass_chunked", "syn_x_exp_chunked", "notch_select_chunked",
@@ -298,7 +301,7 @@ MH_TILES = ("471300_461360", "471320_461360", "471340_461360",
 MH_Z = 16
 # the wrapped forms, and the histogram of the blend centres (raw uint16)
 DUAL = ("syn_y_pass", "syn_x_exp", "histogram256_batch",
-        "row_median_masked", "notch_delta")
+        "row_median_masked", "notch_delta", "notch_delta_fft")
 # the plane path at HALO_SHAPE: its notch runs from the factors at every
 # level, one cells plane and three no-cells ones a batch
 PLANE_WIDE = ("an_x_lowpass_log1p", "an_y_pass", "syn_y_pass", "syn_x_exp",
@@ -498,6 +501,126 @@ def _tail_calls(ch, notch_cat, thr_cap, dual=False):
     return calls
 
 
+def _dense_bank(plan, consts, lvl, dev):
+    """Level ``lvl``'s dense notch bank on ``dev``: the step's own, or,
+    where the step routes the level to chirp-z, the bank it replaces (the
+    dense tail is timed at every level; ``[fft-notch]`` times the chirp-z
+    one beside it)."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import fft_notch
+
+    i = plan.n_levels - 1 - lvl
+    entry = consts["notch_cat"][i]
+    if not isinstance(entry, fft_notch.NotchChirp):
+        return entry
+    return torch.as_tensor(np.ascontiguousarray(fft_notch.notch_cat(
+        plan.ladder[i][1], plan.notch_sigmas()[i])), device=dev)
+
+
+def _chirp_ops(n_out, k, h, m):
+    """The chirp-z tail's butterfly operations for n_out output planes of h
+    rows, k per band plane: four complex FFTs of m points (5 m log2 m
+    each) a pair of output rows (rows 2p and 2p + 1 of a plane; the two
+    outputs of a band row for k = 2)."""
+    import math
+
+    pairs = n_out // 2 * h if k == 2 else n_out * ((h + 1) // 2)
+    return pairs * 4 * 5.0 * m * math.log2(m)
+
+
+def phase_fft_notch(plan, consts, dev, seed):
+    """[fft-notch]: the chirp-z notch tail against its plain twin at the
+    step's routed levels (the tile plan's 0, 1 and 2: B = 64 planes with
+    alternating configurations, and the dual form's 128 outputs), with the
+    Otsu thresholds under the production caps; timed beside the dense
+    tail on the same band (``dense_ms``) and, as the library's yardstick,
+    ``torch.fft.rfft`` / ``irfft`` of the band with the gains between;
+    bound: the four FFTs' operations or the band's bytes. Then the kernel
+    names one call launches under the profiler: the masked median and
+    the chirp-z kernel, no library FFT or GEMM. Returns the single and the
+    dual records and those names."""
+    import torch
+
+    from aind_smartspim_destripe_torch.ops import cuda_notch as tn
+    from aind_smartspim_destripe_torch.ops import fft_notch
+    from aind_smartspim_destripe_torch.ops.otsu import threshold_otsu_batch
+
+    g = torch.Generator(device=dev).manual_seed(seed + 29)
+    n = plan.n_levels
+    thr_cap = (plan.cells.max_threshold, plan.no_cells.max_threshold)
+    routed = [lvl for lvl in range(n)
+              if plan.notch_routes()[n - 1 - lvl] == "chirp"]
+    if routed != [0, 1, 2]:
+        raise AssertionError(f"fft-notch: the tile plan routes levels "
+                             f"{routed} to chirp-z, not 0-2")
+    single, dual = {"notch_delta_fft": {}}, {"notch_delta_fft": {}}
+    for lvl in routed:
+        i = n - 1 - lvl
+        (h, w), sigmas = plan.ladder[i], plan.notch_sigmas()[i]
+        rec = consts["notch_cat"][i]
+        m = rec.twiddle.shape[0]
+        ch = torch.randn((BATCH, h, w), generator=g, device=dev) * 0.5
+        otsu = torch.sqrt(threshold_otsu_batch(ch, square=True))
+        cat = _dense_bank(plan, consts, lvl, dev)
+        # the no-cells configuration's packed gains, for the yardstick
+        a, b = (torch.as_tensor(v, dtype=torch.float32, device=dev)
+                for v in fft_notch._packed_gains(
+                    w, fft_notch.notch(w, sigmas[1])))
+        for out, k in ((single, 1), (dual, 2)):
+            n_out = k * BATCH
+            idx = torch.arange(n_out, device=dev)
+            sel = ((idx >= BATCH) if k == 2 else (idx % 2 == 1)).to(
+                torch.int32)
+            thr = torch.minimum(torch.where(sel == 0, thr_cap[0],
+                                            thr_cap[1]), otsu.repeat(k))
+            band = ch.repeat(k, 1, 1)
+
+            def library():
+                spec = torch.fft.rfft(band)
+                return torch.fft.irfft(torch.complex(a * spec.real,
+                                                     b * spec.imag), n=w)
+
+            _compare(out, "notch_delta_fft", lvl,
+                     lambda: tn.notch_delta_fft(ch, thr, sel, rec),
+                     lambda: tn.notch_delta_fft_plain(ch, thr, sel, rec),
+                     scale=ch.abs().max().item(),
+                     ins=(ch, thr, sel, rec.chirp, rec.filters, rec.twiddle,
+                          rec.gains),
+                     ops=_chirp_ops(n_out, k, h, m), library=library,
+                     tag="fft-notch",
+                     extra={"dense": lambda: tn.notch_delta(ch, thr, sel,
+                                                            cat)})
+            del band
+        del ch, otsu, cat
+        torch.cuda.empty_cache()
+    # the kernels of one call at level 0, by name
+    i = n - 1
+    (h, w) = plan.ladder[i]
+    rec = consts["notch_cat"][i]
+    ch = torch.randn((BATCH, h, w), generator=g, device=dev) * 0.5
+    thr = torch.full((BATCH,), 0.8, device=dev)
+    sel = (torch.arange(BATCH, device=dev) % 2).to(torch.int32)
+    tn.notch_delta_fft(ch, thr, sel, rec)
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        tn.notch_delta_fft(ch, thr, sel, rec)
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    print(f"[fft-notch] kernels of one call at level 0: {names}")
+    ours = [nm for nm in names if re.search(
+        r"notch_fft_kernel|row_median_masked_warp_kernel", nm)]
+    if len(ours) != 2 or set(names) - set(ours):
+        raise AssertionError(f"fft-notch: the call launched {names}, not "
+                             f"the masked median and the chirp-z kernel "
+                             f"alone")
+    return single, dual, names
+
+
 def _notch_parts(ch, thr, sel, notch_cat):
     """The notch tail's parts to time beside it: ``gemm``, its GEMM launch
     alone on the medians of the call (the mask, inpainting and delta
@@ -594,7 +717,7 @@ def phase_kernels(plan, consts, dev, seed):
                                  bd["k2_hi"])
         del k1
         for name, (kern, plain, ins, ops, extra) in _tail_calls(
-                ch, consts["notch_cat"][n - 1 - lvl], thr_cap).items():
+                ch, _dense_bank(plan, consts, lvl, dev), thr_cap).items():
             _compare(rec, name, lvl, kern, plain,
                      scale=ch.abs().max().item(), ins=ins, ops=ops,
                      extra=extra if lvl < 2 else None)
@@ -636,7 +759,7 @@ def phase_kernels(plan, consts, dev, seed):
         h, w = plan.ladder[n - 1 - lvl]
         ch = torch.randn((B, h, w), generator=g, device=dev) * 0.5
         for name, (kern, plain, ins, ops, _) in _tail_calls(
-                ch, consts["notch_cat"][n - 1 - lvl], thr_cap).items():
+                ch, _dense_bank(plan, consts, lvl, dev), thr_cap).items():
             _compare(rec, name, lvl, kern, plain, scale=ch.abs().max().item(),
                      ins=ins, ops=ops)
     torch.cuda.synchronize()
@@ -739,7 +862,7 @@ def phase_dual_kernels(plan, consts, dev, seed):
             h, w = plan.ladder[n - 1 - lvl]
             ch = torch.randn((B, h, w), generator=g, device=dev) * 0.5
         for name, (kern, plain, ins, ops, extra) in _tail_calls(
-                ch, consts["notch_cat"][n - 1 - lvl], thr_cap,
+                ch, _dense_bank(plan, consts, lvl, dev), thr_cap,
                 dual=True).items():
             _compare(rec, name, lvl, kern, plain, scale=ch.abs().max().item(),
                      ins=ins, ops=ops, extra=extra if lvl == 0 else None)
@@ -1715,7 +1838,7 @@ def phase_lowrank_kernels(hplan, dev, seed):
     rec = {"notch_delta_lowrank": {}}
     for lvl in (0, 1):
         i = n - 1 - lvl
-        if not hplan.notch_lowrank()[i]:
+        if hplan.notch_routes()[i] != "lowrank":
             raise AssertionError(f"level {lvl} of {HALO_SHAPE[1:]} does not "
                                  f"take the exact-rank notch")
         (h, w), sigmas = hplan.ladder[i], hplan.notch_sigmas()[i]
@@ -2050,7 +2173,7 @@ def main(argv=None):
         fn = re.search(r"(k[1-4]|hist|otsu_tail|abs_range|row_median_batch|"
                        r"row_median_short|row_median_masked_warp|"
                        r"row_median|notch_delta|notch_select|"
-                       r"notch_project|notch_synth|blend|"
+                       r"notch_project|notch_synth|notch_fft|blend|"
                        r"dense_matmul)_kernel(I(.*?)EE)?", part)
         n = re.search(r"Used (\d+) registers", part)
         if not (fn and n):
@@ -2098,8 +2221,10 @@ def main(argv=None):
     # output per band row; the histogram: image type, squared)
     rows = {k: v for k, v in ptxas.items()
             if k.startswith(("k2<", "k3<", "k4<", "row_median", "hist<",
-                             "otsu_tail", "abs_range", "blend<"))}
-    print("[build] K2, K3, K4, row-median, histogram and blend instances, "
+                             "otsu_tail", "abs_range", "blend<",
+                             "notch_fft<"))}
+    print("[build] K2, K3, K4, row-median, histogram, blend and chirp-z "
+          "notch instances, "
           "registers / shared memory bytes / spilled bytes: "
           + " ".join(f"{k}={v['registers']}/{v['smem']}/{v['spill']}"
                      for k, v in rows.items()))
@@ -2114,13 +2239,18 @@ def main(argv=None):
     expect |= {f"hist<{t},{q}>" for t in ("u16", "f32") for q in (0, 1)}
     expect |= {"otsu_tail", "abs_range"}
     expect |= {f"blend<{t},{m}>" for t in ("u16", "f32") for m in range(3)}
+    expect |= {f"notch_fft<{m}>" for m in (256, 512, 1024, 2048, 4096)}
     if expect - rows.keys():
         raise AssertionError(
             "the build log does not report the instances "
             f"{sorted(expect - rows.keys())}: their spills are unchecked")
-    if any(v["spill"] for v in rows.values()):
-        raise AssertionError("a K2, K3, K4, row-median, histogram or blend "
-                             "instance spills registers")
+    # the chirp-z kernel at 128 registers: M = 2048 and 4096 spill 8 bytes
+    # (two registers a thread; 80 registers spill ~300 bytes and ran 15%
+    # slower, ~150 unspilled ran 45% slower at one block an SM)
+    if any(v["spill"] > (16 if k.startswith("notch_fft<") else 0)
+           for k, v in rows.items()):
+        raise AssertionError("a K2, K3, K4, row-median, histogram, blend or "
+                             "chirp-z notch instance spills registers")
 
     # -- 3. kernels vs plain twins ----------------------------------------
     cfg = run_capsule.PRODUCTION_PARAMETERS
@@ -2131,6 +2261,9 @@ def main(argv=None):
     rec = phase_kernels(plan, consts, dev, args.seed)
     torch.cuda.empty_cache()
     drec = phase_dual_kernels(plan, consts, dev, args.seed)
+    frec, fdrec, fft_names = phase_fft_notch(plan, consts, dev, args.seed)
+    rec.update(frec)
+    drec.update(fdrec)
     per_step = {
         "histogram256_batch": {"per_step": _per_step(
             rec["histogram256_batch"], "histogram256_batch", "single-band")},
@@ -2284,6 +2417,13 @@ def main(argv=None):
             entry.update(parts(first))
             entry["level1"].update(parts(main[1]))
             entry["dual"].update(parts(drec[name][0]))
+        if name == "notch_delta_fft":  # the dense tail on the same bands
+            entry["dense_ms"] = first["dense_ms"]
+            entry["level2"] = {k: main[2][k] for k in keys}
+            for lvl in (1, 2):
+                entry[f"level{lvl}"]["dense_ms"] = main[lvl]["dense_ms"]
+            entry["dual"]["dense_ms"] = drec[name][0]["dense_ms"]
+            entry["kernels_of_one_call"] = fft_names
         if name in ("an_y_pass", "syn_y_pass", "syn_x_exp",
                     "syn_x_exp_chunked"):
             entry["bit_equal_witness"] = all(
@@ -2372,7 +2512,9 @@ def _launches():
     from aind_smartspim_destripe_torch import ops
 
     by_wrapper = {k.__name__: k.launches for k in ops.kernels()}
-    return {name: sum(by_wrapper[w] for w in LAUNCHED_BY.get(
+    # a kernel the package does not have (an older checkout's, timed by
+    # scripts/step_hash.py) counts 0
+    return {name: sum(by_wrapper.get(w, 0) for w in LAUNCHED_BY.get(
         name, (WRAPPER.get(name, name),))) for name in REPLACES}
 
 

@@ -50,7 +50,11 @@ height and sigmas widened to 1236, 1484 and 1854 columns (2 max(r) / w
 0.90, 0.75 and 0.60: where the two routes cross) and at levels 0 and 1
 of the 16384 x 18000 plan (B = 4, one cells plane and three no-cells
 ones), each with its FLOP count (2 h w^2 a plane dense, 4 h w r at the
-plane's rank) and its bound at the FP32 peak. ``--only`` times
+plane's rank) and its bound at the FP32 peak; then the tail at the tile
+plan's levels 0-3 and three widths between levels 3 and 2 (B = 64):
+dense, exact-rank and, where the package has it, chirp-z
+(``notch_delta_fft``), beside ``torch.fft``'s rfft and irfft of the band
+as the library's yardstick (timed only). ``--only`` times
 the calls whose name matches REGEX alone. Each line names the call and
 its time; the last line is all of them as
 JSON, with the card's name and power limit.
@@ -250,6 +254,7 @@ def main(argv=None):
     blend_calls(record_graph, dev, g)
     tail_calls(out, record_graph, plan, dev, g)
     notch_calls(out, record, dev, g)
+    chirp_calls(out, record, dev, g)
     print(json.dumps({"card": smi, "root": str(root), "ms": out}))
     return 0
 
@@ -529,6 +534,76 @@ def notch_calls(out, record, dev, g):
         del ch, cat, calls
         if lowrank:
             del p, ds, ds_sel
+        torch.cuda.empty_cache()
+
+
+def chirp_calls(out, record, dev, g):
+    """The notch tail at the tile plan's levels 0-3 (B = 64, alternating
+    configurations; levels 0 and 1 also in the dual form, 128 outputs)
+    and on bands of level 2's height at widths 160, 192 and 224 (sigmas
+    scaled from level 3's with the width): the dense ``notch_delta``, the
+    exact-rank ``notch_delta_lowrank`` and, where the package has it, the
+    chirp-z ``notch_delta_fft`` (the masked median included in each), and
+    as the library's yardstick ``torch.fft.rfft`` / ``irfft`` of the band
+    with one configuration's packed gains between (timed only)."""
+    import numpy as np
+    import torch
+
+    from aind_smartspim_destripe_torch import run_capsule
+    from aind_smartspim_destripe_torch.ops import cuda_notch as tn
+    from aind_smartspim_destripe_torch.ops import fft_notch as fn
+    from aind_smartspim_destripe_torch.ops import filter as tf
+
+    cfg = run_capsule.PRODUCTION_PARAMETERS
+    plan = tf.build_plan(1600, 2000,
+                         tf.FilterConfig.from_dict(cfg["cells_config"]),
+                         tf.FilterConfig.from_dict(cfg["no_cells_config"]))
+    n, B = plan.n_levels, 64
+    shapes = []
+    for lvl in (0, 1, 2, 3):
+        i = n - 1 - lvl
+        for k in ((1, 2) if lvl < 2 else (1,)):
+            shapes.append((f"tile level {lvl}" + (" dual" if k == 2 else ""),
+                           *plan.ladder[i], plan.notch_sigmas()[i], k))
+    (h2, _), (s3c, s3n) = plan.ladder[n - 3], plan.notch_sigmas()[n - 4]
+    w3 = plan.ladder[n - 4][1]
+    shapes += [(f"level 2 rows at w {w}", h2, w,
+                (s3c * w / w3, s3n * w / w3), 1) for w in (160, 192, 224)]
+    chirp = hasattr(tn, "notch_delta_fft")
+    for tag, h, w, sigmas, k in shapes:
+        n_out = k * B
+        ch = torch.randn((B, h, w), generator=g, device=dev) * 0.3
+        thr = torch.rand(n_out, generator=g, device=dev) * 0.3 + 0.3
+        idx = torch.arange(n_out, device=dev)
+        sel = ((idx >= B) if k == 2 else (idx % 2 == 1)).to(torch.int32)
+        cat = torch.as_tensor(np.ascontiguousarray(fn.notch_cat(w, sigmas)),
+                              device=dev)
+        f = fn.notch_factors(w, sigmas)
+        p, ds = (torch.as_tensor(a, device=dev) for a in (f.p, f.ds))
+        a, b = (torch.as_tensor(v, dtype=torch.float32, device=dev)
+                for v in fn._packed_gains(w, fn.notch(w, sigmas[1])))
+        band = ch.repeat(k, 1, 1)
+
+        def library():
+            spec = torch.fft.rfft(band)
+            return torch.fft.irfft(torch.complex(a * spec.real,
+                                                 b * spec.imag), n=w)
+
+        calls = [("notch_delta", lambda: tn.notch_delta(ch, thr, sel, cat)),
+                 ("notch_delta_lowrank", lambda: tn.notch_delta_lowrank(
+                     ch, thr, sel, p, ds, f.ranks)),
+                 ("torch.fft rfft-gains-irfft", library)]
+        if chirp:
+            rec = fn.notch_chirp(w, sigmas)
+            rec = rec._replace(**{
+                name: torch.as_tensor(v, device=dev)
+                for name, v in rec._asdict().items() if name != "k"})
+            calls.append(("notch_delta_fft",
+                          lambda: tn.notch_delta_fft(ch, thr, sel, rec)))
+            out[f"chirp M {tag}"] = rec.twiddle.shape[0]
+        for name, fn_ in calls:
+            record(f"{name} {tag}", fn_)
+        del ch, cat, p, ds, band, calls
         torch.cuda.empty_cache()
 
 

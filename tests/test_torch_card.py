@@ -1422,24 +1422,132 @@ def test_card_notch_delta_lowrank_plane_alone_as_in_a_batch(card):
                          ids=["tile", "stitched"])
 def test_card_notch_route_launches(card, hw):
     """The plan's route on the card: one plane of the tile plan runs the
-    dense notch at its 8 levels and no factor, one fused plane the
-    factors at its 11 levels (two launches each) and no dense notch;
-    ``plan.notch_lowrank_levels`` counts the routed levels."""
+    chirp-z notch at its 3 widest levels and the dense notch at the other
+    5, one fused plane the factors at its 11 levels (two launches each)
+    and neither of the others; ``plan.notch_lowrank_levels`` and
+    ``plan.notch_fft_levels`` count the routed levels."""
     from aind_smartspim_destripe_torch.runtime import tracing
 
     plan = tf.build_plan(*hw, tf.FilterConfig(sigma=64, max_threshold=3),
                          tf.FilterConfig(sigma=128, max_threshold=12))
-    before = tracing.counters().get("plan.notch_lowrank_levels", 0)
+    names = ("plan.notch_lowrank_levels", "plan.notch_fft_levels")
+    before = [tracing.counters().get(k, 0) for k in names]
     consts = tf.device_constants(plan, card)
-    routed = tracing.counters()["plan.notch_lowrank_levels"] - before
-    assert routed == sum(plan.notch_lowrank())
-    assert routed == (0 if hw == (1600, 2000) else 11)
+    lowrank, fft = (tracing.counters()[k] - b for k, b in zip(names, before))
+    routes = plan.notch_routes()
+    assert (lowrank, fft) == (routes.count("lowrank"), routes.count("chirp"))
+    assert (lowrank, fft) == ((0, 3) if hw == (1600, 2000) else (11, 0))
     x = torch.randint(200, 400, (1,) + hw, dtype=torch.int32,
                       device=card).to(torch.uint16)
     tops.reset_launches()
     tf.destripe_batch(plan, x, 2500.0, consts)
     torch.cuda.synchronize()
     n = plan.n_levels
-    assert tn.notch_delta_lowrank.launches == 2 * routed
-    assert tn.notch_delta.launches == n - routed
+    assert tn.notch_delta_lowrank.launches == 2 * lowrank
+    assert tn.notch_delta_fft.launches == fft
+    assert tn.notch_delta.launches == n - lowrank - fft
     assert tn.row_median_masked.launches == n
+
+
+# --- the chirp-z notch tail (notch_delta_fft) -------------------------------
+
+TILE_PLAN = ((1600, 2000), (64.0, 3.0), (128.0, 12.0))
+
+
+def _chirp_inputs(card, level, B, n_out, seed):
+    """A band of the tile plan's level ``level`` (B planes, h x w as the
+    step has them), ``n_out`` thresholds with the production caps' spread
+    (the first 0.0: every nonzero coefficient a stripe), alternating
+    configurations (the dual form: the first B cells, the rest no-cells),
+    the level's chirp-z tables and its dense bank on the card."""
+    (hw, c, nc) = TILE_PLAN
+    plan = tf.build_plan(*hw, tf.FilterConfig(sigma=c[0], max_threshold=c[1]),
+                         tf.FilterConfig(sigma=nc[0], max_threshold=nc[1]))
+    i = plan.n_levels - 1 - level
+    (h, w), sigmas = plan.ladder[i], plan.notch_sigmas()[i]
+    assert plan.notch_routes()[i] == "chirp"
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ch = (torch.randn((B, h, w), generator=g) * 0.3).to(card)
+    thr = torch.linspace(0.2, 0.9, n_out, device=card)
+    thr[0] = 0.0
+    idx = torch.arange(n_out, device=card)
+    sel = ((idx >= B) if n_out == 2 * B else (idx % 2 == 1)).to(torch.int32)
+    rec = tf.device_constants(plan, card)["notch_cat"][i]
+    cat = torch.as_tensor(np.ascontiguousarray(fft_notch.notch_cat(w, sigmas)),
+                          device=card)
+    return ch, thr, sel, rec, cat, sigmas
+
+
+def _row_scaled_errors(got, truth, stripes):
+    """The error against ``truth`` of each value off the stripes, over its
+    row's largest |truth|: (max, RMS) over every such value."""
+    scale = truth.abs().amax(-1, keepdim=True)
+    keep = ~stripes & (scale > 0)
+    e = ((got.double() - truth) / torch.where(scale > 0, scale, 1.0))[keep]
+    return e.abs().max().item(), e.pow(2).mean().sqrt().item()
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+def test_card_notch_delta_fft_against_float64(card, level, dual):
+    """The chirp-z tail at the tile plan's levels 0 (802 x 1002), 1 (403 x
+    503) and 2 (204 x 254), B = 64 (the dual form: 128 outputs), is no
+    farther from the float64 delta on the same mask and inpainting than
+    the dense tail on the same bands (max and RMS of the error over each
+    row's largest value), within f32 rounding of its plain twin, two
+    launches."""
+    B = 64
+    n_out = 2 * B if dual else B
+    ch, thr, sel, rec, cat, sigmas = _chirp_inputs(card, level, B, n_out,
+                                                   400 + level)
+    w = ch.shape[-1]
+    tops.reset_launches()
+    got = tn.notch_delta_fft(ch, thr, sel, rec)
+    torch.cuda.synchronize()
+    assert tn.notch_delta_fft.launches == 1
+    assert tn.row_median_masked.launches == 1
+    dense = tn.notch_delta(ch, thr, sel, cat)
+    c = ch.repeat(n_out // B, 1, 1)
+    stripes = torch.sqrt(c * c) > thr[:, None, None]
+    assert torch.all(got[stripes] == 0.0) and torch.all(got[0] == 0.0)
+    med = tn.row_median_masked(ch, thr)
+    inpainted = torch.where(stripes, med, c).double()
+    ops = [torch.as_tensor(fft_notch.packed_notch_matrix(w, s).T,
+                           device=card) for s in sigmas]
+    truth = torch.empty_like(inpainted)
+    for s in (0, 1):
+        idx = (sel == s).nonzero().flatten()
+        truth[idx] = inpainted[idx] @ ops[s] - c[idx].double()
+    truth = torch.where(stripes, 0.0, truth)
+    e_fft = _row_scaled_errors(got, truth, stripes)
+    e_dense = _row_scaled_errors(dense, truth, stripes)
+    assert e_fft[0] <= e_dense[0] and e_fft[1] <= e_dense[1], (e_fft,
+                                                               e_dense)
+    _close(got, tn.notch_delta_fft_plain(ch, thr, sel, rec),
+           scale=ch.abs().max().item())
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+@pytest.mark.parametrize("level", [0, 1])
+def test_card_notch_delta_fft_plane_alone_as_in_a_batch(card, level, dual):
+    """A plane's delta does not depend on the planes beside it: plane 5 of
+    a 64-plane batch alone (B = 1; dual: its two outputs), bit for bit, at
+    an even (802) and an odd (403) row count."""
+    B = 64
+    n_out = 2 * B if dual else B
+    ch, thr, sel, rec, _, _ = _chirp_inputs(card, level, B, n_out, 410)
+    batch = tn.notch_delta_fft(ch, thr, sel, rec)
+    pick = [5, 5 + B] if dual else [5]
+    alone = tn.notch_delta_fft(ch[5:6].contiguous(), thr[pick].contiguous(),
+                               sel[pick].contiguous(), rec)
+    assert torch.equal(alone, batch[pick])
+
+
+def test_card_notch_delta_fft_refuses(card):
+    """The wrapper raises for what the kernel does not take: three outputs
+    per band plane, a band of another width than the tables'."""
+    ch, thr, sel, rec, _, _ = _chirp_inputs(card, 2, 2, 2, 420)
+    with pytest.raises(ValueError, match="1 or 2"):
+        tn.notch_delta_fft(ch, thr.repeat(3), sel.repeat(3), rec)
+    with pytest.raises(ValueError, match="shape"):
+        tn.notch_delta_fft(ch[..., :-1].contiguous(), thr, sel, rec)

@@ -127,7 +127,8 @@ def test_registry_lists_every_kernel():
                      "histogram256_batch", "histogram256_range",
                      "abs_range_batch", "otsu_tail", "row_median_masked",
                      "row_median_batch", "notch_delta", "notch_delta_lowrank",
-                     "notch_select", "blend_smooth_mix", "dense_matmul"]
+                     "notch_delta_fft", "notch_select", "blend_smooth_mix",
+                     "dense_matmul"]
     tops.reset_launches()
     assert all(k.launches == 0 for k in tops.kernels())
 
@@ -239,3 +240,94 @@ def test_notch_delta_lowrank_refuses_bad_ranks():
     for bad in ((0, ranks[1]), (ranks[0], p.shape[1] + 1), (ranks[0],)):
         with pytest.raises(ValueError, match="ranks"):
             tn.notch_delta_lowrank(ch, thr, sel, p, ds, bad)
+
+
+# --- the chirp-z notch (notch_delta_fft) ------------------------------------
+
+# the tile plan's chirp-z levels (2, 1, 0), an odd width and a prime one
+CHIRP_CASES = [(254, (8.16, 16.32)), (503, (16.12, 32.24)),
+               (1002, (32.08, 64.16)), (391, (12.5, 25.0)), (1009, (20.0, 40.0))]
+
+
+def _records(rec):
+    """A NotchChirp's tables as CPU tensors."""
+    return rec._replace(**{f: torch.from_numpy(v) for f, v in
+                           rec._asdict().items() if isinstance(v, np.ndarray)})
+
+
+@pytest.mark.parametrize("w,sigmas", CHIRP_CASES)
+def test_notch_chirp_tables_exact(w, sigmas):
+    """The chirp-z arithmetic on float64 tables maps the identity's rows to
+    ``packed_notch_matrix - I``, to 1e-12 of the operator's largest entry,
+    for each configuration: in pairs of rows (w rows, so an odd count pads
+    the last pair with zeros) and, through the dual form, the two outputs
+    of each row."""
+    rec = _records(tfn.notch_chirp(w, sigmas, np.float64))
+    k, m = tfn.chirp_size(w, sigmas)
+    assert rec.k == k and rec.twiddle.shape == (m, 2)
+    assert rec.chirp.shape == (w, 2) and rec.filters.shape == (2, m, 2)
+    assert rec.gains.shape == (2, k + 1, 2)
+    eye = torch.eye(w, dtype=torch.float64)[None]
+    inf = torch.tensor([np.inf], dtype=torch.float64)
+    for c, s in enumerate(sigmas):
+        want = tfn.packed_notch_matrix(w, s).T - np.eye(w)
+        tol = 1e-12 * np.abs(tfn.packed_notch_matrix(w, s)).max()
+        got = tn.notch_delta_fft_plain(eye, inf, torch.tensor(
+            [c], dtype=torch.int32), rec)[0].numpy()
+        assert np.abs(got - want).max() <= tol
+        dual = tn.notch_delta_fft_plain(eye, inf.repeat(2), torch.tensor(
+            [c, 1 - c], dtype=torch.int32), rec)[0].numpy()
+        assert np.abs(dual - want).max() <= tol
+
+
+def _chirp_case(k_out, w=503, sigmas=(16.12, 32.24), h=23):
+    """Bands of 3 planes, odd h, ``k_out`` outputs per plane, both
+    configurations, thresholds that mask some values."""
+    rng = np.random.default_rng(w + k_out)
+    ch = torch.from_numpy((rng.normal(size=(3, h, w)) * 0.4).astype(
+        np.float32))
+    thr = torch.from_numpy(np.linspace(0.3, 0.9, 3 * k_out).astype(
+        np.float32))
+    sel = torch.tensor([0, 1, 1] if k_out == 1 else [0] * 3 + [1] * 3,
+                       dtype=torch.int32)
+    cat = torch.from_numpy(tfn.notch_cat(w, sigmas))
+    return ch, thr, sel, _records(tfn.notch_chirp(w, sigmas)), cat, sigmas
+
+
+@pytest.mark.parametrize("w,sigmas", CHIRP_CASES[:3])
+@pytest.mark.parametrize("k_out", [1, 2], ids=["single", "dual"])
+def test_notch_delta_fft_against_dense_and_float64(k_out, w, sigmas):
+    """The chirp-z tail (its plain twin here) is the dense tail's delta
+    within float32 rounding, 0 at stripes, and at least as close as the
+    dense one to the float64 delta on the same mask and inpainting, for
+    both configurations (mixed per plane) and the wrapped dual form."""
+    ch, thr, sel, rec, cat, _ = _chirp_case(k_out, w, sigmas)
+    got = tn.notch_delta_fft(ch, thr, sel, rec)
+    dense = tn.notch_delta_plain(ch, thr, sel, cat)
+    assert got.shape == dense.shape == (3 * k_out, 23, w)
+    assert got.dtype == torch.float32
+    c = ch.repeat(k_out, 1, 1)
+    stripes = torch.sqrt(c * c) > thr[:, None, None]
+    assert stripes.any() and (~stripes).any()
+    assert torch.all(got[stripes] == 0.0) and torch.all(dense[stripes] == 0.0)
+    med = tn.row_median(torch.where(stripes, 0.0, c))
+    inpainted = torch.where(stripes, med, c).double()
+    ops = [torch.from_numpy(tfn.packed_notch_matrix(w, s).T) for s in sigmas]
+    truth = torch.stack([inpainted[b] @ ops[s] - c[b].double()
+                         for b, s in enumerate(sel.tolist())])
+    truth = torch.where(stripes, 0.0, truth)
+    err = (got.double() - truth)[~stripes]
+    err_dense = (dense.double() - truth)[~stripes]
+    assert err.abs().max() <= 1e-6 * truth.abs().max()
+    assert err.abs().max() <= err_dense.abs().max()
+    assert err.pow(2).mean().sqrt() <= err_dense.pow(2).mean().sqrt()
+
+
+def test_notch_delta_fft_refuses_other_batches():
+    """Three outputs per band plane: the kernel pairs rows of a plane or
+    the two outputs of a row, so both forms refuse any other k."""
+    ch, thr, sel, rec, _, _ = _chirp_case(1)
+    with pytest.raises(ValueError, match="1 or 2"):
+        tn.notch_delta_fft(ch, thr.repeat(3), sel.repeat(3), rec)
+    with pytest.raises(ValueError, match="Nyquist"):
+        tfn.notch_chirp(262, (16.4, 32.75))

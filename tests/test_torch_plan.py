@@ -205,14 +205,29 @@ def test_band_form_of_a_small_operator():
 def test_constants_from_numpy_round_trip():
     """The plane step's constants on the CPU carry the JAX package's dense
     operators (``constants(dense_only=True)``) to torch unchanged: float32
-    tensors, equal entry for entry."""
+    tensors, equal entry for entry. A level routed to chirp-z holds its
+    tables instead, which map the identity's rows to the JAX package's
+    dense bank within float32 rounding."""
+    from aind_smartspim_destripe_torch.ops import cuda_notch
+
     jp, tp = _plans(1001, 777)
     mine = tf.device_constants(tp, "cpu")
     theirs = jp.constants(dense_only=True)
     assert set(theirs) < set(mine)
+    assert "chirp" in tp.notch_routes()
     for key, val in theirs.items():
         assert len(mine[key]) == len(val)
         for arr, got in zip(val, mine[key]):
+            if isinstance(got, tn.NotchChirp):
+                assert all(t.dtype == torch.float32 for t in got[:4])
+                w = arr.shape[0]
+                eye = torch.eye(w)[None]
+                bank = torch.cat([cuda_notch.notch_delta_fft_plain(
+                    eye, torch.tensor([np.inf]), torch.tensor([c],
+                    dtype=torch.int32), got)[0] + eye[0] for c in (0, 1)], 1)
+                np.testing.assert_allclose(bank.numpy(), arr, rtol=0,
+                                           atol=2e-6 * np.abs(arr).max())
+                continue
             assert got.dtype == torch.float32
             np.testing.assert_array_equal(got.numpy(), arr)
 
@@ -273,7 +288,9 @@ def test_device_constants_hold_no_dense_operator_of_a_banded_level(hw, name):
             else:
                 np.testing.assert_array_equal(card[key][idx], host[key][idx])
     for a, b in zip(card["notch_cat"], host["notch_cat"]):
-        np.testing.assert_array_equal(a, b)
+        assert type(a) is type(b)
+        for x, y in (zip(a, b) if isinstance(a, tuple) else ((a, b),)):
+            np.testing.assert_array_equal(x, y)
     for lvl in lvls:
         for key, arr in host[f"band{lvl}"].items():
             np.testing.assert_array_equal(card[f"band{lvl}"][key], arr)
@@ -283,7 +300,11 @@ def test_device_constants_hold_no_dense_operator_of_a_banded_level(hw, name):
         pairs = (zip(val.values(), got[key].values()) if isinstance(val, dict)
                  else zip(val, got[key]))
         for a, b in pairs:
-            assert torch.equal(torch.from_numpy(a), b)
+            for x, y in (zip(a, b) if isinstance(a, tuple) else ((a, b),)):
+                if isinstance(x, np.ndarray):
+                    assert torch.equal(torch.from_numpy(x), y)
+                else:
+                    assert x == y
 
 
 def _ladder_widths():
@@ -370,17 +391,19 @@ def test_counters_read_after_a_plan_build(monkeypatch):
     assert reader.read(None) is None
 
 
-# --- the notch route: the dense operators or the exact-rank factors -------
+# --- the notch route: the dense operators, the exact-rank factors or the
+# chirp-z transforms ---------------------------------------------------------
 
 ROUTE_PLANS = {"tile": (1600, 2000), "stitched": (16384, 18000)}
 
 
 @pytest.mark.parametrize("name", sorted(ROUTE_PLANS))
 def test_notch_route_by_width_and_rank(name):
-    """Every level of the production tile plan runs the dense notch, every
-    level of the fused plane's plan the factors: the rule read from the
-    widths and the sigmas alone (2 max(r) against the width), no operator
-    built."""
+    """The production tile plan runs its three widest levels (254, 503 and
+    1002 columns) by chirp-z and the rest dense, the fused plane's plan
+    every level from its factors: the rule read from the widths and the
+    sigmas alone (2 max(r) against the width, then the width and the FFT
+    length), no operator built."""
     tp = _plans(*ROUTE_PLANS[name])[1]
     ranks = [tuple(tn.notch_rank(w, s) for s in sigmas)
              for (_, w), sigmas in zip(tp.ladder, tp.notch_sigmas())]
@@ -388,45 +411,99 @@ def test_notch_route_by_width_and_rank(name):
         assert r == tuple(int(np.count_nonzero(tn.notch(w, s) != 1.0))
                           for s in sigmas)
     share = [2 * max(r) / w for (_, w), r in zip(tp.ladder, ranks)]
+    routes = tp.notch_routes()
     if name == "tile":
-        assert min(share) >= 1.1 and not any(tp.notch_lowrank())
+        assert min(share) >= 1.1
+        assert routes == ("dense",) * 5 + ("chirp",) * 3
+        assert [w for (_, w), r in zip(tp.ladder, routes)
+                if r == "chirp"] == [254, 503, 1002]
+        assert [tn.chirp_size(w, s)[1] for (_, w), s in zip(
+            tp.ladder[5:], tp.notch_sigmas()[5:])] == [512, 1024, 2048]
     else:
-        assert max(share) <= 0.19 and all(tp.notch_lowrank())
-        assert len(tp.notch_lowrank()) == 11
+        assert max(share) <= 0.19 and routes == ("lowrank",) * 11
+
+
+@pytest.mark.parametrize("w,sigmas,route", [
+    (1002, (32.08, 64.16), "chirp"),  # the tile's level 0
+    (129, (4.16, 8.32), "dense"),  # the tile's level 3: under CHIRP_MIN_W
+    (262, (16.4, 32.75), "dense"),  # the gains reach the Nyquist term
+    (3000, (120.0, 240.0), "dense"),  # n + 2K past the largest FFT length
+    (4096, (32.0, 64.0), "lowrank"),  # 2 max(r) <= n / 2 comes first
+    (1002, (16.0, 32.0), "chirp"),  # 2 max(r) / n 0.55: not low enough
+])
+def test_notch_route_rule(w, sigmas, route):
+    """Each arm of the rule: the factors first, then chirp-z where the
+    width passes the crossover and the kept frequencies fit an FFT length
+    of the kernel without the Nyquist term, dense elsewhere."""
+    assert tn.notch_route(w, sigmas) == route
+    k, m = tn.chirp_size(w, sigmas)
+    assert k == max(tn.notch_rank(w, s) for s in sigmas) // 2
+    assert m >= w + 2 * k > m // 2 and m & (m - 1) == 0
 
 
 LOWRANK_CFG = (dict(CELLS, sigma=8.0), dict(NO_CELLS, sigma=16.0))
 
 
-@pytest.mark.parametrize("hw,levels", [((256, 1024), 5), ((200, 240), 0)],
-                         ids=["factors", "dense"])
-def test_constants_hold_the_factors_where_routed(hw, levels):
-    """The plane step's constants give a routed level its factors in place
-    of the dense bank in ``notch_cat`` and count the routed levels in
-    ``plan.notch_lowrank_levels``; the row-sharded route's dense set keeps
-    the dense bank everywhere."""
+@pytest.mark.parametrize("hw,cfgs,levels", [
+    ((256, 1024), LOWRANK_CFG, {"lowrank": 5}),
+    ((200, 240), (CELLS, NO_CELLS), {}),
+    ((96, 1200), (CELLS, NO_CELLS), {"chirp": 2}),
+], ids=["factors", "dense", "chirp"])
+def test_constants_hold_the_factors_where_routed(hw, cfgs, levels):
+    """The plane step's constants give a routed level its record in place
+    of the dense bank in ``notch_cat`` (its factors on the ``lowrank``
+    route, its chirp-z tables on the ``chirp`` one) and count the routed
+    levels in ``plan.notch_lowrank_levels`` and ``plan.notch_fft_levels``;
+    the row-sharded route's dense set keeps the dense bank everywhere."""
     from aind_smartspim_destripe_torch.runtime import tracing
 
-    cfgs = LOWRANK_CFG if levels else (CELLS, NO_CELLS)
     tp = tf.build_plan(*hw, *(tf.FilterConfig(**c) for c in cfgs))
-    before = tracing.counters().get("plan.notch_lowrank_levels", 0)
+    names = ("plan.notch_lowrank_levels", "plan.notch_fft_levels")
+    before = [tracing.counters().get(k, 0) for k in names]
     consts = tf.device_constants(tp, "cpu")
-    assert (tracing.counters()["plan.notch_lowrank_levels"] - before
-            == levels == sum(tp.notch_lowrank()))
-    routed = tp.notch_lowrank()
+    routes = tp.notch_routes()
+    assert [tracing.counters()[k] - b for k, b in zip(names, before)] == [
+        levels.get("lowrank", 0), levels.get("chirp", 0)] == [
+        routes.count("lowrank"), routes.count("chirp")]
     for i, ((_, w), sigmas) in enumerate(zip(tp.ladder, tp.notch_sigmas())):
         entry = consts["notch_cat"][i]
-        if not routed[i]:
+        if routes[i] == "dense":
             assert tuple(entry.shape) == (w, 2 * w)
             continue
-        assert isinstance(entry, tn.NotchFactors)
-        p, ds, ranks = tn.notch_factors(w, sigmas)
-        assert entry.ranks == ranks == tuple(tn.notch_rank(w, s)
-                                             for s in sigmas)
-        assert torch.equal(entry.p, torch.from_numpy(p))
-        assert torch.equal(entry.ds, torch.from_numpy(ds))
+        want = (tn.notch_factors if routes[i] == "lowrank"
+                else tn.notch_chirp)(w, sigmas)
+        assert isinstance(entry, type(want))
+        for got, ref in zip(entry, want):
+            if isinstance(ref, np.ndarray):
+                assert torch.equal(got, torch.from_numpy(ref))
+            else:
+                assert got == ref
+        if routes[i] == "lowrank":
+            assert entry.ranks == tuple(tn.notch_rank(w, s) for s in sigmas)
     dense = th_._dense_operators(tp)
     assert all(isinstance(c, np.ndarray) for c in dense["notch_cat"])
+
+
+@pytest.mark.parametrize("name,counts", [("tile", (0, 3)),
+                                         ("stitched", (11, 0))])
+def test_notch_route_counters(name, counts):
+    """``plan.notch_lowrank_levels`` and ``plan.notch_fft_levels`` count a
+    card's routed levels as the constants are built: 0 and 3 in the tile
+    plan, 11 and 0 in the fused plane's (a card's dict built on the host:
+    no dense notch operator of either plan is wider than the host's
+    gate)."""
+    from aind_smartspim_destripe_torch.runtime import tracing
+
+    tp = _plans(*ROUTE_PLANS[name])[1]
+    names = ("plan.notch_lowrank_levels", "plan.notch_fft_levels")
+    before = [tracing.counters().get(k, 0) for k in names]
+    consts = tf._build_constants(tp, torch.device("cuda"))
+    assert tuple(tracing.counters()[k] - b
+                 for k, b in zip(names, before)) == counts
+    kinds = {"lowrank": tn.NotchFactors, "chirp": tn.NotchChirp,
+             "dense": np.ndarray}
+    assert all(isinstance(c, kinds[r]) for c, r in zip(
+        consts["notch_cat"], tp.notch_routes()))
 
 
 def test_lowrank_plane_step_matches_jax():
@@ -443,7 +520,7 @@ def test_lowrank_plane_step_matches_jax():
     h, w = 256, 1024
     jp = jf.build_plan(h, w, *(jf.FilterConfig(**c) for c in LOWRANK_CFG))
     tp = tf.build_plan(h, w, *(tf.FilterConfig(**c) for c in LOWRANK_CFG))
-    assert all(tp.notch_lowrank()) and tp.banded_levels() == ()
+    assert tp.notch_routes() == ("lowrank",) * 5 and tp.banded_levels() == ()
     x = _batch(2, h, w, seed=8)
     want = np.asarray(jax.jit(lambda im: jf.destripe_batch(
         jp, im, HIGH_INT, jp.constants(), wrap=True))(jnp.asarray(x)))
