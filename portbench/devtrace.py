@@ -40,12 +40,20 @@ class Spans:
         try:
             yield
         finally:
-            t1 = time.time_ns()
-            with self._lock:
-                self.items.append((name, threading.get_ident(), t0, t1, meta))
+            self.add(name, t0, time.time_ns(), **meta)
+
+    def add(self, name: str, t0: int, t1: int, **meta):
+        """Record a span of this thread from ``t0`` to ``t1`` (ns)."""
+        with self._lock:
+            self.items.append((name, threading.get_ident(), t0, t1, meta))
 
     def named(self, name: str):
         return [s for s in self.items if s[0] == name]
+
+    def seconds(self, name: str):
+        """The seconds of every span named ``name``, or None without one."""
+        spans = self.named(name)
+        return sum(s[3] - s[2] for s in spans) / 1e9 if spans else None
 
 
 @dataclass

@@ -5,10 +5,11 @@ the card, launched back to back with the host taken out of the loop.
 Set-up builds ``runtime.pipeline.make_device_step`` (flat-field epilogue,
 the configuration's single-band classifier dispatch or dual-band blend)
 over a ring of distinct batches made on the device from the seed, and
-warms it with two steps. The window launches steps on the ring in turn
-until ``seconds`` have passed on the host clock and ends with one
-synchronize; the rate is every finished step's pixels over that time. The
-check reads the last output of every ring slot.
+warms it with two steps (the set-up spans ``setup.data`` and
+``setup.warmup``, each ending in a synchronize). The window launches steps
+on the ring in turn until ``seconds`` have passed on the host clock and
+ends with one synchronize; the rate is every finished step's pixels over
+that time. The check reads the last output of every ring slot.
 """
 
 from __future__ import annotations
@@ -51,15 +52,19 @@ def setup(ctx) -> State:
     st.step = pipeline.make_device_step(
         plan, float(cfg["microscope_high_int"]), True, devices=[st.dev],
         dual=bool(cfg["dual_band"]), crossover=float(cfg["crossover"]))
-    data = make_planes(ctx.seed, st.R * st.B, st.H, st.W, tr["data"], st.dev)
-    st.ring = [data[i * st.B:(i + 1) * st.B] for i in range(st.R)]
-    st.flat, st.dark = make_fields(st.H, st.W, tr["data"])
-    st.flat_d = st.step.put_const(st.flat)
-    st.dark_d = st.step.put_const(st.dark.astype(np.float32))
+    with ctx.spans.span("setup.data"):
+        data = make_planes(ctx.seed, st.R * st.B, st.H, st.W, tr["data"],
+                           st.dev)
+        st.ring = [data[i * st.B:(i + 1) * st.B] for i in range(st.R)]
+        st.flat, st.dark = make_fields(st.H, st.W, tr["data"])
+        st.flat_d = st.step.put_const(st.flat)
+        st.dark_d = st.step.put_const(st.dark.astype(np.float32))
+        _sync(st.dev)
     st.outs = [None] * st.R
-    for i in range(2):  # every shape the window uses
-        st.step(st.ring[i % st.R], st.flat_d, st.dark_d)
-    _sync(st.dev)
+    with ctx.spans.span("setup.warmup"):
+        for i in range(2):  # every shape the window uses
+            st.step(st.ring[i % st.R], st.flat_d, st.dark_d)
+        _sync(st.dev)
     return st
 
 

@@ -59,9 +59,11 @@ def sample_planes(seed: int, groups, n: int, data: dict, must=()):
     """``n`` plane indices drawn from ``seed`` for the check: ``groups`` are
     the index ranges that went through one device batch; each pick takes
     the next group in turn and alternates the first and the second half of
-    it, so every batch and both halves of it are seen; a quarter of the
-    picks (at least one) are bright planes. ``must``: ranges from which at
-    least one pick each is drawn first (a padded tail slab)."""
+    it, so every batch and both halves of it are seen; with fewer than two
+    picks a group, the halves also alternate from one group to the next,
+    so a second half is seen too; a quarter of the picks (at least one)
+    are bright planes. ``must``: ranges from which at least one pick each
+    is drawn first (a padded tail slab)."""
     rng = np.random.default_rng(seed_bits(seed, 7))
     every, phase = int(data["bright_every"]), int(data["bright_phase"])
     n_bright = max(1, n // every)
@@ -74,11 +76,13 @@ def sample_planes(seed: int, groups, n: int, data: dict, must=()):
 
     for lo, hi in must:
         draw(range(lo, hi))
+    G = len(groups)
     k = 0
     while len(picks) < n:
-        lo, hi = groups[k % len(groups)]
+        lo, hi = groups[k % G]
         mid = (lo + hi) // 2
-        half = range(lo, mid) if (k // len(groups)) % 2 == 0 else range(mid, hi)
+        second = (k // G + (k if n < 2 * G else 0)) % 2
+        half = range(mid, hi) if second else range(lo, mid)
         bright = len([p for p in picks if p % every == phase]) < n_bright
         draw([i for i in half if (i % every == phase) == bright] or half)
         k += 1

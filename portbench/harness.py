@@ -13,8 +13,9 @@ module finds everything else by those names, inside this folder:
 - ``limits/<cell>.json``: the limit of every number the check compares.
 
 One call runs one cell once: set-up (timed as ``setup_s`` from the start of
-the process), the window, the check against the plain reference, then one
-JSON line on standard output.
+the process; its parts are the spans ``setup.start``, ``setup.data`` and
+``setup.warmup`` beside the program's plan counters), the window, the check
+against the plain reference, then one JSON line on standard output.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from pathlib import Path
 
 import torch
 
-from . import check, roofline
+from . import check, program_spans, roofline
 from .generator import sample_planes
 from .devtrace import Spans, traced
 
@@ -38,6 +39,9 @@ __all__ = ["ROOT", "Cell", "load_cell", "run_cell", "forbidden_modules",
 
 ROOT = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "aind_smartspim_destripe_tpu")
+# the program's plan counters a traced line carries beside its launches
+PLAN_COUNTERS = ("plan.device_bytes", "plan.notch_lowrank_levels",
+                 "plan.notch_fft_levels")
 
 
 @dataclass
@@ -119,6 +123,15 @@ def _launches() -> dict:
     return {k.__name__: k.launches for k in kernels()}
 
 
+def _tracing():
+    """The program's ``runtime.tracing``, or None where it has none."""
+    try:
+        from aind_smartspim_destripe_torch.runtime import tracing
+    except ImportError:
+        return None
+    return tracing
+
+
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
              device, t_start: float, root: Path = ROOT) -> dict:
     """Run ``cell`` once on ``device``; returns the result's fields.
@@ -131,16 +144,28 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     driver = load_driver(cell.traffic)
     ctx = Ctx(config=cell.config, traffic=cell.traffic,
               seed=seed, device=device, spans=spans, root=root)
+    tracing = _tracing()
+    counters0 = tracing.counters() if tracing else {}
+    t_setup, ns_setup = time.perf_counter(), time.time_ns()
     st = driver.setup(ctx)
+    # process start to the traffic's set-up: the interpreter, the imports
+    # and torch's CUDA initialisation (recorded after the set-up, which may
+    # clear the spans it was handed)
+    spans.add("setup.start", ns_setup - round((t_setup - t_start) * 1e9),
+              ns_setup)
     if on_card:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     setup_s = time.perf_counter() - t_start
 
     launches0 = _launches()
+    if trace and tracing:  # garbage collections become spans too
+        tracing.enable()
     with traced(trace, spans) as dt:
         with spans.span("window"):
             win = driver.window(st, seconds, spans)
+    if trace and tracing:
+        tracing.disable()
     launches = {k: v - launches0.get(k, 0) for k, v in _launches().items()
                 if v != launches0.get(k, 0)}
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
@@ -187,11 +212,18 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                                              "unit": m["unit"]}
         out["device"]["busy_s"] = dt.busy_s()
         out["device"]["window_s"] = dt.window_s()
+        prog = program_spans.as_harness_spans(program_spans.window_spans(run))
         out["breakdown"] = {"device_ops": dt.by_name(),
-                            "idle_gaps": dt.idle_gaps(spans.items)}
+                            "idle_gaps": dt.idle_gaps(spans.items + prog)}
         out["step_bound"] = {"ms": bound_s * 1e3, "by": bound_by}
+        out["setup_s"] = setup_s  # beside its parts, the setup.* metrics
         out["launches"] = launches  # the kernels' own launch counters
         out["trace_events"] = dt.activities
+    if trace and tracing:  # this run's plan counters, as information
+        counters = tracing.counters()
+        if any(k in counters for k in PLAN_COUNTERS):
+            out["plan"] = {k: counters.get(k, 0) - counters0.get(k, 0)
+                           for k in PLAN_COUNTERS}
     out["planes_checked"] = [pid for pid, _ in per_plane]
     out["per_plane"] = per_plane
     out["check_s"] = check_s

@@ -33,6 +33,12 @@ def test_cell_runs_on_the_card(cell, trace):
     if trace:
         assert out["device"]["busy_s"] > 0 and out["device"]["window_s"] > 0
         assert out["breakdown"]["device_ops"]
+        parts = [out["metrics"][f"setup.{p}_s"]["value"]
+                 for p in ("start", "plan", "data", "warmup")]
+        assert abs(sum(parts) - out["setup_s"]) < 0.5, (parts, out["setup_s"])
+        assert set(out["plan"]) == {"plan.device_bytes",
+                                    "plan.notch_lowrank_levels",
+                                    "plan.notch_fft_levels"}
     else:
         assert "setup_s" in out["metrics"]
     assert res.stderr.strip().splitlines()[-1].startswith("check ")

@@ -1,10 +1,16 @@
-"""The seeded inputs and sample, and the reduction of a device trace."""
+"""The seeded inputs and sample, the reduction of a device trace, and the
+set-up's parts read from spans."""
+
+from types import SimpleNamespace
 
 import numpy as np
+import pytest
 import torch
 
+from portbench import harness
 from portbench.generator import make_planes, sample_planes, seed_bits
-from portbench.devtrace import DeviceTrace
+from portbench.devtrace import DeviceTrace, Spans
+from portbench.program_spans import as_harness_spans
 
 DATA = {"bright_every": 4, "bright_phase": 1, "bright": 3000.0, "dim": 280.0,
         "row_sigma": 50.0, "pixel_sigma": 8.0}
@@ -57,6 +63,40 @@ def test_trace_busy_and_gaps():
     assert gaps[1][0] == "window:python"
     assert gaps[2][0] == "window:python [read_slab]"
     assert t.by_name()[0] == ["k3", 25e-9]
+
+
+def test_gaps_named_by_program_phases():
+    """The program's spans, in the harness's form, name a gap by the
+    innermost phase or collection open on the main thread."""
+    import threading
+
+    main = threading.main_thread().ident
+    t = DeviceTrace(window_ns=(0, 100))
+    t.device = [(0, 20, "k1", "kernel"), (30, 60, "k2", "kernel"),
+                (90, 100, "k3", "kernel")]
+    t.host = [(22, 28, "cudaLaunchKernel")]
+    harness_spans = [("window", main, 0, 100, {}), ("step", main, 1, 100, {})]
+    # (id, parent, step, name, thread, start ns, end ns, meta)
+    prog = [(1, 0, 1, "step", main, 2, 99, {}),
+            (2, 1, 1, "otsu.L3", main, 18, 40, {}),
+            (3, 1, 1, "gc", main, 65, 85, {"generation": 2})]
+    assert [g[0] for g in t.idle_gaps(harness_spans)] == [
+        "step:python", "step:cudaLaunchKernel"]
+    gaps = t.idle_gaps(harness_spans + as_harness_spans(prog))
+    assert [g[0] for g in gaps] == ["gc:python", "otsu.L3:cudaLaunchKernel"]
+
+
+@pytest.mark.parametrize("metric,span,seconds", [
+    ("setup.start_s", "setup.start", 2.0),
+    ("setup.data_s", "setup.data", 0.5),
+    ("setup.warmup_s", "setup.warmup", 0.25)])
+def test_setup_part_read_from_its_span(metric, span, seconds):
+    spans = Spans()
+    spans.add(span, 10 ** 9, 10 ** 9 + round(seconds * 1e9))
+    spans.add("setup.other", 0, 7 * 10 ** 9)
+    read = harness.load_reader(metric).read
+    assert read(SimpleNamespace(spans=spans)) == pytest.approx(seconds)
+    assert read(SimpleNamespace(spans=Spans())) is None
 
 
 class _OldEvent:

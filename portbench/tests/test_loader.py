@@ -1,8 +1,10 @@
-"""Every file the benchmark finds by name is there, and BENCHMARK.json keeps
-to the contract's shape."""
+"""Every file the benchmark finds by name is there, BENCHMARK.json keeps to
+the contract's shape, and the bound of ``step_mpix_s`` follows the runs
+recorded in ``calibration/step_mpix_s.json``."""
 
 import json
 import re
+import statistics
 
 import pytest
 
@@ -86,3 +88,43 @@ def test_metric_workloads_report_what_they_move():
     for m in SPEC["per_layer"]:
         for cell in m["workloads"]:
             assert m["moves"] in per_cell[cell]
+
+
+CALIBRATION = json.loads((harness.ROOT / "calibration" / "step_mpix_s.json")
+                         .read_text())
+RATE = next(m for m in SPEC["end_to_end"] if m["name"] == "step_mpix_s")
+
+
+def _spread(values):
+    q1, _, q3 = statistics.quantiles(values, n=4)
+    return (q3 - q1) / statistics.median(values)
+
+
+def test_step_mpix_s_bound_follows_its_calibration():
+    """Each recorded set's spread is its runs' quartile spread; a set
+    counts unless a run of it followed a stitched.resident process; the
+    bound lies between max(1%, 5 x) and 8 x the widest spread of the
+    counted sets and the ledger's."""
+    for s in CALIBRATION["sets"]:
+        assert len(s["runs"]) >= 6
+        assert s["spread"] == pytest.approx(
+            _spread([r["value"] for r in s["runs"]]), rel=1e-9)
+        assert s["counted"] == all(r["after"] != "stitched.resident"
+                                   for r in s["runs"])
+    widest = max([s["spread"] for s in CALIBRATION["sets"] if s["counted"]]
+                 + [x["spread"] for x in CALIBRATION["ledger_spreads"]])
+    assert CALIBRATION["widest_spread"] == pytest.approx(widest, rel=1e-9)
+    assert CALIBRATION["bound"] == RATE["bound"]
+    assert max(0.01, 5 * widest) <= RATE["bound"] + 1e-12
+    assert RATE["bound"] <= max(0.01, 8 * widest) + 1e-12
+
+
+@pytest.mark.parametrize("cell", RATE["workloads"])
+def test_step_mpix_s_calibrated_in_cell(cell):
+    """Every cell that reports the rate has two counted sets or more in
+    the record, on the same seeds."""
+    sets = [s for s in CALIBRATION["sets"]
+            if s["cell"] == cell and s["counted"]]
+    assert len(sets) >= 2
+    seeds = {tuple(sorted(r["seed"] for r in s["runs"])) for s in sets}
+    assert len(seeds) == 1

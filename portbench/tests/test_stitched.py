@@ -1,6 +1,7 @@
 """The fused-plane cell ``stitched.resident``: its files load, its
 configuration states what it cut and assumed, its check sees one dim and
-one bright plane, one from each batch, and a rehearsal of it on the CPU at
+one bright plane, one from each batch and one from a second half, and a
+rehearsal of it on the CPU at
 a cut size (a banded plane, so the band kernels' twins run) comes out
 correct against the reference under the cell's own limits, and not
 correct with the timed path broken underneath."""
@@ -56,22 +57,25 @@ def test_configuration_states_its_cuts():
 
 def test_checked_planes_are_one_dim_and_one_bright_from_each_batch():
     """Two picks from a ring of two batches: the bright plane 1 from the
-    first batch and the dim plane 4 from the second, on every seed. Both
-    lie in the first half of their batch, so a fault confined to the
-    second half of a batch is not seen by this cell's check (the tiles'
-    cells, which check 8 planes of 4 batches, see it)."""
+    first half of the first batch and a dim plane, 6 or 7 as the seed
+    draws, from the second half of the second, so a fault confined to
+    the second half of a batch is seen by this cell's check."""
     from portbench.generator import sample_planes
 
     c = harness.load_cell(CELL)
     B, R = c.config["device_batch"], c.traffic["ring"]
     groups = [(i * B, (i + 1) * B) for i in range(R)]
     data = c.traffic["data"]
-    for seed in (1, 2 ** 31 + 977, 3_000_000_011):
+    drawn = set()
+    for seed in (1, 2 ** 31 + 977, 3_000_000_011, 2 ** 31 + 4242, 17, 99):
         ids = sample_planes(seed, groups, c.traffic["check_planes"], data)
-        assert ids == [1, 4], ids
+        assert ids[0] == 1 and ids[1] in (6, 7), ids
         assert [i % data["bright_every"] == data["bright_phase"]
                 for i in ids] == [True, False]
         assert {i // B for i in ids} == set(range(R))
+        assert any(i % B >= B // 2 for i in ids)
+        drawn.add(ids[1])
+    assert drawn == {6, 7}
 
 
 @pytest.mark.parametrize("trace", [0, 1])
@@ -84,7 +88,7 @@ def test_rehearsal_at_a_cut_size(trace):
     assert res["metrics"] == {}
 
 
-@pytest.mark.parametrize("fault", ["unchanged", "altered"])
+@pytest.mark.parametrize("fault", ["unchanged", "half", "altered"])
 def test_fault_is_not_correct(fault, monkeypatch):
     from aind_smartspim_destripe_torch.runtime import pipeline
 
