@@ -20,14 +20,15 @@
 // K1 reads raw uint16 and fuses log(1+x) and the classifier's sums, K2
 // emits the per-plane |cH| range, K4 fuses exp(.)+1 and the flat-field or
 // wrap epilogue (epilogue.cuh, which the blend shares) into the uint16
-// store. Neighbouring threads touch neighbouring addresses. K1 and K4
-// stage each row segment once in shared memory (16-byte loads; K1 takes
-// log(1+x) once per input rather than once per tap) and compute their
-// outputs from there, each output's band read
-// once for all the block's rows. K4's epilogue (IEEE logf, expf and
-// division, no fast math) takes more issue time than its bytes take to
-// move; K4 runs four consecutive outputs per thread with vector loads and
-// stores and takes log(1 + pixel) once for every correction of the pixel.
+// store. Neighbouring threads touch neighbouring addresses. K1 stages each
+// row segment once in shared memory (16-byte loads; log(1+x) once per
+// input rather than once per tap) and computes its outputs from there,
+// each output's band read once for all the block's rows. K4's epilogue
+// (IEEE logf, expf and division, no fast math) takes more issue time than
+// its bytes take to move; K4 runs persistent blocks that walk many row
+// segments with their next items' copies in flight in a ring in shared
+// memory, four consecutive outputs per thread with vector stores, and
+// takes log(1 + pixel) once for every correction of the pixel.
 // K2 and K3 stage the span of input rows a run of output rows reads, each
 // thread its own columns, with asynchronous copies (all in flight at once,
 // 16-, 8- or 4-byte as the row pitch allows), and the run's band once, and
@@ -638,21 +639,131 @@ __global__ void __launch_bounds__(kBandCols / V, 1)
 
 enum K4Mode { kBare = 0, kExp = 1, kFlat = 2, kWrap = 3 };
 
-// K4 geometry: a block of kK4Threads computes kK4Seg consecutive outputs
-// (kK4Outs consecutive ones per thread) of kK4Rows rows of one image plane,
-// for every correction of that plane, from the segment of each correction
-// row it reads, which it stages in shared memory once.
+// K4 geometry. A block of kK4Threads threads, kK4Outs consecutive outputs
+// a thread, walks a run of items; an item is kK4Rows rows of one output
+// plane and one column segment of at most kK4Seg outputs. The host splits
+// the width into segments of near-equal width (a multiple of kK4Outs),
+// sizes the ring of stages from the shared-memory budget of
+// kK4BlocksPerSM blocks an SM and launches that many blocks an SM
+// (cuda_band.k4_geometry).
 constexpr int kK4Threads = 256;
 constexpr int kK4Outs = 4;
 constexpr int kK4Seg = kK4Threads * kK4Outs;
 constexpr int kK4Rows = 2;
+constexpr int kK4BlocksPerSM = 3;
+constexpr int kK4MaxStages = 4;
 // Taps per output held in registers (db1-db3's synthesis bands); wider
 // bands read theirs from device memory.
 constexpr int kK4Taps = 3;
-// Floats of a row segment's inputs: the synthesis band form's starts step
-// by 0-1 per output (the host checks it, cuda_band.check_k4_band), so a
-// segment reads at most (kK4Seg - 1) + K inputs, 3 more for alignment.
-constexpr int kK4Cap = kK4Seg + 64;
+
+// A ring slot of K4, in floats: the item's kK4Rows st rows of `cap`
+// floats, then (kExp, kFlat, kWrap) its pixel rows of kK4Seg TI and
+// (kFlat) its flat and dark rows of kK4Seg floats each, every region
+// 16-byte aligned (cap is a multiple of 4).
+template <typename TI, int kMode>
+struct K4Slot {
+  static constexpr int kPx =
+      kMode == kBare ? 0 : kK4Rows * kK4Seg * static_cast<int>(sizeof(TI)) / 4;
+  static constexpr int kFields = kMode == kFlat ? 2 * kK4Rows * kK4Seg : 0;
+  static __host__ __device__ int floats(int cap) {
+    return kK4Rows * cap + kPx + kFields;
+  }
+};
+
+// Wait until at most n (0 <= n <= kK4MaxStages - 2) of this thread's
+// committed cp.async groups are still in flight.
+__device__ __forceinline__ void k4_wait_pending(int n) {
+  static_assert(kK4MaxStages == 4, "one case per pending count");
+  if (n <= 0) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  } else if (n == 1) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  }
+}
+
+__device__ __forceinline__ void k4_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// A thread's kK4Outs values of T at src (n of them valid; full: all) into
+// its own place dst in shared memory: one cp.async where all are valid and
+// src is aligned to them, else n plain copies.
+template <typename T>
+__device__ __forceinline__ void k4_stage_own(T* dst, const T* src, int n,
+                                             bool full) {
+  constexpr int kBytes = kK4Outs * static_cast<int>(sizeof(T));
+  if (full && (reinterpret_cast<size_t>(src) & (kBytes - 1)) == 0) {
+    cp_async<kBytes / 4>(reinterpret_cast<float*>(dst),
+                         reinterpret_cast<const float*>(src));
+    return;
+  }
+#pragma unroll
+  for (int t = 0; t < kK4Outs; ++t) {
+    if (t < n) dst[t] = src[t];
+  }
+}
+
+// A thread's kK4Outs values of T from its own place in shared memory
+// (aligned to all of them), in one vector load.
+template <typename T>
+__device__ __forceinline__ void lds_own(const T* p, T* v) {
+  using V = typename VecOf<kK4Outs * sizeof(T)>::type;
+  union {
+    V q;
+    T v[kK4Outs];
+  } u;
+  u.q = *reinterpret_cast<const V*>(p);
+#pragma unroll
+  for (int t = 0; t < kK4Outs; ++t) v[t] = u.v[t];
+}
+
+// A K4 item: correction q of image plane z (output plane z + q P), row
+// group hq (rows [hq kK4Rows, (hq + 1) kK4Rows)) and segment sg. Items are
+// numbered with q fastest, then z, hq and sg, so a run of items takes
+// every correction of a pixel before the next plane, and every plane of a
+// row group before the next row group.
+struct K4Item {
+  int q, z, hq, sg;
+  __device__ __forceinline__ void advance(int nb, int P, int nhq) {
+    if (++q < nb) return;
+    q = 0;
+    if (++z < P) return;
+    z = 0;
+    if (++hq < nhq) return;
+    hq = 0;
+    ++sg;
+  }
+};
+
+// The inputs [in0, in1) of one correction row as the ring holds them:
+// [a0, a1) is the run's 16-byte aligned interior, a multiple of 4 floats,
+// and input e sits at row[e - o] of the slot, a0 - o being 0 or 4 floats,
+// so the interior lands 16-byte aligned in shared memory.
+struct K4Run {
+  int a0, a1, o;
+  __device__ __forceinline__ K4Run(const float* row, int in0, int in1) {
+    const int mis =
+        static_cast<int>((reinterpret_cast<size_t>(row + in0) & 15) / 4);
+    a0 = min(in0 + (mis ? 4 - mis : 0), in1);
+    a1 = a0 + (in1 - a0) / 4 * 4;
+    o = a0 - ((a0 - in0 + 3) & ~3);
+  }
+};
+
+// A thread's outputs in segment sg: from column j, n of them valid (full:
+// all kK4Outs).
+struct K4Cols {
+  int j, n;
+  bool full;
+  __device__ __forceinline__ K4Cols(int sg, int seg, int W) {
+    const int j1 = min((sg + 1) * seg, W);
+    j = sg * seg + threadIdx.x * kK4Outs;
+    full = j + kK4Outs <= j1;
+    n = full ? kK4Outs : (j < j1 ? j1 - j : 0);
+  }
+};
 
 // K4: corr[b, h, j] = sum_k coef[j, k] * st[b, h, start[j] + k], summed in
 // k order, one fmaf per term from 0, then
@@ -661,186 +772,271 @@ constexpr int kK4Cap = kK4Seg + 64;
 // truncated to uint16; kWrap: that, truncated to int32, modulo 2^16.
 // img holds P planes (P divides B) and output plane b reads image plane
 // b % P (the dual-band form: two corrections per raw plane).
-// Block (z, hq, s) owns outputs [s kK4Seg, (s + 1) kK4Seg) of rows
-// [hq kK4Rows, (hq + 1) kK4Rows) of image plane z and of every correction
-// b = z, z + P, ... < B: thread t the kK4Outs consecutive outputs from
-// s kK4Seg + kK4Outs t, whose band (start, and up to kK4Taps coef each) it
-// reads once into registers for all the block's rows and corrections. It
-// reads each pixel, flat and dark value once (8-byte uint16 or 16-byte
-// float loads where aligned), takes log(1 + pixel) once for all the
-// corrections, and for each correction stages the run of st its outputs
-// read, [start[j0], start[j1 - 1] + K), of each row in shared memory once
-// (16-byte loads where aligned, a scalar head and tail around them), then
-// sums each output's taps from there and stores its outputs as 8- or
-// 16-byte vectors where aligned (scalar where a row of W % 4 != 0 columns
-// is not). The planes of one row group are neighbours on grid.x, so they
-// share its flat and dark rows in L2. Two rows per block and at most 80
-// registers keep three blocks on an SM: the epilogue's IEEE logf, expf and
-// division take most of the time (PERF.md), and fewer resident warps hide
-// less of their latency.
+//
+// Persistent and pipelined. The grid fills the card (kK4BlocksPerSM blocks
+// an SM), and block g walks the items [N g / G, N (g + 1) / G) of the N in
+// order. Everything an item reads goes through a ring of `stages` slots
+// in shared memory by cp.async, one commit group an item: its st rows,
+// the run [start[j0], start[j1 - 1] + K) of its segment (16 bytes where
+// aligned, a 4-byte head and tail around them), and each thread's own
+// pixels (at a plane's first correction), flat and dark values (8- or
+// 16-byte copies where aligned, plain copies where not). While the block
+// computes item i, the copies of items i + 1 ... i + stages - 1 are in
+// flight, and the slot of item i - 1 is refilled once every thread has
+// passed the barrier that opens item i. log(1 + pixel) is taken once, at
+// a plane's first correction, for all its corrections. Each thread holds
+// its outputs' band (start, and up to kK4Taps coef each) in registers for
+// as long as its segment lasts, sums each output's taps from the ring, and
+// stores its outputs as 8- or 16-byte vectors where aligned (scalar where
+// a row of W % 4 != 0 columns is not).
+//
+// What bounds it: the epilogue (IEEE logf, expf and division, no fast
+// math) issues more instructions an output than the card takes to move
+// the kernel's 6 bytes an output, and each output's division ends in a
+// branch (its slow path) that the compiler does not schedule across, so
+// its chains want many warps. The ring hides the loads behind that issue:
+// the next items' copies are in flight during each item's taps and
+// epilogue, so no block waits at its barrier for data it has only just
+// asked for. The data in flight sits in shared memory, not registers, so
+// that three blocks fit an SM (80 registers) and 24 warps hide the
+// chains' latency: with the next item's pixels and fields in registers
+// only two fitted, and the epilogue forms ran slower than one-shot blocks
+// at three. Each thread sums the taps of both rows of an item at once,
+// then runs a row's four expf chains before its divisions. On an H100
+// (700 W, 64 planes of 1600 x 2000) the flat-field form runs 0.96 ms
+// against a 0.37 ms byte bound and the bare form, bound by bytes, 0.50 ms
+// against 0.37 (PERF.md).
 template <typename TI, int kMode>
-__global__ void __launch_bounds__(kK4Threads, 3)
+__global__ void __launch_bounds__(kK4Threads, kK4BlocksPerSM)
     k4_kernel(const float* __restrict__ st, const TI* __restrict__ img,
               const float* __restrict__ flat, const float* __restrict__ dark,
               void* __restrict__ out, const int* __restrict__ start,
-              const float* __restrict__ coef, int K, int B, int H, int L,
-              int W) {
+              const float* __restrict__ coef, int K, int B, int P, int H,
+              int L, int W, int seg, int cap, int stages) {
   using TO = typename std::conditional<kMode == kFlat || kMode == kWrap,
                                        unsigned short, float>::type;
-  __shared__ __align__(16) float v[kK4Rows][kK4Cap];
-  const int P = gridDim.x, z = blockIdx.x, tid = threadIdx.x;
-  const int h0 = blockIdx.y * kK4Rows;
-  const int rows = min(kK4Rows, H - h0);
-  const int j0 = blockIdx.z * kK4Seg;
-  const int j1 = min(j0 + kK4Seg, W);
-  const int in0 = start[j0], in1 = start[j1 - 1] + K;
-  if (in1 - in0 + 3 > kK4Cap) __trap();  // a band form the host refuses
-  const int j = j0 + tid * kK4Outs;
-  const bool full = j + kK4Outs <= j1;  // this thread's outputs: n, all?
-  const int n = full ? kK4Outs : (j < j1 ? j1 - j : 0);
+  using Slot = K4Slot<TI, kMode>;
+  extern __shared__ __align__(16) float ring[];  // stages slots
+  const int tid = threadIdx.x;
+  const int nb = B / P, nhq = (H + kK4Rows - 1) / kK4Rows;
+  const int slot_floats = Slot::floats(cap);
+  const long long n_items =
+      static_cast<long long>((W + seg - 1) / seg) * nhq * B;
+  const int i0 = static_cast<int>(n_items * blockIdx.x / gridDim.x);
+  const int i1 = static_cast<int>(n_items * (blockIdx.x + 1) / gridDim.x);
+  if (i0 >= i1) return;
 
-  // the band of the thread's outputs, once for all rows and corrections:
-  // starts (an idle output reads input in0), and up to kK4Taps taps each
-  // in registers (wider bands read theirs from device memory)
-  int s[kK4Outs];
-  float cr[kK4Outs][kK4Taps];
-  const bool taps_in_regs = K <= kK4Taps;
-  if (full) {
-    loadv<kK4Outs>(start + j, kK4Outs, true, s);
-  } else {
-#pragma unroll
-    for (int t = 0; t < kK4Outs; ++t) s[t] = t < n ? start[j + t] : in0;
-  }
-  if (full && K == kK4Taps) {
-    float c[kK4Outs * kK4Taps];
-    load_run<kK4Outs * kK4Taps>(coef + (size_t)j * K, c);
-#pragma unroll
-    for (int t = 0; t < kK4Outs; ++t) {
-#pragma unroll
-      for (int k = 0; k < kK4Taps; ++k) cr[t][k] = c[t * kK4Taps + k];
-    }
-  } else {
-#pragma unroll
-    for (int t = 0; t < kK4Outs; ++t) {
-#pragma unroll
-      for (int k = 0; k < kK4Taps; ++k) {
-        cr[t][k] = t < n && k < K ? coef[(size_t)(j + t) * K + k] : 0.0f;
-      }
-    }
-  }
+  // the st row r of an item, and the inputs its segment reads
+  auto st_row = [&](const K4Item& it, int r) {
+    return st + ((size_t)(it.z + it.q * P) * H + it.hq * kK4Rows + r) * L;
+  };
+  auto inputs = [&](int sg, int& in0, int& in1) {
+    const int j0 = sg * seg, j1 = min(j0 + seg, W);
+    in0 = start[j0];
+    in1 = start[j1 - 1] + K;
+    if (in1 - in0 + 3 > cap) __trap();  // a band form the host refuses
+  };
+  // a slot's regions: pixels, flat and dark rows (kK4Seg each)
+  auto px_of = [&](float* s) {
+    return reinterpret_cast<TI*>(s + kK4Rows * cap);
+  };
+  auto fl_of = [&](float* s) { return s + kK4Rows * cap + Slot::kPx; };
 
-  // the pixels (and flat, dark), loaded before the first staging, and the
-  // pixels' logs taken after it, so the loads overlap
-  float px[kK4Rows][kK4Outs], fl[kK4Rows][kK4Outs], dk[kK4Rows][kK4Outs];
-  if constexpr (kMode != kBare) {
+  // the copies of an item into a slot: st rows, and its pixels (at a
+  // plane's first correction, or the block's first item) and fields
+  auto stage = [&](const K4Item& it, int in0, int in1, bool pixels,
+                   float* s) {
+    const int h0 = it.hq * kK4Rows, rows = min(kK4Rows, H - h0);
 #pragma unroll
     for (int r = 0; r < kK4Rows; ++r) {
-      if (r < rows) {
-        const size_t pix = (size_t)(h0 + r) * W + j;
-        loadv<kK4Outs>(img + (size_t)z * H * W + pix, n, full, px[r]);
-        if constexpr (kMode == kFlat) {
-          loadv<kK4Outs>(flat + pix, n, full, fl[r]);
-          loadv<kK4Outs>(dark + pix, n, full, dk[r]);
-        }
+      if (r >= rows) break;
+      const float* row = st_row(it, r);
+      const K4Run run(row, in0, in1);
+      float* v = s + r * cap - run.o;
+      for (int e = run.a0 + 4 * tid; e < run.a1; e += 4 * kK4Threads) {
+        cp_async<4>(v + e, row + e);
       }
-    }
-  }
-
-  for (int b = z; b < B; b += P) {
-    if (b != z) __syncthreads();  // the last correction's reads are done
-    const float* plane = st + (size_t)b * H * L;
-    // per row: inputs [a0, a1) in 16-byte loads; v[r][e - o] holds input
-    // e, with a0 - o a multiple of 4 floats; the first 16-byte load of
-    // every row issued before any is stored, so they are all in flight
-    int a0[kK4Rows], a1[kK4Rows], o[kK4Rows];
-    float4 q[kK4Rows];
-#pragma unroll
-    for (int r = 0; r < kK4Rows; ++r) {
-      const float* row = plane + (size_t)(h0 + min(r, rows - 1)) * L;
-      const int mis =
-          static_cast<int>((reinterpret_cast<size_t>(row + in0) & 15) / 4);
-      a0[r] = min(in0 + (mis ? 4 - mis : 0), in1);
-      a1[r] = a0[r] + (in1 - a0[r]) / 4 * 4;
-      o[r] = a0[r] - ((a0[r] - in0 + 3) & ~3);
-      const int e = a0[r] + tid * 4;
-      if (r < rows && e < a1[r]) {
-        q[r] = __ldg(reinterpret_cast<const float4*>(row + e));
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kK4Rows; ++r) {
-      if (r < rows) {
-        const float* row = plane + (size_t)(h0 + r) * L;
-        float* vr = v[r] - o[r];  // vr[e] holds input e
-        for (int e = in0 + tid; e < a0[r]; e += kK4Threads) vr[e] = row[e];
-        for (int e = a1[r] + tid; e < in1; e += kK4Threads) vr[e] = row[e];
-        int e = a0[r] + tid * 4;
-        if (e < a1[r]) {
-          *reinterpret_cast<float4*>(vr + e) = q[r];
-          for (e += kK4Threads * 4; e < a1[r]; e += kK4Threads * 4) {
-            *reinterpret_cast<float4*>(vr + e) =
-                __ldg(reinterpret_cast<const float4*>(row + e));
-          }
-        }
+      if (in0 + tid < run.a0) cp_async<1>(v + in0 + tid, row + in0 + tid);
+      if (run.a1 + tid < in1) {
+        cp_async<1>(v + run.a1 + tid, row + run.a1 + tid);
       }
     }
     if constexpr (kMode != kBare) {
-      if (b == z) {
+      const K4Cols c(it.sg, seg, W);
+      const int own = tid * kK4Outs;
 #pragma unroll
-        for (int r = 0; r < kK4Rows; ++r) {
+      for (int r = 0; r < kK4Rows; ++r) {
+        if (r >= rows) break;
+        const size_t pix = (size_t)(h0 + r) * W + c.j;
+        if (pixels) {
+          k4_stage_own(px_of(s) + r * kK4Seg + own,
+                       img + (size_t)it.z * H * W + pix, c.n, c.full);
+        }
+        if constexpr (kMode == kFlat) {
+          k4_stage_own(fl_of(s) + r * kK4Seg + own, flat + pix, c.n, c.full);
+          k4_stage_own(fl_of(s) + (kK4Rows + r) * kK4Seg + own, dark + pix,
+                       c.n, c.full);
+        }
+      }
+    }
+  };
+
+  K4Item at;  // the item to stage next
+  {
+    int i = i0;
+    at.q = i % nb;
+    i /= nb;
+    at.z = i % P;
+    i /= P;
+    at.hq = i % nhq;
+    at.sg = i / nhq;
+  }
+  K4Item it = at;  // the item to compute
+  int at_sg = -1, at_in0 = 0, at_in1 = 0;
+  auto stage_next = [&](int slot, bool first) {
+    if (at.sg != at_sg) {
+      at_sg = at.sg;
+      inputs(at_sg, at_in0, at_in1);
+    }
+    stage(at, at_in0, at_in1, first || at.q == 0, ring + slot * slot_floats);
+    at.advance(nb, P, nhq);
+  };
+  for (int k = 0; k < stages - 1; ++k) {
+    if (i0 + k < i1) stage_next(k, k == 0);
+    k4_commit();
+  }
+
+  int sg = -1, in0 = 0, in1 = 0;
+  K4Cols c(it.sg, seg, W);
+  int s[kK4Outs];
+  float cr[kK4Outs][kK4Taps];
+  const bool taps_in_regs = K <= kK4Taps;
+  float px[kK4Rows][kK4Outs];
+  int slot = 0;
+  for (int i = i0; i < i1; ++i) {
+    k4_wait_pending(stages - 2);  // this thread's copies of item i landed
+    __syncthreads();  // everyone's; and nobody reads item i - 1's slot
+    if (i + stages - 1 < i1) {
+      stage_next(slot == 0 ? stages - 1 : slot - 1, false);
+    }
+    k4_commit();
+
+    if (it.sg != sg) {
+      // a new segment: its inputs, the thread's outputs and their band,
+      // once for all the segment's items (an idle output reads input in0)
+      sg = it.sg;
+      inputs(sg, in0, in1);
+      c = K4Cols(sg, seg, W);
+      if (c.full) {
+        loadv<kK4Outs>(start + c.j, kK4Outs, true, s);
+      } else {
 #pragma unroll
-          for (int t = 0; t < kK4Outs; ++t) {
-            if (r < rows && t < n) px[r][t] = logf(1.0f + px[r][t]);
+        for (int t = 0; t < kK4Outs; ++t) {
+          s[t] = t < c.n ? start[c.j + t] : in0;
+        }
+      }
+      if (c.full && K == kK4Taps) {
+        float cf[kK4Outs * kK4Taps];
+        load_run<kK4Outs * kK4Taps>(coef + (size_t)c.j * K, cf);
+#pragma unroll
+        for (int t = 0; t < kK4Outs; ++t) {
+#pragma unroll
+          for (int k = 0; k < kK4Taps; ++k) cr[t][k] = cf[t * kK4Taps + k];
+        }
+      } else {
+#pragma unroll
+        for (int t = 0; t < kK4Outs; ++t) {
+#pragma unroll
+          for (int k = 0; k < kK4Taps; ++k) {
+            cr[t][k] = t < c.n && k < K ? coef[(size_t)(c.j + t) * K + k]
+                                        : 0.0f;
           }
         }
       }
     }
-    __syncthreads();
 
+    // item i from its slot, both rows at once (a row past H or an idle
+    // thread computes from stale slot values and stores nothing), so that
+    // the chains of all the thread's outputs interleave
+    float* sl = ring + slot * slot_floats;
+    const int h0 = it.hq * kK4Rows, rows = min(kK4Rows, H - h0);
+    const int own = tid * kK4Outs;
+    if constexpr (kMode != kBare) {
+      if (i == i0 || it.q == 0) {
+        // a plane's first correction: log(1 + pixel) for all of them
 #pragma unroll
-    for (int r = 0; r < kK4Rows; ++r) {
-      if (r < rows && n > 0) {
-        const float* vr = v[r] - o[r];
-        float acc[kK4Outs];
-        if (taps_in_regs) {
+        for (int r = 0; r < kK4Rows; ++r) {
+          TI raw[kK4Outs];
+          lds_own(px_of(sl) + r * kK4Seg + own, raw);
 #pragma unroll
           for (int t = 0; t < kK4Outs; ++t) {
-            acc[t] = 0.0f;
+            px[r][t] = logf(1.0f + to_f32(raw[t]));
+          }
+        }
+      }
+    }
+    float acc[kK4Rows][kK4Outs];
 #pragma unroll
-            for (int k = 0; k < kK4Taps; ++k) {
-              if (k < K) acc[t] = fmaf(cr[t][k], vr[s[t] + k], acc[t]);
-            }
+    for (int r = 0; r < kK4Rows; ++r) {
+      const K4Run run(st_row(it, r), in0, in1);
+      const float* v = sl + r * cap - run.o;
+      if (taps_in_regs) {
+#pragma unroll
+        for (int t = 0; t < kK4Outs; ++t) {
+          acc[r][t] = 0.0f;
+#pragma unroll
+          for (int k = 0; k < kK4Taps; ++k) {
+            if (k < K) acc[r][t] = fmaf(cr[t][k], v[s[t] + k], acc[r][t]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int t = 0; t < kK4Outs; ++t) {
+          acc[r][t] = 0.0f;
+          const float* cf = coef + (size_t)min(c.j + t, W - 1) * K;
+          for (int k = 0; k < K; ++k) {
+            acc[r][t] = fmaf(cf[k], v[s[t] + k], acc[r][t]);
+          }
+        }
+      }
+    }
+    const int b = it.z + it.q * P;
+#pragma unroll
+    for (int r = 0; r < kK4Rows; ++r) {
+      TO y[kK4Outs];
+      if constexpr (kMode == kBare) {
+#pragma unroll
+        for (int t = 0; t < kK4Outs; ++t) y[t] = acc[r][t];
+      } else {
+        float e[kK4Outs];
+#pragma unroll
+        for (int t = 0; t < kK4Outs; ++t) {
+          e[t] = expf(px[r][t] + acc[r][t]) + 1.0f;
+        }
+        if constexpr (kMode == kExp) {
+#pragma unroll
+          for (int t = 0; t < kK4Outs; ++t) y[t] = e[t];
+        } else if constexpr (kMode == kFlat) {
+          float fl[kK4Outs], dk[kK4Outs];
+          lds_own(fl_of(sl) + r * kK4Seg + own, fl);
+          lds_own(fl_of(sl) + (kK4Rows + r) * kK4Seg + own, dk);
+#pragma unroll
+          for (int t = 0; t < kK4Outs; ++t) {
+            y[t] = destripe::epi_flat(e[t], dk[t], fl[t]);
           }
         } else {
 #pragma unroll
-          for (int t = 0; t < kK4Outs; ++t) {
-            acc[t] = 0.0f;
-            const float* c = coef + (size_t)(j + t) * K;
-            for (int k = 0; k < K && t < n; ++k) {
-              acc[t] = fmaf(c[k], vr[s[t] + k], acc[t]);
-            }
-          }
+          for (int t = 0; t < kK4Outs; ++t) y[t] = destripe::epi_wrap(e[t]);
         }
-        const size_t pix = (size_t)(h0 + r) * W + j;
-        TO y[kK4Outs];
-#pragma unroll
-        for (int t = 0; t < kK4Outs; ++t) {
-          if constexpr (kMode == kBare) {
-            y[t] = acc[t];
-          } else {
-            const float e = expf(px[r][t] + acc[t]) + 1.0f;
-            if constexpr (kMode == kExp) {
-              y[t] = e;
-            } else if constexpr (kMode == kFlat) {
-              y[t] = destripe::epi_flat(e, dk[r][t], fl[r][t]);
-            } else {
-              y[t] = destripe::epi_wrap(e);
-            }
-          }
-        }
-        storev<kK4Outs>(static_cast<TO*>(out) + (size_t)b * H * W + pix, n, full, y);
+      }
+      if (r < rows && c.n > 0) {
+        storev<kK4Outs>(static_cast<TO*>(out) +
+                            ((size_t)b * H + h0 + r) * W + c.j,
+                        c.n, c.full, y);
       }
     }
+    it.advance(nb, P, nhq);
+    slot = slot + 1 == stages ? 0 : slot + 1;
   }
 }
 
@@ -859,9 +1055,10 @@ int vec_width(int Wc, const void* a, const void* b, const void* c) {
   return 1;
 }
 
-// Launch a K2/K3 instance with smem bytes of dynamic shared memory,
+// Launch a K2/K3/K4 instance with smem bytes of dynamic shared memory,
 // raising the instance's limit first where it is above the default 48 KB
-// (wide bands under the run-time K instances).
+// (K2/K3: wide bands under the run-time K instances; K4: a ring of slots
+// with the flat and dark rows).
 template <typename... P, typename... A>
 cudaError_t launch_band(void (*kern)(P...), dim3 grid, int threads,
                         size_t smem, cudaStream_t s, A... args) {
@@ -898,29 +1095,24 @@ cudaError_t launch_k3(dim3 grid, size_t smem, cudaStream_t s,
 }
 
 template <typename TI>
-void launch_k4(dim3 grid, cudaStream_t s, const float* st, const void* img,
-               const float* flat, const float* dark, void* out,
-               const int* start, const float* coef, int K, int B, int H,
-               int L, int W, int mode) {
+cudaError_t launch_k4(int grid, cudaStream_t s, const float* st,
+                      const void* img, const float* flat, const float* dark,
+                      void* out, const int* start, const float* coef, int K,
+                      int B, int P, int H, int L, int W, int seg, int cap,
+                      int stages, int mode) {
   const TI* im = static_cast<const TI*>(img);
-  switch (mode) {
-    case kBare:
-      k4_kernel<TI, kBare><<<grid, kK4Threads, 0, s>>>(
-          st, im, flat, dark, out, start, coef, K, B, H, L, W);
-      break;
-    case kExp:
-      k4_kernel<TI, kExp><<<grid, kK4Threads, 0, s>>>(
-          st, im, flat, dark, out, start, coef, K, B, H, L, W);
-      break;
-    case kFlat:
-      k4_kernel<TI, kFlat><<<grid, kK4Threads, 0, s>>>(
-          st, im, flat, dark, out, start, coef, K, B, H, L, W);
-      break;
-    default:
-      k4_kernel<TI, kWrap><<<grid, kK4Threads, 0, s>>>(
-          st, im, flat, dark, out, start, coef, K, B, H, L, W);
-      break;
-  }
+  auto kern = mode == kBare  ? k4_kernel<TI, kBare>
+              : mode == kExp ? k4_kernel<TI, kExp>
+              : mode == kFlat ? k4_kernel<TI, kFlat>
+                              : k4_kernel<TI, kWrap>;
+  const int slot = mode == kBare  ? K4Slot<TI, kBare>::floats(cap)
+                   : mode == kExp ? K4Slot<TI, kExp>::floats(cap)
+                   : mode == kFlat ? K4Slot<TI, kFlat>::floats(cap)
+                                   : K4Slot<TI, kWrap>::floats(cap);
+  const size_t smem = sizeof(float) * stages * slot;
+  return launch_band(kern, dim3(grid), kK4Threads, smem, s, st, im, flat,
+                     dark, out, start, coef, K, B, P, H, L, W, seg, cap,
+                     stages);
 }
 
 template <typename T>
@@ -1035,23 +1227,32 @@ int destripe_k3(const float* corr, const float* delta, float* out,
 // st (B, H, L) f32 -> out (B, H, W): f32 for modes 0-1, uint16 for 2-3.
 // img (img_planes, H, W) uint16 (img_u16=1) or f32 with B a multiple of
 // img_planes (= B in mode 0), null in mode 0; flat, dark (H, W) f32, read in
-// mode 2 only. start steps by 0 or 1 per output.
+// mode 2 only. start steps by 0 or 1 per output. The launch geometry comes
+// from the host (cuda_band.k4_geometry): segments of `seg` columns (a
+// multiple of kK4Outs, at most kK4Seg), ring rows of `cap` floats (at
+// least seg + K + 2, a multiple of 4), `stages` slots (2 to kK4MaxStages)
+// and `grid` blocks.
 int destripe_k4(const float* st, const void* img, int img_u16,
                 const float* flat, const float* dark, void* out,
                 const int* start, const float* coef, int K, int B,
-                int img_planes, int H, int L, int W, int mode,
-                void* stream) {
-  const dim3 grid(img_planes, (H + kK4Rows - 1) / kK4Rows,
-                  (W + kK4Seg - 1) / kK4Seg);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (img_u16) {
-    launch_k4<unsigned short>(grid, s, st, img, flat, dark, out, start, coef,
-                              K, B, H, L, W, mode);
-  } else {
-    launch_k4<float>(grid, s, st, img, flat, dark, out, start, coef, K, B,
-                     H, L, W, mode);
+                int img_planes, int H, int L, int W, int mode, int seg,
+                int cap, int stages, int grid, void* stream) {
+  if (seg < kK4Outs || seg > kK4Seg || seg % kK4Outs || cap % 4 ||
+      cap < seg + K + 2 || stages < 2 || stages > kK4MaxStages || grid < 1 ||
+      img_planes < 1 || B % img_planes) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (img_u16) {
+    e = launch_k4<unsigned short>(grid, s, st, img, flat, dark, out,
+                                  start, coef, K, B, img_planes, H, L, W, seg,
+                                  cap, stages, mode);
+  } else {
+    e = launch_k4<float>(grid, s, st, img, flat, dark, out, start, coef,
+                         K, B, img_planes, H, L, W, seg, cap, stages, mode);
+  }
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

@@ -35,13 +35,13 @@ constants off the card always hold.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import wavelets
-from .cuda_build import check, launch, on_cuda
+from .cuda_build import check, launch, on_cuda, sm_count
 from .flatfield import flatfield_correction, wrap_cast
 
 __all__ = [
@@ -52,6 +52,7 @@ __all__ = [
     "check_k2_band",
     "check_k3_band",
     "check_k4_band",
+    "k4_geometry",
     "band_dense",
     "band_level_forms_taps",
     "an_x_lowpass_log1p",
@@ -70,19 +71,23 @@ __all__ = [
     "KERNELS",
 ]
 
-# Launch geometry, fixed in csrc/band.cu: K1 and K4 run blocks of 1024
-# outputs of a row (K1: float32 input's classifier partials per 256 of
-# them); a K1 segment stages at most 2112 inputs, so its band form's starts
-# step by 0-2 per output and K is at most 63 (check_k1_band); a K4 segment
-# at most 1088, so its starts step by 0-1 and K is at most 62
-# (check_k4_band). K2 and K3 run blocks of 256 columns by a run of 8 (K2)
-# or 16 (K3) output rows, staging the span of input rows the run reads:
-# K2's starts step by 0-2 per output, K3's by 0-1 and at most 8 times in a
-# run, and K is at most 64 (check_k2_band, check_k3_band); K2 writes one
-# |cH| range partial per block.
+# Launch geometry of csrc/band.cu: K1 runs blocks of 1024 outputs of a row
+# (float32 input's classifier partials per 256 of them); a K1 segment
+# stages at most 2112 inputs, so its band form's starts step by 0-2 per
+# output and K is at most 63 (check_k1_band). K4's persistent blocks walk
+# items of 2 rows by a segment of at most 1024 outputs (k4_geometry), whose
+# ring rows hold at most 1088 inputs, so its starts step by 0-1 and K is at
+# most 62 (check_k4_band). K2 and K3 run blocks of 256 columns by a run of
+# 8 (K2) or 16 (K3) output rows, staging the span of input rows the run
+# reads: K2's starts step by 0-2 per output, K3's by 0-1 and at most 8
+# times in a run, and K is at most 64 (check_k2_band, check_k3_band); K2
+# writes one |cH| range partial per block.
 _K1_GROUP = 256
 _K1_SEG, _K1_CAP = 1024, 2 * 1024 + 64
 _K4_SEG, _K4_CAP = 1024, 1024 + 64
+_K4_OUTS, _K4_ROWS = 4, 2  # outputs a thread, rows an item
+_K4_BLOCKS_PER_SM, _K4_MAX_STAGES = 3, 4
+_SMEM_PER_SM = 232448  # the shared memory an H100 SM gives its blocks
 _BAND_COLS, _K2_ROWS, _K3_ROWS, _BAND_MAX_K = 256, 8, 16, 64
 _GRID_MAX = 65535  # grid.y and grid.z
 
@@ -570,6 +575,55 @@ def syn_x_exp(
     return out
 
 
+class K4Geometry(NamedTuple):
+    """One K4 launch: segments of ``seg`` columns (``nseg`` of them), ring
+    rows of ``cap`` floats, ``stages`` ring slots (``smem`` bytes a
+    block), ``items`` items of 2 rows by a segment of one output plane,
+    and ``grid`` persistent blocks, block g walking items [items g / grid,
+    items (g + 1) / grid)."""
+
+    seg: int
+    nseg: int
+    cap: int
+    stages: int
+    smem: int
+    items: int
+    grid: int
+
+
+def k4_geometry(B: int, H: int, W: int, K: int, sms: int,
+                img_bytes: int = 0, fields: bool = False) -> K4Geometry:
+    """K4's launch for B output planes of H x W from a band of K taps on
+    a card of ``sms`` SMs, with image planes of ``img_bytes`` a pixel (0:
+    none, the bare form) and the flat and dark fields or not, from the
+    call's shapes alone: the width split into the fewest segments of at
+    most 1024 columns, of near-equal width (a multiple of 4, so every
+    thread's outputs stay aligned), so every block's items cost the same;
+    a ring row of the inputs a segment reads (at most seg - 1 + K, 3 more
+    for alignment); a ring slot of an item's 2 st rows, pixel rows and
+    field rows (csrc/band.cu K4Slot); as many slots, up to 4, as fit
+    three blocks on an SM; and three blocks on every SM, or one per item
+    where there are fewer."""
+    if min(B, H, W, K, sms) < 1:
+        raise ValueError(f"k4_geometry needs positive sizes, got B={B}, "
+                         f"H={H}, W={W}, K={K}, sms={sms}")
+    if K > _K4_CAP - _K4_SEG - 2:
+        raise ValueError(f"K4 takes bands of at most "
+                         f"{_K4_CAP - _K4_SEG - 2} taps, got {K}")
+    nseg = _cdiv(W, _K4_SEG)
+    seg = _cdiv(_cdiv(W, nseg), _K4_OUTS) * _K4_OUTS
+    nseg = _cdiv(W, seg)
+    cap = _cdiv(seg + K + 2, 4) * 4
+    slot_bytes = _K4_ROWS * (4 * cap + _K4_SEG * (img_bytes + 8 * fields))
+    stages = min(_K4_MAX_STAGES,
+                 _SMEM_PER_SM // _K4_BLOCKS_PER_SM // slot_bytes)
+    items = nseg * _cdiv(H, _K4_ROWS) * B
+    if items >= 2 ** 31:
+        raise ValueError(f"K4 takes fewer than 2^31 items, got {items}")
+    return K4Geometry(seg, nseg, cap, stages, stages * slot_bytes, items,
+                      min(items, _K4_BLOCKS_PER_SM * sms))
+
+
 def _k4(stacked, images, start, coef, flat, dark, wrap):
     """Launch K4 over the full width with the epilogue the inputs ask for."""
     B, H, L = stacked.shape
@@ -589,11 +643,15 @@ def _k4(stacked, images, start, coef, flat, dark, wrap):
         check("dark", dark, (torch.float32,), dev, (H, W))
     out_dtype = torch.uint16 if mode in (_FLAT, _WRAP) else torch.float32
     out = torch.empty((B, H, W), dtype=out_dtype, device=dev)
+    geo = k4_geometry(B, H, W, K, sm_count(dev.index),
+                      0 if images is None else images.element_size(),
+                      flat is not None)
     launch(
         "destripe_k4", dev, stacked.data_ptr(), _ptr(images),
         int(images is not None and images.dtype == torch.uint16),
         _ptr(flat), _ptr(dark), out.data_ptr(), start.data_ptr(),
-        coef.data_ptr(), K, B, Bi, H, L, W, mode,
+        coef.data_ptr(), K, B, Bi, H, L, W, mode, geo.seg, geo.cap,
+        geo.stages, geo.grid,
     )
     return out
 

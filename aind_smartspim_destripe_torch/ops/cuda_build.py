@@ -39,7 +39,7 @@ import torch
 from ..runtime.tracing import span
 
 __all__ = ["kernel_library", "build_dir", "find_nvcc", "SOURCES",
-           "digest_inputs", "on_cuda", "check", "launch"]
+           "digest_inputs", "on_cuda", "check", "launch", "sm_count"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = tuple(CSRC / name for name in ("band.cu", "hist.cu", "notch.cu",
@@ -69,7 +69,7 @@ _SIGNATURES = {
     "destripe_k3": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
     "destripe_k4": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
     "destripe_hist": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
     + [ctypes.c_int, ctypes.c_void_p]
     + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
@@ -208,6 +208,13 @@ def check(name: str, t: torch.Tensor, dtypes, device, shape=None) -> None:
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of card ``index``, which the
+    persistent and grid-filling launches size their grids from."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch(fn: str, device: torch.device, *args) -> None:

@@ -26,12 +26,12 @@ range pass), the histogram and the tail.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
 
 from .cuda_build import check, launch, on_cuda
+from .cuda_build import sm_count as _sm_count
 
 __all__ = [
     "abs_range_batch",
@@ -71,11 +71,6 @@ def hist_blocks(B: int, n_valid: int, sms: int) -> int:
     fill = -(-sms * _BLOCKS_PER_SM // B)
     work = -(-n_valid // (_THREADS * _MIN_PER_THREAD))
     return max(1, need, min(fill, work))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def bin_index(x, lo, span, nbins):

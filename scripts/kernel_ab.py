@@ -19,8 +19,12 @@ of 1600 x 2000 planes, and K3 in the dual form (128 corrections) at both
 levels; K4 at levels 0 (flat-field epilogue, uint16; also
 wrap and bare on the same inputs) and 1 (bare) of a 64-plane batch of
 1600 x 2000 planes, in the dual form (128
-corrections of 64 planes), and on the level-0 (flat-field) and level-1
-(bare) row shards of a 16384 x 18000 plane on two devices; the unmasked
+corrections of 64 planes), at levels 0 (flat-field, uint16) and 1 (bare)
+of a 4-plane batch of fused 16384 x 18000 planes as the stitched cell
+calls it, and on the level-0 (flat-field) and level-1 (bare) row shards
+of a 16384 x 18000 plane on two devices, each K4 line followed by its
+byte bound (every input, output and field moved once at 3.35 TB/s) and
+the share of it the call reaches; the unmasked
 median on BaSiC's (12, 128, 128) stack with its axis moved last (as
 ``models.basic._median0`` passes it, any copy the wrapper makes
 included), the same values contiguous, the level-0 and level-1 band
@@ -68,6 +72,7 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
+HBM_BYTES_S = 3.35e12  # an H100 SXM's device memory, bytes a second
 
 
 def main(argv=None):
@@ -179,6 +184,22 @@ def main(argv=None):
         h_in = L
     torch.cuda.empty_cache()
 
+    def record_k4(key, fn, st, img, out_bytes, field_px):
+        """Time a K4 call and print it beside its byte bound: st, the
+        image planes, the output and the flat and dark fields (field_px
+        float32 values each, None: no fields), each moved once at the
+        card's 3.35 TB/s."""
+        ms = record(key, fn)
+        if ms is None:
+            return
+        nbytes = (st.numel() * 4 + out_bytes
+                  + (0 if img is None else img.numel() * img.element_size())
+                  + (0 if field_px is None else 8 * field_px))
+        out[f"{key} bound"] = nbytes / HBM_BYTES_S * 1e3
+        print(f"[kernel-ab] {key} bound: {out[f'{key} bound']:.4f} ms "
+              f"({nbytes / 1e9:.4f} GB), {100 * out[f'{key} bound'] / ms:.1f}%"
+              " of it")
+
     x = torch.randint(0, 4000, (B, H, W), generator=g, device=dev,
                       dtype=torch.int32).to(torch.uint16)
     flat = 1.0 + 0.2 * torch.rand((H, W), generator=g, device=dev)
@@ -188,28 +209,58 @@ def main(argv=None):
         s_x = consts["syn_x_lo"][n - 1 - lvl]  # None: the kernel's band
         h = H if lvl == 0 else plan.ladder[n - 1][0]
         L_w = plan.ladder[n - 1 - lvl][1]
+        w = W if lvl == 0 else plan.ladder[n - 1][1]
         st = torch.randn((B, h, L_w), generator=g, device=dev) * 0.01
         if lvl == 0:
-            record("syn_x_exp level 0", lambda: cb.syn_x_exp(
+            record_k4("syn_x_exp level 0", lambda: cb.syn_x_exp(
                 st, x, s_x, bd["k4_start"], bd["k4_coef"], flat=flat,
-                dark=dark))
+                dark=dark), st, x, 2 * B * h * w, h * w)
             st2 = torch.randn((2 * B, h, L_w), generator=g,
                               device=dev) * 0.01
-            record("syn_x_exp dual", lambda: cb.syn_x_exp(
-                st2, x, s_x, bd["k4_start"], bd["k4_coef"]))
+            record_k4("syn_x_exp dual", lambda: cb.syn_x_exp(
+                st2, x, s_x, bd["k4_start"], bd["k4_coef"]), st2, x,
+                4 * 2 * B * h * w, None)
             del st2
             # the same bytes without the flat-field epilogue, and without
             # the exp/log one: what the epilogue's instructions cost
-            record("syn_x_exp level 0 wrap", lambda: cb.syn_x_exp(
-                st, x, s_x, bd["k4_start"], bd["k4_coef"], wrap=True))
-            record("syn_x_exp level 0 bare", lambda: cb.syn_x_exp(
-                st, None, s_x, bd["k4_start"], bd["k4_coef"]))
+            record_k4("syn_x_exp level 0 wrap", lambda: cb.syn_x_exp(
+                st, x, s_x, bd["k4_start"], bd["k4_coef"], wrap=True), st,
+                x, 2 * B * h * w, None)
+            record_k4("syn_x_exp level 0 bare", lambda: cb.syn_x_exp(
+                st, None, s_x, bd["k4_start"], bd["k4_coef"]), st, None,
+                4 * B * h * w, None)
         else:
-            record("syn_x_exp level 1", lambda: cb.syn_x_exp(
-                st, None, s_x, bd["k4_start"], bd["k4_coef"]))
+            record_k4("syn_x_exp level 1", lambda: cb.syn_x_exp(
+                st, None, s_x, bd["k4_start"], bd["k4_coef"]), st, None,
+                4 * B * h * w, None)
         del st
     del x, flat, dark, consts
     torch.cuda.empty_cache()
+
+    # K4 on the fused 16384 x 18000 plane as the stitched cell calls it, 4
+    # planes a batch: level 0 with the flat-field epilogue on uint16
+    # planes, level 1 bare (the band forms from the taps, as the plan's)
+    for lvl, (h, w) in enumerate(((16384, 18000), (8194, 9002))):
+        bd = cb.band_level_forms_taps(h, w, "db3")
+        start, coef = (torch.as_tensor(bd[k], device=dev)
+                       for k in ("k4_start", "k4_coef"))
+        st = torch.randn((4, h, tw.dwt_coeff_len(w, 6)), generator=g,
+                         device=dev) * 0.01
+        if lvl == 0:
+            img = torch.randint(0, 4000, (4, h, w), generator=g, device=dev,
+                                dtype=torch.int32).to(torch.uint16)
+            kw = dict(flat=1.0 + 0.2 * torch.rand((h, w), generator=g,
+                                                  device=dev),
+                      dark=torch.full((h, w), 3.0, device=dev))
+            record_k4("syn_x_exp fused level 0", lambda: cb.syn_x_exp(
+                st, img, None, start, coef, **kw), st, img, 2 * 4 * h * w,
+                h * w)
+            del img, kw
+        else:
+            record_k4("syn_x_exp fused level 1", lambda: cb.syn_x_exp(
+                st, None, None, start, coef), st, None, 4 * 4 * h * w, None)
+        del st
+        torch.cuda.empty_cache()
 
     # the row shards of a 16384 x 18000 plane on two devices
     for lvl, (rows, w) in enumerate(((8192, 18000), (4097, 9002))):
@@ -225,9 +276,11 @@ def main(argv=None):
             kw = dict(flat=1.0 + 0.2 * torch.rand((rows, w), generator=g,
                                                   device=dev),
                       dark=torch.full((rows, w), 3.0, device=dev))
-        record(f"syn_x_exp_chunked level {lvl}",
-               lambda: cb.syn_x_exp_chunked(st, img, None, start, coef,
-                                            **kw))
+        record_k4(f"syn_x_exp_chunked level {lvl}",
+                  lambda: cb.syn_x_exp_chunked(st, img, None, start, coef,
+                                               **kw), st, img,
+                  (2 if lvl == 0 else 4) * rows * w,
+                  rows * w if lvl == 0 else None)
         del st, img, kw
     torch.cuda.empty_cache()
 

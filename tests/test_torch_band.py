@@ -407,6 +407,113 @@ def test_check_k4_band_rejects(case):
     cb.check_k4_band(np.repeat(np.arange(600, dtype=np.int32), 2), 62)
 
 
+# K4's launches: (B, H, W, image bytes a pixel, fields) of each K4 call of
+# the three benchmark cells (1600x2000 levels 0-1 single and dual; the
+# fused 16384x18000 plane's banded levels 0-4 in 4-plane batches), the
+# row-sharded route's shards of that plane on two entries (single and
+# dual) and of the 4096x20480 plane at the dense-x gate, float32 images
+# with the fields (the largest slot), and the card test's fused case whose
+# items are not a multiple of the grid
+K4_LAUNCHES = {
+    "single L0": (64, 1600, 2000, 2, True),
+    "single L1": (64, 802, 1002, 0, False),
+    "dual L0": (128, 1600, 2000, 2, False),
+    "dual L1": (128, 802, 1002, 0, False),
+    "stitched L0": (4, 16384, 18000, 2, True),
+    "stitched L1": (4, 8194, 9002, 0, False),
+    "stitched L2": (4, 4099, 4503, 0, False),
+    "stitched L3": (4, 2052, 2254, 0, False),
+    "stitched L4": (4, 1028, 1129, 0, False),
+    "halo L0": (4, 8195, 18000, 2, True),
+    "halo dual L0": (8, 8195, 18000, 2, True),
+    "halo L1": (4, 4100, 9002, 0, False),
+    "halo 20480": (1, 2051, 20480, 2, True),
+    "float32 fields": (3, 37, 2000, 4, True),
+    "card fused": (4, 17, 18000, 2, True),
+}
+
+
+def _k4_decode(i, nb, P, nhq):
+    """Item i's (q, z, hq, sg), in the kernel's order: correction q of
+    image plane z fastest, then z, the row group hq, the segment sg."""
+    i, q = np.divmod(i, nb)
+    i, z = np.divmod(i, P)
+    sg, hq = np.divmod(i, nhq)
+    return q, z, hq, sg
+
+
+@pytest.mark.parametrize("name", list(K4_LAUNCHES))
+def test_k4_geometry_owns_every_output_once(name):
+    """K4's persistent launch at every shape the cells and the halo route
+    give it (a 132-SM card): the segments split the width into near-equal
+    runs; the items, each 2 rows by a segment of one output plane, cover
+    every output once; the blocks' runs of items partition them, one item
+    apart at most; the kernel's step from one item to the next is the
+    decoding of the next; every segment's inputs fit a ring row; and the
+    ring fits three blocks on an SM."""
+    from aind_smartspim_destripe_torch.ops import wavelets as tw
+    from aind_smartspim_destripe_torch.parallel.halo import _k4_taps_band
+
+    B, H, W, img_bytes, fields = K4_LAUNCHES[name]
+    P = B // 2 if "dual" in name else B
+    start, coef = _k4_taps_band(tw.dwt_coeff_len(W, 6), W, "db3")
+    K = coef.shape[1]
+    geo = cb.k4_geometry(B, H, W, K, 132, img_bytes, fields)
+    # segments: near-equal, aligned, covering [0, W)
+    assert geo.seg % 4 == 0 and geo.seg <= 1024
+    assert (geo.nseg - 1) * geo.seg < W <= geo.nseg * geo.seg
+    assert geo.nseg == -(-W // 1024)
+    assert W - (geo.nseg - 1) * geo.seg > geo.seg - 4 * geo.nseg
+    # every (output plane, row group, segment) exactly once
+    nhq = -(-H // 2)
+    assert geo.items == geo.nseg * nhq * B
+    i = np.arange(geo.items, dtype=np.int64)
+    q, z, hq, sg = _k4_decode(i, B // P, P, nhq)
+    key = ((z + q * P) * nhq + hq) * geo.nseg + sg
+    assert np.array_equal(np.sort(key), i)
+    # the kernel's advance (K4Item::advance) gives the next item's decoding
+    nq, nz, nh, ns = q + 1, z.copy(), hq.copy(), sg.copy()
+    wrap = nq == B // P
+    nq[wrap] = 0
+    nz[wrap] += 1
+    wrap = nz == P
+    nz[wrap] = 0
+    nh[wrap] += 1
+    wrap = nh == nhq
+    nh[wrap] = 0
+    ns[wrap] += 1
+    for got, want in zip((nq, nz, nh, ns), _k4_decode(i + 1, B // P, P,
+                                                       nhq)):
+        assert np.array_equal(got[:-1], want[:-1])
+    # the blocks' runs [N g / G, N (g + 1) / G)
+    assert geo.grid == min(geo.items, 3 * 132)
+    g = np.arange(geo.grid + 1, dtype=np.int64)
+    bounds = geo.items * g // geo.grid
+    assert bounds[0] == 0 and bounds[-1] == geo.items
+    assert set(np.diff(bounds).tolist()) <= {geo.items // geo.grid,
+                                             -(-geo.items // geo.grid)}
+    if name == "card fused":
+        assert geo.items > geo.grid and geo.items % geo.grid
+    # ring rows and shared memory
+    j0 = np.arange(geo.nseg) * geo.seg
+    j1 = np.minimum(j0 + geo.seg, W)
+    span = start[j1 - 1].astype(np.int64) + K - start[j0]
+    assert span.max() + 3 <= geo.cap and geo.cap % 4 == 0
+    assert 2 <= geo.stages <= 4
+    slot = 2 * (4 * geo.cap + 1024 * img_bytes + 1024 * 8 * fields)
+    assert geo.smem == geo.stages * slot
+    assert 3 * geo.smem <= 232448
+
+
+def test_k4_geometry_rejects():
+    """Bands wider than a ring row holds, and empty shapes."""
+    assert cb.k4_geometry(1, 1, 1, 62, 132).cap <= 1088
+    with pytest.raises(ValueError, match="at most 62 taps"):
+        cb.k4_geometry(4, 16, 2000, 63, 132)
+    with pytest.raises(ValueError, match="positive sizes"):
+        cb.k4_geometry(0, 16, 2000, 3, 132)
+
+
 def test_level1_chain(lvl1):
     """Level 1 (no log1p): K1 -> K2 and K3 -> bare K4 at 1280x1280."""
     jp, spec, bops, ops = lvl1

@@ -652,60 +652,97 @@ def _k4_inputs(rows, W, L, bi, dtype, seed, device):
 _K4_MODES = {"bare": None, "exp": {}, "flat": "flat", "wrap": dict(wrap=True)}
 
 
+# K4's cases beside a 1600x2000 plan's levels 0 and 1: (rows, width, image
+# planes) with the width's tap-built band. The fused 16384x18000 plane's
+# level-0 and level-1 widths (18 and 9 segments; at level 0, 17 rows of 4
+# planes are 648 items, 1296 in the dual form, not a multiple of a 132-SM
+# card's 396 blocks, so some blocks walk one item more); a ragged odd
+# width, 2001 (L = 1003: uint16 rows that start at odd elements, partial
+# last threads).
+_K4_CASES = {"fused0": (17, 18000, 4), "fused1": (9, 9002, 4),
+             "odd": (37, 2001, 3)}
+
+
+def _k4_case(level, dtype, card):
+    """(inputs, start, coef) of a test_card_k4_fixed_order case."""
+    if level in (0, 1):
+        ops = _ops((1600, 2000), level, card)
+        W, L = ops["syn_x_lo"].shape
+        return (_k4_inputs(37, W, L, 3, dtype, 400 + level, card),
+                ops["k4_start"], ops["k4_coef"])
+    from aind_smartspim_destripe_torch.ops import wavelets as tw
+    from aind_smartspim_destripe_torch.parallel.halo import _k4_taps_band
+
+    rows, W, bi = _K4_CASES[level]
+    L = tw.dwt_coeff_len(W, 6)
+    start, coef = (torch.from_numpy(a).to(card)
+                   for a in _k4_taps_band(L, W, "db3"))
+    return _k4_inputs(rows, W, L, bi, dtype, W, card), start, coef
+
+
 @pytest.mark.parametrize("dtype", [torch.uint16, torch.float32],
                          ids=["u16", "f32"])
 @pytest.mark.parametrize("mode", list(_K4_MODES))
-@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("level", [0, 1, *_K4_CASES])
 def test_card_k4_fixed_order(card, level, mode, dtype):
     """K4 at levels 0 and 1 of a 1600x2000 plan (W = 2000 and 1002: rows
     of W % 4 != 0 columns take the scalar head of its vector loads and
-    stores), in each mode, on uint16 and float32 images (37 rows: a partial
-    block of rows): bit-equal to its witness; and, with B = 2 Bi, the dual
-    form (correction b reads image plane b mod Bi)."""
-    ops = _ops((1600, 2000), level, card)
-    start, coef = ops["k4_start"], ops["k4_coef"]
-    W, L = ops["syn_x_lo"].shape
-    img, flat, dark, st = _k4_inputs(37, W, L, 3, dtype, 400 + level, card)
+    stores) and at the _K4_CASES widths, in each mode, on uint16 and
+    float32 images (37 rows: a partial row group): bit-equal to its
+    witness; and, with B = 2 Bi, the dual form (correction b reads image
+    plane b mod Bi)."""
+    (img, flat, dark, st), start, coef = _k4_case(level, dtype, card)
     kw = _K4_MODES[mode]
     if kw is None:
         img, kw = None, {}
     elif kw == "flat":
         kw = dict(flat=flat, dark=dark)
     tops.reset_launches()
-    got = cb.syn_x_exp(st, img, ops["syn_x_lo"], start, coef, **kw)
+    got = cb.syn_x_exp(st, img, None, start, coef, **kw)
     assert cb.syn_x_exp.launches == 1
     assert torch.equal(got, _k4_witness(st, img, start, coef, **kw))
     if img is not None:
         st2 = torch.cat([st, st.flip(0) * 2.0])
-        got = cb.syn_x_exp(st2, img, ops["syn_x_lo"], start, coef, **kw)
+        got = cb.syn_x_exp(st2, img, None, start, coef, **kw)
         assert torch.equal(got, _k4_witness(st2, img, start, coef, **kw))
 
 
-def test_card_k4_wide_band_fixed_order(card):
-    """K4 on a db6 plan's level 0, whose synthesis band has more taps than
-    the kernel holds in registers (it reads them from device memory):
-    bit-equal to its witness, bare and flat-field on uint16."""
-    cfg = tf.FilterConfig(wavelet="db6", level=None, sigma=64,
-                          max_threshold=3)
-    plan = tf.build_plan(640, 768, cfg, cfg)
-    consts = tf.device_constants(plan, card)
-    s_x = consts["syn_x_lo"][plan.n_levels - 1]  # None: the kernel's band
-    start, coef = consts["band0"]["k4_start"], consts["band0"]["k4_coef"]
+@pytest.mark.parametrize("form", ["db6 640x768", "db20 18000"])
+def test_card_k4_wide_band_fixed_order(card, form):
+    """K4 on bands with more taps than the kernel holds in registers (it
+    reads them from device memory): a db6 plan's level 0 (640x768, one
+    segment), and db20's tap-built band at 18000 columns (K = 21, 18
+    segments): bit-equal to its witness, bare and flat-field on uint16."""
+    if form == "db6 640x768":
+        cfg = tf.FilterConfig(wavelet="db6", level=None, sigma=64,
+                              max_threshold=3)
+        plan = tf.build_plan(640, 768, cfg, cfg)
+        consts = tf.device_constants(plan, card)
+        start = consts["band0"]["k4_start"]
+        coef = consts["band0"]["k4_coef"]
+        rows, bi = 9, 2
+    else:
+        from aind_smartspim_destripe_torch.ops import wavelets as tw
+        from aind_smartspim_destripe_torch.parallel.halo import _k4_taps_band
+
+        start, coef = (torch.from_numpy(a).to(card) for a in _k4_taps_band(
+            tw.dwt_coeff_len(18000, 40), 18000, "db20"))
+        rows, bi = 5, 4
     assert coef.shape[1] > 3
     W = coef.shape[0]
     L = int(start.max()) + coef.shape[1]
-    img, flat, dark, st = _k4_inputs(9, W, L, 2, torch.uint16, 6, card)
+    img, flat, dark, st = _k4_inputs(rows, W, L, bi, torch.uint16, 6, card)
     for im, kw in ((None, {}), (img, dict(flat=flat, dark=dark))):
-        got = cb.syn_x_exp(st, im, s_x, start, coef, **kw)
+        got = cb.syn_x_exp(st, im, None, start, coef, **kw)
         assert torch.equal(got, _k4_witness(st, im, start, coef, **kw))
 
 
-@pytest.mark.parametrize("width", [18000, 20480])
+@pytest.mark.parametrize("width", [18000, 20480, 9002])
 def test_card_k4_row_shard_fixed_order(card, width):
     """K4 on a row shard from the route's tap-built band form: a
-    16384x18000 plane's level 0, and rows of the 4096x20480 plane at the
-    dense-x gate (the banded tier); bare, and flat-field on uint16:
-    bit-equal to its witness."""
+    16384x18000 plane's levels 0 and 1 (18000 and 9002 columns), and rows
+    of the 4096x20480 plane at the dense-x gate (the banded tier); bare,
+    and flat-field on uint16: bit-equal to its witness."""
     from aind_smartspim_destripe_torch.ops import wavelets as tw
     from aind_smartspim_destripe_torch.parallel.halo import _k4_taps_band
 
